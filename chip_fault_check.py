@@ -20,9 +20,10 @@ kernel, on one card:
 
 It copies the port into ``build/fault_check/``, plants one fault in each
 flash kernel there (K1 and K2 skip key tile SKIP_KT, K3 skips query tile
-SKIP_QT: a mid-sequence tile dropped for the late rows or the early
-keys), builds the copy, and reads ``chip_smoke.kernel_errors`` for the
-sound and the faulted kernels on the same inputs at the main-path shape.
+SKIP_QT, both of 64 rows: a mid-sequence tile dropped for the late rows or
+the early keys; ``planted_source`` does the patching), builds the copy,
+and reads ``chip_smoke.kernel_errors`` for the sound and the faulted
+kernels on the same inputs at the main-path shape.
 It exits 0 when every sound reading is within its limit and every bf16
 output of every faulted kernel is past it. The last line is the readings
 as JSON.
@@ -40,15 +41,23 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 COPY = os.path.join(REPO, "build", "fault_check")
 
 SKIP_KT = 16  # keys 1024..1087 at a 64-row tile
-SKIP_QT = 24  # queries 1536..1599
-# (anchor in the source, line inserted after it, occurrences): the k-tile
-# loop heads of K1 and K2, and the q-tile loop head of K3.
+SKIP_QT = 24  # queries 1536..1599 at a 64-row tile
+# (anchor in the source, line inserted after it, occurrences). K1 and K3
+# run a copy ring: the skip goes after the barrier at which a tile has
+# landed and keeps the barrier that frees its stage, so the ring runs on.
+# K1 steps 128 keys at a time, so it skips the step that holds SKIP_KT
+# (keys 1024..1151); K3 steps 64 query rows, exactly SKIP_QT.
 FAULTS = [
+    # K1: the key-tile loop, once tile kt is in shared memory.
+    ("    __syncthreads();  // key tile kt has landed in stage st\n",
+     f"    if (kt == {SKIP_KT} * 64 / C::kN) {{ __syncthreads(); continue; }}\n",
+     1),
+    # K2: the key-tile loop head.
     ("  for (int kt = 0; kt < n_kt; ++kt) {\n    const int k0 = kt * kTile;\n",
-     f"    if (kt == {SKIP_KT}) continue;\n", 2),
-    ("  for (int qt = qt_start; qt < n_qt; ++qt) {\n"
-     "    const int q0 = qt * kTile;\n",
-     f"    if (qt == {SKIP_QT}) continue;\n", 1),
+     f"    if (kt == {SKIP_KT}) continue;\n", 1),
+    # K3: the query-tile loop, once tile qt is in shared memory.
+    ("    __syncthreads();  // query tile qt has landed in stage st\n",
+     f"    if (q0 / 64 == {SKIP_QT}) {{ __syncthreads(); continue; }}\n", 1),
 ]
 
 READ = """
@@ -60,31 +69,45 @@ print(json.dumps(readings))
 """
 
 
-def plant():
-    shutil.rmtree(COPY, ignore_errors=True)
-    os.makedirs(COPY)
-    shutil.copy(os.path.join(REPO, "chip_smoke.py"), COPY)
-    shutil.copytree(os.path.join(REPO, "rayfed_tpu_torch"),
-                    os.path.join(COPY, "rayfed_tpu_torch"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    src = os.path.join(COPY, "rayfed_tpu_torch", "csrc", "flash_attention.cu")
-    with open(src) as f:
-        text = f.read()
+def planted_source(text):
+    """``text`` (the kernels' source) with every fault of ``FAULTS``
+    inserted; raises ValueError when an anchor is not found exactly its
+    stated number of times, so a changed kernel cannot disarm the check."""
     for anchor, line, count in FAULTS:
         if text.count(anchor) != count:
-            raise SystemExit(f"fault anchor found {text.count(anchor)} times, "
-                             f"not {count}: {anchor!r}")
+            raise ValueError(f"fault anchor found {text.count(anchor)} "
+                             f"times, not {count}: {anchor!r}")
         text = text.replace(anchor, anchor + line)
+    return text
+
+
+def copy_port(dest, edit):
+    """Copy ``chip_smoke.py`` and the port into ``dest`` (emptied first)
+    with the kernels' source passed through ``edit(text) -> text``."""
+    shutil.rmtree(dest, ignore_errors=True)
+    os.makedirs(dest)
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), dest)
+    shutil.copytree(os.path.join(REPO, "rayfed_tpu_torch"),
+                    os.path.join(dest, "rayfed_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = os.path.join(dest, "rayfed_tpu_torch", "csrc", "flash_attention.cu")
+    with open(src) as f:
+        text = edit(f.read())
     with open(src, "w") as f:
         f.write(text)
 
 
-def read(root):
-    out = subprocess.run([sys.executable, "-c", READ], cwd=root,
+def run_code(root, code):
+    """Run ``code`` in a fresh interpreter in ``root``; its stdout."""
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=900)
     if out.returncode != 0:
-        raise SystemExit(f"readings in {root} failed:\n{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+        raise SystemExit(f"run in {root} failed:\n{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def read(root):
+    return json.loads(run_code(root, READ).strip().splitlines()[-1])
 
 
 def main():
@@ -92,7 +115,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the check runs the kernels on a card")
-    plant()
+    copy_port(COPY, planted_source)
     sound, faulted = read(REPO), read(COPY)
     ok = True
     for name, (r, lim) in sound.items():

@@ -20,7 +20,9 @@
 Phases:
 
 1. device: the card's name, count, power limit; TF32 off.
-2. build: the Hopper kernels from ``rayfed_tpu_torch/csrc`` (nvcc).
+2. build: the Hopper kernels from ``rayfed_tpu_torch/csrc`` (nvcc); each
+   kernel's registers, spills, shared memory and resident blocks per SM
+   at the flagship head dim (K1 and K3 must not spill).
 3. kernels: each flash kernel against its plain PyTorch version on the
    card, in bf16, at the flagship attention shape and at small shapes
    (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every head dim); times of
@@ -135,7 +137,10 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 
-def phase_build():
+def phase_build(head_dim):
+    """Build the kernels; print the compiler's report and, for each kernel
+    at ``head_dim``, the resources the card gives it. Fails if K1 or K3
+    spills registers there."""
     from rayfed_tpu_torch.ops import _native
 
     t0 = time.perf_counter()
@@ -144,9 +149,32 @@ def phase_build():
     secs = time.perf_counter() - t0
     print(f"[build] {os.path.relpath(path, REPO)} in {secs:.1f}s")
     with open(path + ".log") as f:
-        for line in ptxas_report(f.read()):
-            print(f"[build] {line}")
+        log = f.read()
+    for line in ptxas_report(log):
+        print(f"[build] {line}")
+    resources = kernel_resources(log, head_dim)
+    for name, res in resources.items():
+        print(f"[build] {name}<{head_dim}>: {res['registers']} registers, "
+              f"{res['spill_bytes']} spill bytes, {res['smem_bytes']} B "
+              f"dynamic shared memory, {res['threads']} threads, "
+              f"{res['blocks_per_sm']} resident blocks per SM")
+    print(json.dumps({"resources": {"head_dim": head_dim, **resources}}))
+    for name in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+        require(resources[name]["spill_bytes"] == 0,
+                f"{name}<{head_dim}> spills: {resources[name]}")
     return secs
+
+
+def kernel_resources(log, head_dim):
+    """{kernel: resources at ``head_dim``}: what the card gives it
+    (``_native.kernel_resources``) and its spill bytes from the compiler's
+    report ``log``."""
+    from rayfed_tpu_torch.ops import _native
+
+    spills = ptxas_spills(log)
+    return {name: dict(_native.kernel_resources(name, head_dim),
+                       spill_bytes=spills.get(f"{name}<{head_dim}>"))
+            for name in _native.KERNEL_NAMES}
 
 
 def ptxas_report(log):
@@ -158,6 +186,18 @@ def ptxas_report(log):
             kernel = f"{m.group(1)}<{m.group(2)}>"
         elif "registers" in line or "spill" in line:
             out.append(f"{kernel}: " + line.split(":", 1)[-1].strip())
+    return out
+
+
+def ptxas_spills(log):
+    """{"kernel<D>": spill store + load bytes} from ``nvcc -Xptxas -v``."""
+    out = {}
+    for line in ptxas_report(log):
+        kernel, _, rest = line.partition(": ")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      rest)
+        if m:
+            out[kernel] = int(m.group(1)) + int(m.group(2))
     return out
 
 
@@ -290,7 +330,7 @@ def phase_kernels(device, batch, seq, heads, head_dim, smi):
 
     for shape in [(2, 96, 160, 3, 32, 64), (1, 192, 320, 4, 64, 128),
                   (2, 128, 128, 2, 16, 0), (1, 200, 200, 2, 128, 0),
-                  (1, 256, 512, 4, 128, 256)]:
+                  (1, 256, 512, 4, 128, 256), (1, 136, 328, 3, 128, 150)]:
         check_kernels(device, *shape, seed=1)
 
     b, s, h, d = batch, seq, heads, head_dim
@@ -568,7 +608,7 @@ def main():
     import torch
 
     name, smi = phase_device()
-    phase_build()
+    phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
 
     from rayfed_tpu_torch.models import transformer as tfm
 

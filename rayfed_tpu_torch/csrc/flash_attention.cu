@@ -33,16 +33,26 @@
 // What bounds them on this card: at the main path's shape (S = 2048,
 // D = 128) every kernel does ~S/2 multiply-adds per byte it must move, far
 // above the H100's ~295 FLOP/byte ridge, so they are bound by tensor-core
-// operations, not memory. The design keeps the S x S scores out of device
-// memory (one 64 x 64 tile at a time in shared memory), feeds the tensor
-// cores bf16 through WMMA 16x16x16 fragments with f32 accumulation, and
-// skips every tile above the causal diagonal. The Pallas kernels' 512 x 512
-// VMEM blocks do not fit a Hopper block's 227 KB, so the tile is 64 rows of
-// q (or k) per block with 4 warps, each warp owning 16 rows; K/V (or Q/dO)
-// tiles are staged in shared memory and every row's softmax runs on the
-// two lanes that own it. There are no atomics: dQ and dK/dV are two passes,
-// so gradients are deterministic as in the reference. wgmma/TMA pipelines
-// are left for a later change.
+// operations, not memory. Every kernel keeps the S x S scores out of
+// device memory and skips every tile above the causal diagonal. There are
+// no atomics: dQ and dK/dV are two passes, so gradients are deterministic
+// as in the reference.
+//
+// K1 and K3 are built for Hopper's warpgroup MMA (wgmma), the only route
+// to the card's tensor-core rate. Each warpgroup (128 threads) owns 64
+// rows (queries in K1, keys in K3) and a block holds two, which share the
+// streamed tiles (K1: 128 queries against 128-key K/V tiles; K3: 128 keys,
+// resident with their V, against 64-query Q/dO/lse/delta tiles). Tiles sit
+// in shared memory in the layout of the 128-byte swizzle that wgmma reads
+// through a matrix descriptor; they arrive by cp.async (which reads the
+// (b, s, h) strides and zero-fills ragged rows) into a two-stage ring, so
+// the copy of tile i+1 runs while tile i is computed. Scores come out of wgmma in registers, the
+// softmax runs there (row max and sum over the four lanes of a quad that
+// own a row), and the bf16 probabilities are fed straight back as the
+// register A operand of the next wgmma: no score, probability or partial
+// output tile goes through shared memory. K2 still uses the first port's
+// WMMA design (16x16x16 fragments, a 64 x 64 score tile staged in shared
+// memory), which a later change will bring to K1's and K3's shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,8 +65,8 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kTile = 64;  // rows of q or k per block and per inner step
-constexpr int kWarps = 4;  // each warp owns 16 rows of the tile
+constexpr int kTile = 64;  // rows of q or k per block and per inner step (K2)
+constexpr int kWarps = 4;  // each warp owns 16 rows of the tile (K2)
 constexpr int kThreads = kWarps * 32;
 constexpr int kLdS = kTile + 4;  // f32 score-tile row stride (elements)
 constexpr int kLdP = kTile + 8;  // bf16 probability-tile row stride
@@ -81,6 +91,10 @@ struct Params {
   int B, H, Sq, Sk, q_offset;
   float scale;
 };
+
+// ---------------------------------------------------------------------------
+// K2: WMMA fragments, tiles staged in shared memory
+// ---------------------------------------------------------------------------
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
@@ -165,136 +179,6 @@ __device__ void warp_write_rows(bf16* dst, long long stride_s,
     if (row0 + r < n_rows) {
       dst[(long long)(row0 + r) * stride_s + c] =
           __float2bfloat16(stage[r * ld_stage<D>() + c]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return 3 * kTile * ld_tile<D>() * sizeof(bf16)  // q, k, v tiles
-         + kTile * kLdS * sizeof(float)           // scores
-         + kTile * kLdP * sizeof(bf16)            // probabilities
-         + kTile * ld_stage<D>() * sizeof(float)  // P.V of one step
-         + 2 * kTile * sizeof(float);             // alpha, l per row
-}
-
-// K1: one block per (q tile, b * h). Online softmax over the k tiles at
-// or below the tile's last query row.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kTile * ld_tile<D>();
-  bf16* sV = sK + kTile * ld_tile<D>();
-  float* sS = reinterpret_cast<float*>(sV + kTile * ld_tile<D>());
-  bf16* sP = reinterpret_cast<bf16*>(sS + kTile * kLdS);
-  float* sPV = reinterpret_cast<float*>(sP + kTile * kLdP);
-  float* sAlpha = sPV + kTile * ld_stage<D>();
-  float* sL = sAlpha + kTile;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int q0 = blockIdx.x * kTile;
-
-  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + h * p.v_sh;
-
-  load_tile<D>(sQ, qb, p.q_ss, q0, p.Sq);
-
-  // The two lanes (lane, lane ^ 1) share a row: each takes 32 columns.
-  const int wr = warp * 16 + lane / 2;
-  const int c0 = (lane & 1) * 32;
-  const int q_pos = p.q_offset + q0 + wr;
-  float m_run = kNegBig;
-  float l_run = 0.0f;
-  float acc[D / 2];  // this lane's share of the warp's 16 x D output
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-
-  const int q_last = p.q_offset + min(q0 + kTile, p.Sq) - 1;
-  const int n_kt = min(q_last / kTile + 1, (p.Sk + kTile - 1) / kTile);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous k/v tiles
-    load_tile<D>(sK, kb, p.k_ss, k0, p.Sk);
-    load_tile<D>(sV, vb, p.v_ss, k0, p.Sk);
-    __syncthreads();
-
-    warp_abt<D>(sS + warp * 16 * kLdS, sQ + warp * 16 * ld_tile<D>(), sK);
-    __syncwarp();
-
-    float* srow = sS + wr * kLdS;
-    float mx = kNegBig;
-    for (int c = c0; c < c0 + 32; ++c) {
-      const int k_pos = k0 + c;
-      float s = srow[c] * p.scale;
-      s = (q_pos >= k_pos && k_pos < p.Sk) ? s : kNegBig;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float sum = 0.0f;
-    bf16* prow = sP + wr * kLdP;
-    for (int c = c0; c < c0 + 32; ++c) {
-      const float e = expf(srow[c] - m_new);
-      sum += e;
-      prow[c] = __float2bfloat16(e);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    if ((lane & 1) == 0) sAlpha[wr] = alpha;
-    __syncwarp();
-
-    // P.V for this step into f32 staging, then acc = acc * alpha + P.V.
-    FragC pv[D / 16];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(pv[j], 0.0f);
-    warp_ab_acc<D>(pv, sP + warp * 16 * kLdP, sV);
-    float* stage = sPV + warp * 16 * ld_stage<D>();
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::store_matrix_sync(stage + j * 16, pv[j], ld_stage<D>(),
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) {
-      const int e = lane + 32 * i;
-      const int r = e / D;
-      const int c = e % D;
-      acc[i] = acc[i] * sAlpha[warp * 16 + r] + stage[r * ld_stage<D>() + c];
-    }
-    __syncwarp();
-  }
-
-  const float l_safe = fmaxf(l_run, 1e-30f);
-  if ((lane & 1) == 0) {
-    sL[wr] = l_safe;
-    if (q0 + wr < p.Sq) {
-      p.stat_out[((long long)b * p.Sq + q0 + wr) * p.H + h] =
-          m_run + logf(l_safe);
-    }
-  }
-  __syncwarp();
-  const long long o_ss = (long long)p.H * D;
-  bf16* ob = p.out0 + (long long)b * p.Sq * o_ss + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
-    const int e = lane + 32 * i;
-    const int r = e / D;
-    const int c = e % D;
-    const int row = q0 + warp * 16 + r;
-    if (row < p.Sq) {
-      ob[row * o_ss + c] = __float2bfloat16(acc[i] / sL[warp * 16 + r]);
     }
   }
 }
@@ -414,117 +298,667 @@ flash_bwd_dq_kernel(const Params p) {
                      o_ss, stage, q0 + warp * 16, p.Sq, lane);
 }
 
+// ---------------------------------------------------------------------------
+// Hopper building blocks for K1 and K3: cp.async ring, swizzled tiles,
+// wgmma descriptors and instructions
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;  // one warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Width in elements of a swizzled tile: whole 64-element (128-byte) column
+// blocks. Columns past D are never loaded; they feed only product columns
+// (or terms of a zero-width sum) that are discarded.
 template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return 4 * kTile * ld_tile<D>() * sizeof(bf16)  // k, v, q, dout tiles
-         + 2 * kTile * kLdS * sizeof(float)       // S^T, dP^T
-         + 2 * kTile * kLdP * sizeof(bf16)        // P^T, dS^T
-         + 2 * kTile * sizeof(float);             // lse, delta per q row
+__host__ __device__ constexpr int dpad() { return D < 64 ? 64 : D; }
+
+// Bytes of an R-row swizzled bf16 tile.
+template <int D, int R>
+__host__ __device__ constexpr int sw_bytes() { return R * dpad<D>() * 2; }
+
+// Byte offset of element (r, c), c a multiple of 8, in an R-row tile laid
+// out for the 128-byte swizzle: 64-column blocks of R rows x 128 bytes
+// each, the 16-byte chunk index XOR-ed with r % 8. Tiles start on 1024-byte
+// boundaries, the swizzle's period.
+template <int R>
+__device__ __forceinline__ uint32_t sw_offset(int r, int c) {
+  return (c / 64) * (R * 128) + r * 128 + ((((c % 64) / 8) ^ (r & 7)) * 16);
 }
 
-// K3: one block per (k tile, b * h); streams the q tiles at or after the
-// diagonal, working in the transposed orientation (rows are keys) so each
-// warp owns 16 key rows of dK and dV in f32 accumulator fragments.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kTile * ld_tile<D>();
-  bf16* sQ = sV + kTile * ld_tile<D>();
-  bf16* sDO = sQ + kTile * ld_tile<D>();
-  float* sST = reinterpret_cast<float*>(sDO + kTile * ld_tile<D>());
-  float* sDPT = sST + kTile * kLdS;
-  bf16* sPT = reinterpret_cast<bf16*>(sDPT + kTile * kLdS);
-  bf16* sDST = sPT + kTile * kLdP;
-  float* sLse = reinterpret_cast<float*>(sDST + kTile * kLdP);
-  float* sDelta = sLse + kTile;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-  const int warp = threadIdx.x / 32;
+// 16 (or 4) bytes global -> shared without passing through registers;
+// an invalid source zero-fills the destination and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// Make this thread's shared-memory writes visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + R) of one (b, h) slice into a swizzled tile, 16 bytes
+// per copy, neighbouring threads on neighbouring chunks of a row; rows at
+// or past n_rows are zero-filled.
+template <int D, int R, int T>
+__device__ __forceinline__ void load_sw_tile(uint32_t dst, const bf16* src,
+                                             long long stride_s, int row0,
+                                             int n_rows) {
+  constexpr int kChunks = D / 8;
+  constexpr int kTotal = R * kChunks;
+#pragma unroll
+  for (int i = 0; i < (kTotal + T - 1) / T; ++i) {
+    const int c = threadIdx.x + i * T;
+    if (kTotal % T == 0 || c < kTotal) {
+      const int r = c / kChunks;
+      const int col = (c % kChunks) * 8;
+      const bool valid = row0 + r < n_rows;
+      const bf16* g = valid ? src + (long long)(row0 + r) * stride_s + col : src;
+      cp_async16(dst + sw_offset<R>(r, col), g, valid);
+    }
+  }
+}
+
+// wgmma matrix descriptor of a tile in the 128-byte swizzle: start address,
+// leading byte offset (LBO), stride byte offset (SBO = 1024, the distance
+// between 8-row groups), layout type 1 (128-byte swizzle), all in the
+// encoding of the PTX ISA's matrix-descriptor format.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
+                                               uint32_t lbo_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo_bytes & 0x3FFFF) >> 4) << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: the tile's rows are the M (or N) dimension and its
+// columns the reduction. Step kk covers columns [16 kk, 16 kk + 16): inside
+// a 64-column block the start moves 32 bytes, the hardware applies the
+// swizzle to the address. row0 (a multiple of 8) picks A's 64 rows.
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int row0,
+                                                int kk) {
+  return sw128_desc(tile + (kk / 4) * (R * 128) + row0 * 128 + (kk % 4) * 32,
+                    16);
+}
+// MN-major B operand: the tile's rows are the reduction and its columns N.
+// Step kk covers rows [16 kk, 16 kk + 16); LBO steps between 64-column
+// blocks.
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, R * 128);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin registers in place across the asynchronous wgmma: the compiler may
+// not move their reads or writes over this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A warpgroup's m64nN f32 accumulator: thread t holds, for each 8-column
+// group i, d[4i + e] at row 16 (t / 32 % 4) + (t % 32) / 4 + 8 (e / 2) and
+// column 8 i + 2 (t % 4) + e % 2. The register A operand of an m64k16 step
+// kk is the same rows and columns [16 kk, 16 kk + 16) packed as bf16 pairs:
+// a[kk][2 (i % 2) + e / 2] holds d[4i + e], d[4i + e + 1] for i = 2 kk,
+// 2 kk + 1 and e = 0, 2.
+__device__ __forceinline__ int acc_col(int i, int e, int lane) {
+  return 8 * i + 2 * (lane % 4) + (e & 1);
+}
+
+// wgmma.mma_async m64nNk16, bf16 inputs, f32 accumulators, spelled out
+// for each N the kernels use (the PTX names every accumulator register).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // D[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T, A and B K-major in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // D[64 x 32] += A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared memory.
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers, B MN-major in shared memory.
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // D[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, A and B K-major in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers, B MN-major in shared memory.
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K1: the forward
+// ---------------------------------------------------------------------------
+
+// kWG warpgroups share one block's key/value ring, each owning 64 query
+// rows; kN keys per ring stage.
+template <int D, int kWG, int kN_>
+struct FwdCfg {
+  static constexpr int kM = 64 * kWG;  // query rows per block
+  static constexpr int kN = kN_;       // key rows per ring stage
+  static constexpr int kThreads = kWgThreads * kWG;
+  static constexpr int kQBytes = sw_bytes<D, kM>();
+  static constexpr int kKVBytes = sw_bytes<D, kN>();
+  // Q, a two-stage ring of (K, V), and slack to align the base to 1024.
+  static constexpr size_t kSmem = kQBytes + 4 * kKVBytes + 1024;
+};
+// Two warpgroups (128 query rows) share each key/value tile, halving the
+// bytes a FLOP pulls through L2 against one; 128-key stages take wgmma's
+// n128 shape. 255 registers, no spills at D = 128; one block per SM.
+constexpr int kFwdWG = 2;
+constexpr int kFwdN = 128;
+
+// One block per (b * h, q tile), the heaviest (last) q tiles first. Online
+// softmax over the key tiles at or below the block's last query row.
+template <int D, int kWG, int kN>
+__global__ void __launch_bounds__(kWgThreads * kWG)
+flash_fwd_kernel(const Params p) {
+  using C = FwdCfg<D, kWG, kN>;
+  constexpr int kDp = dpad<D>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sRing = sQ + C::kQBytes;  // stage s: K, then V
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int warp = threadIdx.x % kWgThreads / 32;
   const int lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int k0 = blockIdx.x * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kM;
+
+  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const bf16* vb = p.v + b * p.v_sb + h * p.v_sh;
+
+  const int q_last = p.q_offset + min(q0 + C::kM, p.Sq) - 1;
+  const int n_kt = min(q_last / C::kN + 1, (p.Sk + C::kN - 1) / C::kN);
+
+  load_sw_tile<D, C::kM, C::kThreads>(sQ, qb, p.q_ss, q0, p.Sq);
+  load_sw_tile<D, C::kN, C::kThreads>(sRing, kb, p.k_ss, 0, p.Sk);
+  load_sw_tile<D, C::kN, C::kThreads>(sRing + C::kKVBytes, vb, p.v_ss, 0,
+                                      p.Sk);
+  cp_async_commit();
+
+  // This thread's two rows of the warpgroup's 64 (see acc_col).
+  const int r0 = wg * 64 + warp * 16 + lane / 4;
+  const int q_pos0 = p.q_offset + q0 + r0;
+  // Tiles reaching past the warpgroup's first query need the mask.
+  const int wg_q_first = p.q_offset + q0 + wg * 64;
+  const float scale_log2 = p.scale * kLog2e;
+  // Running max (of the scaled score, in log2 units) and sum of each row.
+  float m[2] = {kNegBig, kNegBig};
+  float l[2] = {0.0f, 0.0f};
+  float o[kDp / 2];
+#pragma unroll
+  for (int i = 0; i < kDp / 2; ++i) o[i] = 0.0f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    const uint32_t sK = sRing + 2 * st * C::kKVBytes;
+    const uint32_t sV = sK + C::kKVBytes;
+    if (kt + 1 < n_kt) {
+      const uint32_t nK = sRing + 2 * (st ^ 1) * C::kKVBytes;
+      load_sw_tile<D, C::kN, C::kThreads>(nK, kb, p.k_ss, (kt + 1) * C::kN,
+                                          p.Sk);
+      load_sw_tile<D, C::kN, C::kThreads>(nK + C::kKVBytes, vb, p.v_ss,
+                                          (kt + 1) * C::kN, p.Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // key tile kt has landed in stage st
+    const int k0 = kt * C::kN;
+
+    // S = Q K^T for this warpgroup's 64 rows.
+    float s[C::kN / 2];
+#pragma unroll
+    for (int i = 0; i < C::kN / 2; ++i) s[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<C::kN>::ss(s, kmajor_desc<C::kM>(sQ, wg * 64, kk),
+                       kmajor_desc<C::kN>(sK, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // Scale into log2 units; mask only a tile that crosses the diagonal or
+    // the end of the keys.
+    const bool masked = k0 + C::kN - 1 > wg_q_first || k0 + C::kN > p.Sk;
+    float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+    for (int i = 0; i < C::kN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * i + e] * scale_log2;
+        if (masked) {
+          const int k_pos = k0 + acc_col(i, e, lane);
+          if (k_pos > q_pos0 + 8 * (e / 2) || k_pos >= p.Sk) x = kNegBig;
+        }
+        s[4 * i + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      const float m_new = fmaxf(m[j], mx[j]);
+      alpha[j] = exp2f(m[j] - m_new);
+      m[j] = m_new;
+    }
+    // P = exp(S - m) into bf16 A fragments; this lane's partial row sums.
+    uint32_t a[C::kN / 16][4];
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < C::kN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const float p0 = exp2f(s[4 * i + e] - m[e / 2]);
+        const float p1 = exp2f(s[4 * i + e + 1] - m[e / 2]);
+        sum[e / 2] += p0 + p1;
+        a[i / 2][2 * (i % 2) + e / 2] = pack_bf16(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + sum[j];
+#pragma unroll
+    for (int i = 0; i < kDp / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * i + e] *= alpha[e / 2];
+    }
+
+    // O += P V, P straight from registers.
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kN / 16; ++kk) {
+      Wgmma<kDp>::rs(o, a[kk], mnmajor_desc<C::kN>(sV, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(a);
+    __syncthreads();  // stage st is free for tile kt + 2
+  }
+
+  // Each row's sum is spread over the four lanes of its quad.
+  const long long o_ss = (long long)p.H * D;
+  bf16* ob = p.out0 + (long long)b * p.Sq * o_ss + (long long)h * D;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+    const float l_safe = fmaxf(l[j], 1e-30f);
+    const int row = q0 + r0 + 8 * j;
+    if (row < p.Sq) {
+      if (lane % 4 == 0) {
+        p.stat_out[((long long)b * p.Sq + row) * p.H + h] =
+            m[j] * kLn2 + logf(l_safe);
+      }
+#pragma unroll
+      for (int i = 0; i < kDp / 8; ++i) {
+        const int c = acc_col(i, 0, lane);
+        if (c < D) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + row * o_ss + c) =
+              __floats2bfloat162_rn(o[4 * i + 2 * j] / l_safe,
+                                    o[4 * i + 2 * j + 1] / l_safe);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: the dK/dV pass
+// ---------------------------------------------------------------------------
+
+// kWG warpgroups share one block's query ring, each owning 64 keys.
+template <int D, int kWG, int kM_>
+struct DkvCfg {
+  static constexpr int kN = 64 * kWG;  // key rows per block
+  static constexpr int kM = kM_;       // query rows per ring stage
+  static constexpr int kThreads = kWgThreads * kWG;
+  static constexpr int kKBytes = sw_bytes<D, kN>();
+  static constexpr int kQBytes = sw_bytes<D, kM>();
+  // K and V resident; a two-stage ring of (Q, dO) tiles and (lse, delta)
+  // rows; slack to align the base to 1024.
+  static constexpr size_t kSmem =
+      2 * kKBytes + 4 * kQBytes + 2 * 2 * kM * sizeof(float) + 1024;
+};
+// Two warpgroups (128 keys) share each query tile; 64-query stages. With one
+// warpgroup a 64-query stage spills (dK and dV alone hold 128 registers),
+// with two it does not: 255 registers at D = 128, one block per SM.
+constexpr int kDkvWG = 2;
+constexpr int kDkvM = 64;
+
+// One block per (b * h, k tile), k tiles in order (the first keys see the
+// most queries, so the heaviest blocks start first). Streams the q tiles
+// from the diagonal on, in the transposed orientation (rows are keys): the
+// warpgroup holds dK and dV for its 64 keys in f32 registers throughout.
+template <int D, int kWG, int kM>
+__global__ void __launch_bounds__(kWgThreads * kWG)
+flash_bwd_dkv_kernel(const Params p) {
+  using C = DkvCfg<D, kWG, kM>;
+  constexpr int kDp = dpad<D>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sV = sK + C::kKBytes;
+  const uint32_t sQ0 = sV + C::kKBytes;  // stage s: Q, then dO
+  const uint32_t sStat = sQ0 + 4 * C::kQBytes;  // stage s: lse[kM], delta[kM]
+  const float* stat = reinterpret_cast<const float*>(
+      smem_raw + (sStat - smem_u32(smem_raw)));
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int warp = threadIdx.x % kWgThreads / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = blockIdx.y * C::kN;
+  const int wg_k0 = k0 + wg * 64;  // this warpgroup's first key
 
   const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
   const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
   const bf16* vb = p.v + b * p.v_sb + h * p.v_sh;
   const bf16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-
-  load_tile<D>(sK, kb, p.k_ss, k0, p.Sk);
-  load_tile<D>(sV, vb, p.v_ss, k0, p.Sk);
-
-  const int wr = warp * 16 + lane / 2;  // key row within the tile
-  const int c0 = (lane & 1) * 32;       // first query column of this lane
-  const int k_pos = k0 + wr;
-
-  FragC dk[D / 16];
-  FragC dv[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk[j], 0.0f);
-    wmma::fill_fragment(dv[j], 0.0f);
-  }
+  const long long stat_b = (long long)b * p.Sq * p.H + h;
 
   // Query rows below k0 - q_offset see none of these keys.
-  const int qt_start = max(0, k0 - p.q_offset) / kTile;
-  const int n_qt = (p.Sq + kTile - 1) / kTile;
+  const int qt_start = max(0, k0 - p.q_offset) / C::kM;
+  const int n_qt = (p.Sq + C::kM - 1) / C::kM;
 
-  for (int qt = qt_start; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<D>(sQ, qb, p.q_ss, q0, p.Sq);
-    load_tile<D>(sDO, dob, p.do_ss, q0, p.Sq);
-    for (int t = threadIdx.x; t < kTile; t += kThreads) {
-      const bool valid = q0 + t < p.Sq;
-      const long long idx = ((long long)b * p.Sq + q0 + t) * p.H + h;
-      sLse[t] = valid ? p.lse_in[idx] : 0.0f;
-      sDelta[t] = valid ? p.delta_in[idx] : 0.0f;
+  // The q tile qt's Q, dO, lse and delta into ring stage st.
+  auto load_stage = [&](int st, int qt) {
+    const int q0 = qt * C::kM;
+    const uint32_t q_tile = sQ0 + 2 * st * C::kQBytes;
+    load_sw_tile<D, C::kM, C::kThreads>(q_tile, qb, p.q_ss, q0, p.Sq);
+    load_sw_tile<D, C::kM, C::kThreads>(q_tile + C::kQBytes, dob, p.do_ss,
+                                        q0, p.Sq);
+    const int t = threadIdx.x;
+    if (t < 2 * C::kM) {
+      const int r = t % C::kM;
+      const bool valid = q0 + r < p.Sq;
+      const float* src = t < C::kM ? p.lse_in : p.delta_in;
+      cp_async4(sStat + (2 * st * C::kM + t) * sizeof(float),
+                valid ? src + stat_b + (long long)(q0 + r) * p.H : src, valid);
     }
-    __syncthreads();
+  };
 
-    warp_abt<D>(sST + warp * 16 * kLdS, sK + warp * 16 * ld_tile<D>(), sQ);
-    warp_abt<D>(sDPT + warp * 16 * kLdS, sV + warp * 16 * ld_tile<D>(), sDO);
-    __syncwarp();
-
-    const float* srow = sST + wr * kLdS;
-    const float* dprow = sDPT + wr * kLdS;
-    bf16* prow = sPT + wr * kLdP;
-    bf16* dsrow = sDST + wr * kLdP;
-    for (int c = c0; c < c0 + 32; ++c) {
-      const int q_row = q0 + c;
-      const int q_pos = p.q_offset + q_row;
-      const float s = srow[c] * p.scale;
-      const float pr = (q_row < p.Sq && q_pos >= k_pos)
-                           ? expf(s - sLse[c]) : 0.0f;
-      prow[c] = __float2bfloat16(pr);
-      dsrow[c] = __float2bfloat16(pr * (dprow[c] - sDelta[c]) * p.scale);
-    }
-    __syncwarp();
-    warp_ab_acc<D>(dv, sPT + warp * 16 * kLdP, sDO);
-    warp_ab_acc<D>(dk, sDST + warp * 16 * kLdP, sQ);
+  if (qt_start < n_qt) {
+    load_sw_tile<D, C::kN, C::kThreads>(sK, kb, p.k_ss, k0, p.Sk);
+    load_sw_tile<D, C::kN, C::kThreads>(sV, vb, p.v_ss, k0, p.Sk);
+    load_stage(0, qt_start);
+    cp_async_commit();
   }
 
-  __syncthreads();
-  float* stage = sST + warp * 16 * ld_stage<D>();
+  // This thread's two key rows (see acc_col).
+  const int r0 = wg * 64 + warp * 16 + lane / 4;
+  const int k_pos0 = k0 + r0;
+  const float scale_log2 = p.scale * kLog2e;
+  float dk[kDp / 2];
+  float dv[kDp / 2];
+#pragma unroll
+  for (int i = 0; i < kDp / 2; ++i) {
+    dk[i] = 0.0f;
+    dv[i] = 0.0f;
+  }
+
+  for (int qt = qt_start; qt < n_qt; ++qt) {
+    const int st = (qt - qt_start) & 1;
+    const uint32_t sQ = sQ0 + 2 * st * C::kQBytes;
+    const uint32_t sDO = sQ + C::kQBytes;
+    const float* lse = stat + 2 * st * C::kM;
+    const float* delta = lse + C::kM;
+    if (qt + 1 < n_qt) {
+      load_stage(st ^ 1, qt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    const int q0 = qt * C::kM;
+    __syncthreads();  // query tile qt has landed in stage st
+
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys.
+    float s[C::kM / 2];
+    float dp[C::kM / 2];
+#pragma unroll
+    for (int i = 0; i < C::kM / 2; ++i) {
+      s[i] = 0.0f;
+      dp[i] = 0.0f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<C::kM>::ss(s, kmajor_desc<C::kN>(sK, wg * 64, kk),
+                       kmajor_desc<C::kM>(sQ, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<C::kM>::ss(dp, kmajor_desc<C::kN>(sV, wg * 64, kk),
+                       kmajor_desc<C::kM>(sDO, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(S^T scale - lse) (no running max: lse is given) and
+    // dS^T = P^T (dP^T - delta) scale, both into bf16 A fragments. Mask
+    // only a tile that crosses the diagonal or the end of the queries.
+    const bool masked = wg_k0 + 63 > p.q_offset + q0 || q0 + C::kM > p.Sq;
+    uint32_t pa[C::kM / 16][4];
+    uint32_t da[C::kM / 16][4];
+#pragma unroll
+    for (int i = 0; i < C::kM / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        float pr[2], ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int c = acc_col(i, e + x, lane);
+          float v = exp2f(s[4 * i + e + x] * scale_log2 - lse[c] * kLog2e);
+          if (masked) {
+            const int q_row = q0 + c;
+            if (q_row >= p.Sq || p.q_offset + q_row < k_pos0 + 8 * (e / 2)) {
+              v = 0.0f;
+            }
+          }
+          pr[x] = v;
+          ds[x] = v * (dp[4 * i + e + x] - delta[c]) * p.scale;
+        }
+        pa[i / 2][2 * (i % 2) + e / 2] = pack_bf16(pr[0], pr[1]);
+        da[i / 2][2 * (i % 2) + e / 2] = pack_bf16(ds[0], ds[1]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, the A operands from registers.
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kM / 16; ++kk) {
+      Wgmma<kDp>::rs(dv, pa[kk], mnmajor_desc<C::kM>(sDO, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::kM / 16; ++kk) {
+      Wgmma<kDp>::rs(dk, da[kk], mnmajor_desc<C::kM>(sQ, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    __syncthreads();  // stage st is free for tile qt + 2
+  }
+
   const long long o_ss = (long long)p.H * D;
   const long long base = (long long)b * p.Sk * o_ss + (long long)h * D;
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(stage + j * 16, dk[j], ld_stage<D>(),
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  warp_write_rows<D>(p.out0 + base, o_ss, stage, k0 + warp * 16, p.Sk, lane);
-  __syncwarp();
+  for (int j = 0; j < 2; ++j) {
+    const int row = k0 + r0 + 8 * j;
+    if (row < p.Sk) {
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(stage + j * 16, dv[j], ld_stage<D>(),
-                            wmma::mem_row_major);
+      for (int i = 0; i < kDp / 8; ++i) {
+        const int c = acc_col(i, 0, lane);
+        if (c < D) {
+          const long long at = base + row * o_ss + c;
+          *reinterpret_cast<__nv_bfloat162*>(p.out0 + at) =
+              __floats2bfloat162_rn(dk[4 * i + 2 * j], dk[4 * i + 2 * j + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(p.out1 + at) =
+              __floats2bfloat162_rn(dv[4 * i + 2 * j], dv[4 * i + 2 * j + 1]);
+        }
+      }
+    }
   }
-  __syncwarp();
-  warp_write_rows<D>(p.out1 + base, o_ss, stage, k0 + warp * 16, p.Sk, lane);
 }
 
 // dims: B, Sq, Sk, H, D, q_offset, then the (b, s, h) element strides of
@@ -545,17 +979,83 @@ Params make_params(const long long* dims, float scale) {
   return p;
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
-           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+// A kernel instantiation with its launch shape.
+struct Kernel {
+  const void* fn;
+  int threads;
+  size_t smem;
+};
+
+template <int D>
+Kernel fwd_kernel() {
+  using C = FwdCfg<D, kFwdWG, kFwdN>;
+  return {(const void*)flash_fwd_kernel<D, kFwdWG, kFwdN>, C::kThreads,
+          C::kSmem};
+}
+template <int D>
+Kernel dq_kernel() {
+  return {(const void*)flash_bwd_dq_kernel<D>, kThreads, dq_smem_bytes<D>()};
+}
+template <int D>
+Kernel dkv_kernel() {
+  using C = DkvCfg<D, kDkvWG, kDkvM>;
+  return {(const void*)flash_bwd_dkv_kernel<D, kDkvWG, kDkvM>, C::kThreads,
+          C::kSmem};
 }
 
 constexpr int kBadHeadDim = -1;
+constexpr int kBadKernel = -2;
+
+// which: 0 = K1, 1 = K2, 2 = K3.
+template <int D>
+Kernel pick(int which) {
+  switch (which) {
+    case 0: return fwd_kernel<D>();
+    case 1: return dq_kernel<D>();
+    case 2: return dkv_kernel<D>();
+  }
+  return {nullptr, 0, 0};
+}
+
+int find_kernel(int which, long long head_dim, Kernel* out) {
+  switch (head_dim) {
+    case 16: *out = pick<16>(which); break;
+    case 32: *out = pick<32>(which); break;
+    case 64: *out = pick<64>(which); break;
+    case 128: *out = pick<128>(which); break;
+    default: return kBadHeadDim;
+  }
+  return out->fn ? 0 : kBadKernel;
+}
+
+// Row tiles of the sequence each kernel's blocks own.
+int rows_per_block(int which) {
+  switch (which) {
+    case 0: return FwdCfg<16, kFwdWG, kFwdN>::kM;
+    case 1: return kTile;
+    default: return DkvCfg<16, kDkvWG, kDkvM>::kN;
+  }
+}
+
+int launch(int which, const Params& p, long long head_dim, void* stream) {
+  Kernel k;
+  int err = find_kernel(which, head_dim, &k);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(
+      k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.smem);
+  if (err) return err;
+  const int rows = rows_per_block(which);
+  const int n_tiles = ((which == 2 ? p.Sk : p.Sq) + rows - 1) / rows;
+  // K2 keeps the first port's grid (q tile, b * h); K1 and K3 put b * h
+  // first so that the heaviest tiles of every head run in the first wave.
+  const dim3 grid = which == 1 ? dim3(n_tiles, p.B * p.H)
+                               : dim3(p.B * p.H, n_tiles);
+  void* args[] = {(void*)&p};
+  err = (int)cudaLaunchKernel(k.fn, grid, dim3(k.threads), args, k.smem,
+                              (cudaStream_t)stream);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -570,14 +1070,7 @@ int rf_flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.v = (const bf16*)v;
   p.out0 = (bf16*)o;
   p.stat_out = (float*)lse;
-  const dim3 grid((p.Sq + kTile - 1) / kTile, p.B * p.H);
-  switch (dims[4]) {
-    case 16: return launch(flash_fwd_kernel<16>, fwd_smem_bytes<16>(), grid, p, stream);
-    case 32: return launch(flash_fwd_kernel<32>, fwd_smem_bytes<32>(), grid, p, stream);
-    case 64: return launch(flash_fwd_kernel<64>, fwd_smem_bytes<64>(), grid, p, stream);
-    case 128: return launch(flash_fwd_kernel<128>, fwd_smem_bytes<128>(), grid, p, stream);
-  }
-  return kBadHeadDim;
+  return launch(0, p, dims[4], stream);
 }
 
 int rf_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -593,14 +1086,7 @@ int rf_flash_bwd_dq(const void* q, const void* k, const void* v,
   p.lse_in = (const float*)lse;
   p.out0 = (bf16*)dq;
   p.stat_out = (float*)delta;
-  const dim3 grid((p.Sq + kTile - 1) / kTile, p.B * p.H);
-  switch (dims[4]) {
-    case 16: return launch(flash_bwd_dq_kernel<16>, dq_smem_bytes<16>(), grid, p, stream);
-    case 32: return launch(flash_bwd_dq_kernel<32>, dq_smem_bytes<32>(), grid, p, stream);
-    case 64: return launch(flash_bwd_dq_kernel<64>, dq_smem_bytes<64>(), grid, p, stream);
-    case 128: return launch(flash_bwd_dq_kernel<128>, dq_smem_bytes<128>(), grid, p, stream);
-  }
-  return kBadHeadDim;
+  return launch(1, p, dims[4], stream);
 }
 
 int rf_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -616,18 +1102,36 @@ int rf_flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.delta_in = (const float*)delta;
   p.out0 = (bf16*)dk;
   p.out1 = (bf16*)dv;
-  const dim3 grid((p.Sk + kTile - 1) / kTile, p.B * p.H);
-  switch (dims[4]) {
-    case 16: return launch(flash_bwd_dkv_kernel<16>, dkv_smem_bytes<16>(), grid, p, stream);
-    case 32: return launch(flash_bwd_dkv_kernel<32>, dkv_smem_bytes<32>(), grid, p, stream);
-    case 64: return launch(flash_bwd_dkv_kernel<64>, dkv_smem_bytes<64>(), grid, p, stream);
-    case 128: return launch(flash_bwd_dkv_kernel<128>, dkv_smem_bytes<128>(), grid, p, stream);
-  }
-  return kBadHeadDim;
+  return launch(2, p, dims[4], stream);
+}
+
+// Resources of kernel `which` (0 = K1, 1 = K2, 2 = K3) at head dim
+// `head_dim`: out = {registers per thread, dynamic shared memory bytes,
+// threads per block, resident blocks per SM}.
+int rf_kernel_resources(int which, int head_dim, int* out) {
+  Kernel k;
+  int err = find_kernel(which, head_dim, &k);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, k.fn);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(
+      k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.smem);
+  if (err) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, k.fn, k.threads, k.smem);
+  if (err) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)k.smem;
+  out[2] = k.threads;
+  out[3] = blocks;
+  return 0;
 }
 
 const char* rf_error_string(int code) {
   if (code == kBadHeadDim) return "head dim not in (16, 32, 64, 128)";
+  if (code == kBadKernel) return "no such kernel";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -48,7 +48,12 @@ _SIGNATURES = {
     "rf_flash_bwd_dq": [_P] * 9 + [ctypes.c_float, _P],
     # q, k, v, dout, lse, delta, dk, dv, dims, scale, stream
     "rf_flash_bwd_dkv": [_P] * 9 + [ctypes.c_float, _P],
+    # kernel (0 = K1, 1 = K2, 2 = K3), head dim, int[4] out
+    "rf_kernel_resources": [ctypes.c_int, ctypes.c_int, _P],
 }
+#: The kernels in the order the C entry ``rf_kernel_resources`` numbers them.
+KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -118,6 +123,18 @@ def lib() -> ctypes.CDLL:
             handle.rf_error_string.restype = ctypes.c_char_p
             _lib = handle
         return _lib
+
+
+def kernel_resources(name: str, head_dim: int) -> dict:
+    """What the card gives one kernel instantiation: registers per thread,
+    dynamic shared memory, threads per block and resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_int * 4)()
+    code = lib().rf_kernel_resources(KERNEL_NAMES.index(name), head_dim,
+                                     ctypes.addressof(out))
+    check(code, f"resources of {name}<{head_dim}>")
+    return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"),
+                    out))
 
 
 def check(code: int, what: str) -> None:

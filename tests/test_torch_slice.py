@@ -198,6 +198,21 @@ def test_ptxas_report_names_each_kernel():
     ]
 
 
+def test_ptxas_spills_sums_stores_and_loads_per_kernel():
+    log = (
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__eb3e0d29"
+        "_18_flash_attention_cu_1747f3c420flash_bwd_dkv_kernelILi128EEEvNS_"
+        "6ParamsE' for 'sm_90a'\n"
+        "    64 bytes stack frame, 60 bytes spill stores, 76 bytes spill loads\n"
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__eb3e0d29"
+        "_18_flash_attention_cu_1747f3c416flash_fwd_kernelILi64ELi1EEEvNS_"
+        "6ParamsE' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    )
+    assert chip_smoke.ptxas_spills(log) == {
+        "flash_bwd_dkv_kernel<128>": 136, "flash_fwd_kernel<64>": 0}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"

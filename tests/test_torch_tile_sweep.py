@@ -1,0 +1,55 @@
+# Copyright 2026 The rayfed-tpu Authors.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""``chip_tile_sweep.py``'s settings reach the committed kernel source:
+each tile constant is defined there once and is rewritten as asked. CPU
+only (the card run builds and times the copies)."""
+
+import os
+
+import pytest
+
+import chip_tile_sweep as sweep
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "rayfed_tpu_torch", "csrc", "flash_attention.cu")
+
+
+def _source():
+    with open(SOURCE) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", sweep.TILE_CONSTANTS)
+def test_tile_constant_is_rewritten_once(name):
+    text = _source()
+    out = sweep.tiled_source(text, {name: 4096})
+    assert f"constexpr int {name} = 4096;" in out
+    assert f"constexpr int {name} = 4096;" not in text
+    assert len(out.splitlines()) == len(text.splitlines())
+
+
+def test_parse_setting():
+    assert sweep.parse_setting("base") == {}
+    assert sweep.parse_setting("kFwdN=64,kDkvM=32") == {"kFwdN": 64,
+                                                       "kDkvM": 32}
+    with pytest.raises(ValueError, match="not a tile setting"):
+        sweep.parse_setting("kTile=32")
+    with pytest.raises(ValueError, match="not a tile setting"):
+        sweep.parse_setting("kFwdN=big")
+
+
+def test_tiled_source_refuses_a_constant_it_cannot_find():
+    with pytest.raises(ValueError, match="defined 0 times"):
+        sweep.tiled_source("int x;", {"kFwdN": 64})
