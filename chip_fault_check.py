@@ -19,9 +19,10 @@ kernel, on one card:
     python3 chip_fault_check.py
 
 It copies the port into ``build/fault_check/``, plants one fault in each
-flash kernel there (K1 and K2 skip key tile SKIP_KT, K3 skips query tile
-SKIP_QT, both of 64 rows: a mid-sequence tile dropped for the late rows or
-the early keys; ``planted_source`` does the patching), builds the copy,
+flash kernel there (K1 and K2 skip the key step holding key tile
+SKIP_KT, K3 skips query tile SKIP_QT, both of 64 rows: a mid-sequence
+tile dropped for the late rows or the early keys; ``planted_source``
+does the patching), builds the copy,
 and reads ``chip_smoke.kernel_errors`` for the sound and the faulted
 kernels on the same inputs at the main-path shape.
 It exits 0 when every sound reading is within its limit and every bf16
@@ -42,19 +43,21 @@ COPY = os.path.join(REPO, "build", "fault_check")
 
 SKIP_KT = 16  # keys 1024..1087 at a 64-row tile
 SKIP_QT = 24  # queries 1536..1599 at a 64-row tile
-# (anchor in the source, line inserted after it, occurrences). K1 and K3
-# run a copy ring: the skip goes after the barrier at which a tile has
+# (anchor in the source, line inserted after it, occurrences). Every kernel
+# runs a copy ring: the skip goes after the barrier at which a tile has
 # landed and keeps the barrier that frees its stage, so the ring runs on.
-# K1 steps 128 keys at a time, so it skips the step that holds SKIP_KT
-# (keys 1024..1151); K3 steps 64 query rows, exactly SKIP_QT.
+# K1 and K2 skip the key step that holds SKIP_KT (K1 steps 128 keys, so
+# keys 1024..1151; K2 steps 64, exactly SKIP_KT); K3 steps 64 query rows,
+# exactly SKIP_QT.
 FAULTS = [
     # K1: the key-tile loop, once tile kt is in shared memory.
     ("    __syncthreads();  // key tile kt has landed in stage st\n",
      f"    if (kt == {SKIP_KT} * 64 / C::kN) {{ __syncthreads(); continue; }}\n",
      1),
-    # K2: the key-tile loop head.
-    ("  for (int kt = 0; kt < n_kt; ++kt) {\n    const int k0 = kt * kTile;\n",
-     f"    if (kt == {SKIP_KT}) continue;\n", 1),
+    # K2: the key-tile loop, once tile kt is in shared memory.
+    ("    __syncthreads();  // keys and values of step kt have landed in stage st\n",
+     f"    if (kt == {SKIP_KT} * 64 / C::kN) {{ __syncthreads(); continue; }}\n",
+     1),
     # K3: the query-tile loop, once tile qt is in shared memory.
     ("    __syncthreads();  // query tile qt has landed in stage st\n",
      f"    if (q0 / 64 == {SKIP_QT}) {{ __syncthreads(); continue; }}\n", 1),

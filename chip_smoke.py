@@ -22,7 +22,7 @@ Phases:
 1. device: the card's name, count, power limit; TF32 off.
 2. build: the Hopper kernels from ``rayfed_tpu_torch/csrc`` (nvcc); each
    kernel's registers, spills, shared memory and resident blocks per SM
-   at the flagship head dim (K1 and K3 must not spill).
+   at the flagship head dim (no kernel may spill).
 3. kernels: each flash kernel against its plain PyTorch version on the
    card, in bf16, at the flagship attention shape and at small shapes
    (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every head dim); times of
@@ -139,7 +139,7 @@ def phase_device():
 
 def phase_build(head_dim):
     """Build the kernels; print the compiler's report and, for each kernel
-    at ``head_dim``, the resources the card gives it. Fails if K1 or K3
+    at ``head_dim``, the resources the card gives it. Fails if any kernel
     spills registers there."""
     from rayfed_tpu_torch.ops import _native
 
@@ -159,7 +159,7 @@ def phase_build(head_dim):
               f"dynamic shared memory, {res['threads']} threads, "
               f"{res['blocks_per_sm']} resident blocks per SM")
     print(json.dumps({"resources": {"head_dim": head_dim, **resources}}))
-    for name in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+    for name in _native.KERNEL_NAMES:
         require(resources[name]["spill_bytes"] == 0,
                 f"{name}<{head_dim}> spills: {resources[name]}")
     return secs
@@ -330,7 +330,8 @@ def phase_kernels(device, batch, seq, heads, head_dim, smi):
 
     for shape in [(2, 96, 160, 3, 32, 64), (1, 192, 320, 4, 64, 128),
                   (2, 128, 128, 2, 16, 0), (1, 200, 200, 2, 128, 0),
-                  (1, 256, 512, 4, 128, 256), (1, 136, 328, 3, 128, 150)]:
+                  (1, 256, 512, 4, 128, 256), (1, 136, 328, 3, 128, 150),
+                  (2, 64, 64, 2, 128, 0), (1, 72, 200, 3, 128, 128)]:
         check_kernels(device, *shape, seed=1)
 
     b, s, h, d = batch, seq, heads, head_dim

@@ -13,9 +13,9 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Times K1 and K3 under other tilings against each other, on one card:
+"""Times K1, K2 and K3 under other tilings against each other, on one card:
 
-    python3 chip_tile_sweep.py base kFwdN=64 kDkvWG=1,kDkvM=32 base
+    python3 chip_tile_sweep.py base kFwdN=64 kDqWG=1 kDkvWG=1,kDkvM=32 base
 
 Each argument sets tile constants of ``rayfed_tpu_torch/csrc/
 flash_attention.cu`` (``TILE_CONSTANTS``; comma-separated ``name=value``),
@@ -23,8 +23,8 @@ or is ``base``, the source as committed. Per argument, in that order, it
 copies the port into ``build/tile_sweep/<i>/``, sets the constants, and
 in a fresh process builds the copy, prints each kernel's resources at the
 flagship head dim, holds the kernels to ``chip_smoke.py``'s limits at the
-main-path shape and times K1 and K3 there (CUDA events, 20 launches after
-2 warm-ups, twice). Put ``base`` first and last to read the spread. The
+main-path shape and times K1, K2 and K3 there (CUDA events, 20 launches
+after 2 warm-ups, twice). Put ``base`` first and last to read the spread. The
 last line is every setting's readings and times as JSON.
 """
 
@@ -39,7 +39,7 @@ import sys
 import chip_fault_check as fc
 
 ROOT = os.path.join(fc.REPO, "build", "tile_sweep")
-TILE_CONSTANTS = ("kFwdWG", "kFwdN", "kDkvWG", "kDkvM")
+TILE_CONSTANTS = ("kFwdWG", "kFwdN", "kDqWG", "kDqN", "kDkvWG", "kDkvM")
 
 RUN = """
 import json, chip_smoke as cs
@@ -51,9 +51,11 @@ with open(_native.build() + ".log") as log:
 readings, _, (q, k, v, do, o, lse, delta, _, _) = cs.kernel_errors(
     "cuda", f["batch"], f["seq"], f["seq"], f["n_heads"], d, 0)
 bad = [n for n, (r, lim) in readings.items() if not r <= lim]
-ms = {"flash_fwd": [], "flash_bwd_dkv": []}
+ms = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
 for _ in range(2):
     ms["flash_fwd"].append(cs.cuda_ms(lambda: fa._flash_fwd_cuda(q, k, v, 0), 20))
+    ms["flash_bwd_dq"].append(cs.cuda_ms(
+        lambda: fa._flash_bwd_dq_cuda(q, k, v, o, lse, do, 0), 20))
     ms["flash_bwd_dkv"].append(cs.cuda_ms(
         lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, 0), 20))
 print(json.dumps(dict(resources=res, readings=readings, over_limit=bad, ms=ms)))
@@ -96,7 +98,8 @@ def main():
         root = os.path.join(ROOT, str(i))
         fc.copy_port(root, lambda text: tiled_source(text, setting))
         out = json.loads(fc.run_code(root, RUN).strip().splitlines()[-1])
-        print(f"{setting or 'base'}: K1 ms {out['ms']['flash_fwd']}, K3 ms "
+        print(f"{setting or 'base'}: K1 ms {out['ms']['flash_fwd']}, K2 ms "
+              f"{out['ms']['flash_bwd_dq']}, K3 ms "
               f"{out['ms']['flash_bwd_dkv']}, over limit {out['over_limit']}; "
               f"{out['resources']}", flush=True)
         results.append(dict(setting=setting, **out))

@@ -38,38 +38,30 @@
 // no atomics: dQ and dK/dV are two passes, so gradients are deterministic
 // as in the reference.
 //
-// K1 and K3 are built for Hopper's warpgroup MMA (wgmma), the only route
+// All three are built for Hopper's warpgroup MMA (wgmma), the only route
 // to the card's tensor-core rate. Each warpgroup (128 threads) owns 64
-// rows (queries in K1, keys in K3) and a block holds two, which share the
-// streamed tiles (K1: 128 queries against 128-key K/V tiles; K3: 128 keys,
-// resident with their V, against 64-query Q/dO/lse/delta tiles). Tiles sit
-// in shared memory in the layout of the 128-byte swizzle that wgmma reads
-// through a matrix descriptor; they arrive by cp.async (which reads the
-// (b, s, h) strides and zero-fills ragged rows) into a two-stage ring, so
-// the copy of tile i+1 runs while tile i is computed. Scores come out of wgmma in registers, the
-// softmax runs there (row max and sum over the four lanes of a quad that
-// own a row), and the bf16 probabilities are fed straight back as the
-// register A operand of the next wgmma: no score, probability or partial
-// output tile goes through shared memory. K2 still uses the first port's
-// WMMA design (16x16x16 fragments, a 64 x 64 score tile staged in shared
-// memory), which a later change will bring to K1's and K3's shape.
+// rows (queries in K1 and K2, keys in K3) and a block holds two, which
+// share the streamed tiles (K1: 128 queries against 128-key K/V tiles; K2:
+// 128 queries, resident with their dO, against 64-key K/V tiles; K3: 128
+// keys, resident with their V, against 64-query Q/dO/lse/delta tiles).
+// Tiles sit in shared memory in the layout of the 128-byte swizzle that
+// wgmma reads through a matrix descriptor; they arrive by cp.async (which
+// reads the (b, s, h) strides and zero-fills ragged rows) into a two-stage
+// ring, so the copy of tile i+1 runs while tile i is computed. Scores come
+// out of wgmma in registers, the softmax (or, in the backward passes, P and
+// dS from the given lse) runs there (a row lives on the four lanes of a
+// quad), and the bf16 probabilities or dS are fed straight back as the
+// register A operand of the next wgmma: no score, probability, dS or
+// partial output tile goes through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kTile = 64;  // rows of q or k per block and per inner step (K2)
-constexpr int kWarps = 4;  // each warp owns 16 rows of the tile (K2)
-constexpr int kThreads = kWarps * 32;
-constexpr int kLdS = kTile + 4;  // f32 score-tile row stride (elements)
-constexpr int kLdP = kTile + 8;  // bf16 probability-tile row stride
 constexpr float kNegBig = -1e30f;
 
 struct Params {
@@ -93,213 +85,7 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// K2: WMMA fragments, tiles staged in shared memory
-// ---------------------------------------------------------------------------
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// Row stride (elements) of a staged bf16 (64 x D) tile; the +8 pad keeps
-// every row 16-byte aligned and staggers banks.
-template <int D>
-__host__ __device__ constexpr int ld_tile() { return D + 8; }
-// Row stride of an f32 (64 x D) staging tile.
-template <int D>
-__host__ __device__ constexpr int ld_stage() { return D + 4; }
-
-// Copy rows [row0, row0 + 64) of one (b, h) slice into shared memory,
-// 16 bytes per thread per step; rows at or past n_rows are zero-filled.
-template <int D>
-__device__ void load_tile(bf16* dst, const bf16* src, long long stride_s,
-                          int row0, int n_rows) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * stride_s + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld_tile<D>() + col) = val;
-  }
-}
-
-// dst[16 x 64] (f32, row stride kLdS) = a[16 x D] . b[64 x D]^T, where a
-// is this warp's 16 rows of a staged tile and b a whole staged tile.
-template <int D>
-__device__ void warp_abt(float* dst, const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int j = 0; j < kTile / 16; ++j) {
-    FragC c;
-    wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBt fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, ld_tile<D>());
-      wmma::load_matrix_sync(fb, b + j * 16 * ld_tile<D>() + kk * 16,
-                             ld_tile<D>());
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(dst + j * 16, c, kLdS, wmma::mem_row_major);
-  }
-}
-
-// acc[16 x D] += a[16 x 64] . b[64 x D], a this warp's 16 rows of a bf16
-// probability tile (row stride kLdP), b a staged (64 x D) tile.
-template <int D>
-__device__ void warp_ab_acc(FragC (&acc)[D / 16], const bf16* a,
-                            const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, kLdP);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * ld_tile<D>() + j * 16,
-                             ld_tile<D>());
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// Write this warp's 16 rows from an f32 staging tile (row stride
-// ld_stage<D>) to a contiguous (B, S, H, D) bf16 output.
-template <int D>
-__device__ void warp_write_rows(bf16* dst, long long stride_s,
-                                const float* stage, int row0, int n_rows,
-                                int lane) {
-  for (int e = lane; e < 16 * D; e += 32) {
-    const int r = e / D;
-    const int c = e % D;
-    if (row0 + r < n_rows) {
-      dst[(long long)(row0 + r) * stride_s + c] =
-          __float2bfloat16(stage[r * ld_stage<D>() + c]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return 4 * kTile * ld_tile<D>() * sizeof(bf16)  // q, dout, k, v tiles
-         + 2 * kTile * kLdS * sizeof(float)       // scores, dP
-         + kTile * kLdP * sizeof(bf16)            // dS
-         + 2 * kTile * sizeof(float);             // lse, delta per row
-}
-
-// K2: one block per (q tile, b * h); streams the causal k/v tiles and
-// keeps dQ in f32 accumulator fragments. Its prologue also computes
-// delta = rowsum(dO * O) in f32, which the dK/dV pass reads.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + kTile * ld_tile<D>();
-  bf16* sK = sDO + kTile * ld_tile<D>();
-  bf16* sV = sK + kTile * ld_tile<D>();
-  float* sS = reinterpret_cast<float*>(sV + kTile * ld_tile<D>());
-  float* sDP = sS + kTile * kLdS;
-  bf16* sDS = reinterpret_cast<bf16*>(sDP + kTile * kLdS);
-  float* sLse = reinterpret_cast<float*>(sDS + kTile * kLdP);
-  float* sDelta = sLse + kTile;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int q0 = blockIdx.x * kTile;
-
-  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
-  const bf16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-
-  load_tile<D>(sQ, qb, p.q_ss, q0, p.Sq);
-  load_tile<D>(sDO, dob, p.do_ss, q0, p.Sq);
-  __syncthreads();
-
-  const int wr = warp * 16 + lane / 2;
-  const int c0 = (lane & 1) * 32;
-  const int q_pos = p.q_offset + q0 + wr;
-  {
-    // delta for row wr: each lane of the pair sums half of D.
-    const bool valid = q0 + wr < p.Sq;
-    float d = 0.0f;
-    if (valid) {
-      const bf16* orow = ob + (long long)(q0 + wr) * p.o_ss;
-      const bf16* dorow = sDO + wr * ld_tile<D>();
-      for (int c = (lane & 1) * (D / 2); c < ((lane & 1) + 1) * (D / 2); ++c) {
-        d += __bfloat162float(dorow[c]) * __bfloat162float(orow[c]);
-      }
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if ((lane & 1) == 0) {
-      const long long idx = ((long long)b * p.Sq + q0 + wr) * p.H + h;
-      sDelta[wr] = d;
-      sLse[wr] = valid ? p.lse_in[idx] : 0.0f;
-      if (valid) p.stat_out[idx] = d;
-    }
-    __syncwarp();
-  }
-  const float lse = sLse[wr];
-  const float delta = sDelta[wr];
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  const int q_last = p.q_offset + min(q0 + kTile, p.Sq) - 1;
-  const int n_kt = min(q_last / kTile + 1, (p.Sk + kTile - 1) / kTile);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<D>(sK, kb, p.k_ss, k0, p.Sk);
-    load_tile<D>(sV, vb, p.v_ss, k0, p.Sk);
-    __syncthreads();
-
-    warp_abt<D>(sS + warp * 16 * kLdS, sQ + warp * 16 * ld_tile<D>(), sK);
-    warp_abt<D>(sDP + warp * 16 * kLdS, sDO + warp * 16 * ld_tile<D>(), sV);
-    __syncwarp();
-
-    const float* srow = sS + wr * kLdS;
-    const float* dprow = sDP + wr * kLdS;
-    bf16* dsrow = sDS + wr * kLdP;
-    for (int c = c0; c < c0 + 32; ++c) {
-      const int k_pos = k0 + c;
-      const float s = srow[c] * p.scale;
-      const float pr =
-          (q_pos >= k_pos && k_pos < p.Sk) ? expf(s - lse) : 0.0f;
-      dsrow[c] = __float2bfloat16(pr * (dprow[c] - delta) * p.scale);
-    }
-    __syncwarp();
-    warp_ab_acc<D>(acc, sDS + warp * 16 * kLdP, sK);
-  }
-
-  // Stage through the score buffers (every warp must be past its last
-  // step, since the staging rows straddle other warps' score rows).
-  __syncthreads();
-  float* stage = sS + warp * 16 * ld_stage<D>();
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(stage + j * 16, acc[j], ld_stage<D>(),
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  const long long o_ss = (long long)p.H * D;
-  warp_write_rows<D>(p.out0 + (long long)b * p.Sq * o_ss + (long long)h * D,
-                     o_ss, stage, q0 + warp * 16, p.Sq, lane);
-}
-
-// ---------------------------------------------------------------------------
-// Hopper building blocks for K1 and K3: cp.async ring, swizzled tiles,
+// Hopper building blocks: cp.async ring, swizzled tiles,
 // wgmma descriptors and instructions
 // ---------------------------------------------------------------------------
 
@@ -375,6 +161,17 @@ __device__ __forceinline__ void load_sw_tile(uint32_t dst, const bf16* src,
       cp_async16(dst + sw_offset<R>(r, col), g, valid);
     }
   }
+}
+
+// Key/value tile kt (N rows each) into stage st of a two-stage ring of
+// (K, V) pairs at ring (K1 and K2).
+template <int D, int N, int T>
+__device__ __forceinline__ void load_kv_stage(uint32_t ring, int st, int kt,
+                                              const bf16* kb, const bf16* vb,
+                                              const Params& p) {
+  const uint32_t sK = ring + 2 * st * sw_bytes<D, N>();
+  load_sw_tile<D, N, T>(sK, kb, p.k_ss, kt * N, p.Sk);
+  load_sw_tile<D, N, T>(sK + sw_bytes<D, N>(), vb, p.v_ss, kt * N, p.Sk);
 }
 
 // wgmma matrix descriptor of a tile in the 128-byte swizzle: start address,
@@ -615,9 +412,7 @@ flash_fwd_kernel(const Params p) {
   const int n_kt = min(q_last / C::kN + 1, (p.Sk + C::kN - 1) / C::kN);
 
   load_sw_tile<D, C::kM, C::kThreads>(sQ, qb, p.q_ss, q0, p.Sq);
-  load_sw_tile<D, C::kN, C::kThreads>(sRing, kb, p.k_ss, 0, p.Sk);
-  load_sw_tile<D, C::kN, C::kThreads>(sRing + C::kKVBytes, vb, p.v_ss, 0,
-                                      p.Sk);
+  load_kv_stage<D, C::kN, C::kThreads>(sRing, 0, 0, kb, vb, p);
   cp_async_commit();
 
   // This thread's two rows of the warpgroup's 64 (see acc_col).
@@ -638,11 +433,7 @@ flash_fwd_kernel(const Params p) {
     const uint32_t sK = sRing + 2 * st * C::kKVBytes;
     const uint32_t sV = sK + C::kKVBytes;
     if (kt + 1 < n_kt) {
-      const uint32_t nK = sRing + 2 * (st ^ 1) * C::kKVBytes;
-      load_sw_tile<D, C::kN, C::kThreads>(nK, kb, p.k_ss, (kt + 1) * C::kN,
-                                          p.Sk);
-      load_sw_tile<D, C::kN, C::kThreads>(nK + C::kKVBytes, vb, p.v_ss,
-                                          (kt + 1) * C::kN, p.Sk);
+      load_kv_stage<D, C::kN, C::kThreads>(sRing, st ^ 1, kt + 1, kb, vb, p);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -748,6 +539,208 @@ flash_fwd_kernel(const Params p) {
           *reinterpret_cast<__nv_bfloat162*>(ob + row * o_ss + c) =
               __floats2bfloat162_rn(o[4 * i + 2 * j] / l_safe,
                                     o[4 * i + 2 * j + 1] / l_safe);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: the dQ pass
+// ---------------------------------------------------------------------------
+
+// kWG warpgroups share one block's key/value ring, each owning 64 query
+// rows (with their dO); kN keys per ring stage.
+template <int D, int kWG, int kN_>
+struct DqCfg {
+  static constexpr int kM = 64 * kWG;  // query rows per block
+  static constexpr int kN = kN_;       // key rows per ring stage
+  static constexpr int kThreads = kWgThreads * kWG;
+  static constexpr int kQBytes = sw_bytes<D, kM>();
+  static constexpr int kKVBytes = sw_bytes<D, kN>();
+  // Q and dO resident, a two-stage ring of (K, V), and slack to align the
+  // base to 1024.
+  static constexpr size_t kSmem = 2 * kQBytes + 4 * kKVBytes + 1024;
+};
+// Two warpgroups (128 query rows) share each key/value tile; 64-key
+// stages.
+constexpr int kDqWG = 2;
+constexpr int kDqN = 64;
+
+// One block per (b * h, q tile), the heaviest (last) q tiles first. Per key
+// stage each warpgroup forms S = Q K^T and dP = dO V^T for its 64 rows,
+// P = exp(S scale - lse) from the given lse (no running max) and
+// dS = P (dP - delta) scale in registers, and accumulates dQ += dS K with
+// dS as the register A operand; dQ stays in f32 registers throughout. Its
+// prologue computes delta = rowsum(dO * O) in f32, which the dK/dV pass
+// reads, while the first key stage is in flight.
+template <int D, int kWG, int kN>
+__global__ void __launch_bounds__(kWgThreads * kWG)
+flash_bwd_dq_kernel(const Params p) {
+  using C = DqCfg<D, kWG, kN>;
+  constexpr int kDp = dpad<D>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sDO = sQ + C::kQBytes;
+  const uint32_t sRing = sDO + C::kQBytes;  // stage s: K, then V
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int warp = threadIdx.x % kWgThreads / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kM;
+
+  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const bf16* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  const bf16* dob = p.dout + b * p.do_sb + h * p.do_sh;
+
+  const int q_last = p.q_offset + min(q0 + C::kM, p.Sq) - 1;
+  const int n_kt = min(q_last / C::kN + 1, (p.Sk + C::kN - 1) / C::kN);
+
+  load_sw_tile<D, C::kM, C::kThreads>(sQ, qb, p.q_ss, q0, p.Sq);
+  load_sw_tile<D, C::kM, C::kThreads>(sDO, dob, p.do_ss, q0, p.Sq);
+  load_kv_stage<D, C::kN, C::kThreads>(sRing, 0, 0, kb, vb, p);
+  cp_async_commit();
+
+  // This thread's two rows of the warpgroup's 64 (see acc_col).
+  const int r0 = wg * 64 + warp * 16 + lane / 4;
+  const int q_pos0 = p.q_offset + q0 + r0;
+  // Tiles reaching past the warpgroup's first query need the mask.
+  const int wg_q_first = p.q_offset + q0 + wg * 64;
+  const float scale_log2 = p.scale * kLog2e;
+
+  // delta and lse of the two rows, in the quad that owns them: each lane
+  // sums every fourth 8-column chunk of dO * O (read from device memory
+  // while the tiles land), two shuffles join the four partial sums. Rows
+  // past Sq read nothing and take lse = delta = 0.
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + r0 + 8 * j;
+    const bool valid = row < p.Sq;
+    float d = 0.0f;
+    if (valid) {
+      const bf16* orow = ob + (long long)row * p.o_ss;
+      const bf16* dorow = dob + (long long)row * p.do_ss;
+#pragma unroll
+      for (int c = 8 * (lane % 4); c < D; c += 32) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dorow + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const float2 of = __bfloat1622float2(o2[x]);
+          const float2 df = __bfloat1622float2(d2[x]);
+          d += df.x * of.x + df.y * of.y;
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    const long long idx = ((long long)b * p.Sq + row) * p.H + h;
+    delta[j] = d;
+    lse2[j] = valid ? p.lse_in[idx] * kLog2e : 0.0f;
+    if (valid && lane % 4 == 0) p.stat_out[idx] = d;
+  }
+
+  float dq[kDp / 2];
+#pragma unroll
+  for (int i = 0; i < kDp / 2; ++i) dq[i] = 0.0f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    const uint32_t sK = sRing + 2 * st * C::kKVBytes;
+    const uint32_t sV = sK + C::kKVBytes;
+    if (kt + 1 < n_kt) {
+      load_kv_stage<D, C::kN, C::kThreads>(sRing, st ^ 1, kt + 1, kb, vb, p);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // keys and values of step kt have landed in stage st
+    const int k0 = kt * C::kN;
+
+    // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows.
+    float s[C::kN / 2];
+    float dp[C::kN / 2];
+#pragma unroll
+    for (int i = 0; i < C::kN / 2; ++i) {
+      s[i] = 0.0f;
+      dp[i] = 0.0f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<C::kN>::ss(s, kmajor_desc<C::kM>(sQ, wg * 64, kk),
+                       kmajor_desc<C::kN>(sK, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<C::kN>::ss(dp, kmajor_desc<C::kM>(sDO, wg * 64, kk),
+                       kmajor_desc<C::kN>(sV, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp(S scale - lse) stays f32; dS = P (dP - delta) scale is
+    // rounded to bf16 once, into A fragments. Mask only a tile that
+    // crosses the diagonal or the end of the keys (zero-filled keys past
+    // Sk score 0, not -1e30).
+    const bool masked = k0 + C::kN - 1 > wg_q_first || k0 + C::kN > p.Sk;
+    uint32_t a[C::kN / 16][4];
+#pragma unroll
+    for (int i = 0; i < C::kN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        float ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          float pr = exp2f(s[4 * i + e + x] * scale_log2 - lse2[e / 2]);
+          if (masked) {
+            const int k_pos = k0 + acc_col(i, e + x, lane);
+            if (k_pos > q_pos0 + 8 * (e / 2) || k_pos >= p.Sk) pr = 0.0f;
+          }
+          ds[x] = pr * (dp[4 * i + e + x] - delta[e / 2]) * p.scale;
+        }
+        a[i / 2][2 * (i % 2) + e / 2] = pack_bf16(ds[0], ds[1]);
+      }
+    }
+
+    // dQ += dS K, dS straight from registers, K read MN-major.
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kN / 16; ++kk) {
+      Wgmma<kDp>::rs(dq, a[kk], mnmajor_desc<C::kN>(sK, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    fence_regs(a);
+    __syncthreads();  // stage st is free for tile kt + 2
+  }
+
+  const long long o_ss = (long long)p.H * D;
+  bf16* dqb = p.out0 + (long long)b * p.Sq * o_ss + (long long)h * D;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + r0 + 8 * j;
+    if (row < p.Sq) {
+#pragma unroll
+      for (int i = 0; i < kDp / 8; ++i) {
+        const int c = acc_col(i, 0, lane);
+        if (c < D) {
+          *reinterpret_cast<__nv_bfloat162*>(dqb + row * o_ss + c) =
+              __floats2bfloat162_rn(dq[4 * i + 2 * j], dq[4 * i + 2 * j + 1]);
         }
       }
     }
@@ -994,7 +987,9 @@ Kernel fwd_kernel() {
 }
 template <int D>
 Kernel dq_kernel() {
-  return {(const void*)flash_bwd_dq_kernel<D>, kThreads, dq_smem_bytes<D>()};
+  using C = DqCfg<D, kDqWG, kDqN>;
+  return {(const void*)flash_bwd_dq_kernel<D, kDqWG, kDqN>, C::kThreads,
+          C::kSmem};
 }
 template <int D>
 Kernel dkv_kernel() {
@@ -1032,7 +1027,7 @@ int find_kernel(int which, long long head_dim, Kernel* out) {
 int rows_per_block(int which) {
   switch (which) {
     case 0: return FwdCfg<16, kFwdWG, kFwdN>::kM;
-    case 1: return kTile;
+    case 1: return DqCfg<16, kDqWG, kDqN>::kM;
     default: return DkvCfg<16, kDkvWG, kDkvM>::kN;
   }
 }
@@ -1046,10 +1041,9 @@ int launch(int which, const Params& p, long long head_dim, void* stream) {
   if (err) return err;
   const int rows = rows_per_block(which);
   const int n_tiles = ((which == 2 ? p.Sk : p.Sq) + rows - 1) / rows;
-  // K2 keeps the first port's grid (q tile, b * h); K1 and K3 put b * h
-  // first so that the heaviest tiles of every head run in the first wave.
-  const dim3 grid = which == 1 ? dim3(n_tiles, p.B * p.H)
-                               : dim3(p.B * p.H, n_tiles);
+  // b * h first, so that the heaviest tiles of every head run in the
+  // first wave.
+  const dim3 grid(p.B * p.H, n_tiles);
   void* args[] = {(void*)&p};
   err = (int)cudaLaunchKernel(k.fn, grid, dim3(k.threads), args, k.smem,
                               (cudaStream_t)stream);

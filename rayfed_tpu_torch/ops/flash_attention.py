@@ -33,8 +33,8 @@ launches the kernel, or raises on a dtype, head dim or layout the kernel
 does not take. There is no fallback between the two. ``LAUNCHES`` counts
 kernel launches, so a run can show that it went through the kernels.
 
-The kernels choose their own tiles (K1 128 queries x 128 keys, K2 64 x 64,
-K3 128 keys x 64 queries) and mask ragged edges, whatever
+The kernels choose their own tiles (K1 128 queries x 128 keys, K2 128
+queries x 64 keys, K3 128 keys x 64 queries) and mask ragged edges, whatever
 ``block_q``/``block_k`` say; the block sizes drive the plain versions.
 dQ's kernel also computes ``delta = rowsum(dO * O)``, which the reference
 left to XLA between its two backward passes.

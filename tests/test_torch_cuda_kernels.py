@@ -48,12 +48,16 @@ def cuda_device():
     (1, 96, 160, 3, 32, 64),   # ragged tiles, Sq < Sk, q_offset
     (2, 256, 256, 2, 64, 0),
     (1, 512, 512, 4, 128, 0),
-    # K1 tiles 128 queries x 128 keys, K3 128 keys x 64 queries:
+    # K1 tiles 128 queries x 128 keys, K2 128 queries x 64 keys, K3 128
+    # keys x 64 queries:
     (2, 200, 200, 2, 128, 0),      # S not a multiple of 128 (nor of 64)
     (1, 136, 328, 3, 128, 192),    # Sq < Sk, q_offset on a tile boundary
     (1, 136, 328, 3, 128, 150),    # Sq < Sk, q_offset off it
     (4, 1024, 1024, 16, 128, 0),   # B*H = 64: blocks run in several waves
     (2, 1024, 1024, 4, 64, 0),     # D = 64 at S = 1024
+    (2, 64, 64, 2, 128, 0),        # a 128-row block's second warpgroup
+                                   # holds no valid row
+    (1, 72, 200, 3, 128, 128),     # Sq = 72 < Sk, q_offset 128
 ])
 def test_kernels_match_plain_on_card(cuda_device, b, sq, sk, h, d, q_offset):
     g = torch.Generator(device=cuda_device).manual_seed(0)
