@@ -36,6 +36,19 @@ Phases:
    aggregate's loss falls, flash and dense attention agree on it, and
    the train steps launched every kernel (the evaluations' launches are
    counted apart).
+5. fed: the same FedAvg round through the port's own engine, at the same
+   width and depth: ``alice`` and ``bob`` are spawned processes that
+   ``fed.init`` over localhost TCP; a party-pinned ``LocalTrainer`` actor
+   holds each party's params and AdamW state on the card, an
+   ``aggregate`` task pinned to ``alice`` folds the trees with
+   ``tree_mean``, ``fed.get`` brings the aggregate to both and each actor
+   loads it in place, for two rounds. Checks: (a) every pushed tree
+   arrives bitwise as its owner hashed it, (b) every round starts from
+   identical params, (c) the receiver gets the pre-step bytes although
+   the owner steps in place right after its push, (d) the aggregate's
+   loss falls, (e) each party's train steps launch every kernel, (f) a
+   bf16 tree crosses bitwise. Prints each push's ms, GB/s and split, the
+   IO path and each party's peak memory.
 
 It needs a CUDA card and exits non-zero without one. The last two lines
 are the kernel table and ``{"ok": true, "device": {...}}`` as JSON.
@@ -605,6 +618,391 @@ def phase_slice(device, cfg, *, batch, seq, rounds=3, local_steps=2,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the same round through the port's engine, two processes
+# ---------------------------------------------------------------------------
+
+FED_ROUNDS = 2
+FED_JOIN_TIMEOUT_S = 480
+# Retry fast while the peer comes up; no payload cap (a params push is
+# 1.36 GB at the flagship width, past the 500 MB default).
+FED_COMM = {"retry_policy": {"max_attempts": 30, "initial_backoff_ms": 100,
+                             "max_backoff_ms": 1000},
+            "messages_max_size_in_bytes": 0}
+
+
+def _tree_digest(tree):
+    """sha256 of each tensor leaf's bytes (bf16 through its int16 view);
+    a CUDA leaf is copied to host first."""
+    import hashlib
+
+    import torch
+
+    from rayfed_tpu_torch import tree_util
+
+    out = []
+    for x in tree_util.tree_flatten(tree)[0]:
+        x = x.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        out.append(hashlib.sha256(x.numpy().tobytes()).hexdigest())
+    return out
+
+
+def _tree_nbytes(tree):
+    from rayfed_tpu_torch import tree_util
+
+    return sum(x.nbytes for x in tree_util.tree_flatten(tree)[0])
+
+
+def _last_span(kind, min_bytes):
+    """This process's latest tracing span of ``kind`` moving at least
+    ``min_bytes``: the one of the push just made or received."""
+    from rayfed_tpu_torch import tracing
+
+    spans = [sp for sp in tracing.get_spans(kind) if sp.nbytes >= min_bytes]
+    return spans[-1] if spans else None
+
+
+def _span_ms(sp):
+    return None if sp is None else 1e3 * sp.duration_s
+
+
+def _arrive(tree, device, t_sent=None):
+    """The receiving end of a push: the tree's leaves on ``device`` and
+    what the push took. ``push_ms`` runs from ``t_sent`` (the owner's wall
+    clock when its value resolved) to the leaves on the device: until the
+    frame finished decoding (its ``decode`` span), plus the timed copy to
+    the device. Also the digest of the bytes that arrived."""
+    import torch
+
+    from rayfed_tpu_torch import tree_util
+
+    nbytes = _tree_nbytes(tree)
+    dec = _last_span("decode", nbytes)
+    leaves, spec = tree_util.tree_flatten(tree)
+    t = time.perf_counter()
+    on_dev = [x.to(device) for x in leaves]
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    h2d_ms = 1e3 * (time.perf_counter() - t)
+    push_ms = None
+    if dec is not None and t_sent is not None:
+        decoded_at = dec.start_s + dec.duration_s + time.time() \
+            - time.perf_counter()
+        push_ms = 1e3 * (decoded_at - t_sent) + h2d_ms
+    info = dict(nbytes=nbytes, push_ms=push_ms, h2d_ms=h2d_ms,
+                decode_ms=_span_ms(dec), digest=_tree_digest(tree))
+    return tree_util.tree_unflatten(on_dev, spec), info
+
+
+def _sender_spans(nbytes):
+    """This process's host staging (``stage``) and socket send (``send``)
+    ms of its latest push of ``nbytes`` or more."""
+    return dict(stage_ms=_span_ms(_last_span("stage", nbytes)),
+                send_ms=_span_ms(_last_span("send", nbytes)))
+
+
+def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
+                 local_steps, lr):
+    """Phase 5's driver: the same program runs in every party. Returns
+    what the parent checks and prints; every value in it reached this
+    party through ``fed.get``, so both parties return the same."""
+    import numpy as np
+    import torch
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import tracing, tree_util
+    from rayfed_tpu_torch.data import synthetic_lm_dataset
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.ops.aggregate import tree_mean
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+    from rayfed_tpu_torch.proxy.tcp import sockio
+
+    cfg = tfm.TransformerConfig(**cfg_kw)
+    on_cuda = torch.device(device).type == "cuda"
+    seeds = dict(PARTIES)
+    names = [n for n, _ in PARTIES]
+    root, other = names
+
+    def party_data(name):
+        return synthetic_lm_dataset(cfg.vocab, batch * local_steps * (seq + 1),
+                                    seq, seed=seeds[name])
+
+    tracing.enable()
+    fed.init(addresses=addresses, party=party, logging_level="warning",
+             config={"cross_silo_comm": FED_COMM})
+
+    @fed.remote
+    class LocalTrainer:
+        """One party's params and AdamW state on its device."""
+
+        def __init__(self, name):
+            self.name = name
+            init_fn, self.step_fn = make_fed_train_step(
+                cfg, device, lr=lr, attn="flash")
+            self.params, self.opt = init_fn(0)
+            self.data = party_data(name)
+            self.losses = []
+            self.eval_launches = dict.fromkeys(fa.LAUNCHES, 0)
+            self.sent = None
+
+        def _step(self, blk):
+            self.params, self.opt, loss = self.step_fn(
+                self.params, self.opt, blk[:, :-1], blk[:, 1:])
+            self.losses.append(float(loss))
+
+        def digest(self):
+            return _tree_digest(self.params)
+
+        def train(self, r):
+            for blk in self.data.batches(batch, epoch=r):
+                self._step(blk)
+            # The owner's digest of what it pushes, then the push.
+            self.sent = _tree_digest(self.params)
+            return {"params": self.params, "t": time.time()}
+
+        def step_after_push(self, r):
+            # The next opt.step() rewrites the pushed tensors in place
+            # while the push may still be in flight.
+            self._step(next(self.data.batches(batch, epoch=rounds + r)))
+            return self.losses[-1]
+
+        def sent_digest(self):
+            return self.sent
+
+        def load(self, agg):
+            info = None
+            params = agg["params"]
+            if self.name != root:
+                params, info = _arrive(params, device, agg["t"])
+            with torch.no_grad():
+                for p, a in zip(tree_util.tree_flatten(self.params)[0],
+                                tree_util.tree_flatten(params)[0]):
+                    p.copy_(a)
+            return info
+
+        def bf16_params(self):
+            tree = tree_util.tree_map(lambda x: x.to(torch.bfloat16),
+                                      self.params)
+            self.sent = _tree_digest(tree)
+            return tree
+
+        def eval_loss(self):
+            blk = torch.as_tensor(np.stack(
+                [next(party_data(n).batches(batch, epoch=0))[0]
+                 for n in names]), device=device).long()
+            before = dict(fa.LAUNCHES)
+            with torch.no_grad():
+                loss = float(tfm.lm_loss_pair(
+                    self.params, blk[:, :-1], blk[:, 1:], cfg,
+                    fa.make_flash_attn_fn(), loss_chunk=512))
+            for k in self.eval_launches:
+                self.eval_launches[k] += fa.LAUNCHES[k] - before[k]
+            return loss
+
+        def report(self):
+            return dict(
+                launches={k: n - self.eval_launches[k]
+                          for k, n in fa.LAUNCHES.items()},
+                eval_launches=self.eval_launches,
+                max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                      if on_cuda else None),
+                io_path="native" if sockio._fastwire is not None else "python",
+            )
+
+    @fed.remote
+    def aggregate(mine, theirs):
+        params, info = _arrive(theirs["params"], device, theirs["t"])
+        with torch.no_grad():
+            agg = tree_mean(mine["params"], params)
+        # The owner's digest of what it pushes, then the push.
+        info["owner_digest_next"] = _tree_digest(agg)
+        return {"params": agg, "t": time.time()}, info
+
+    @fed.remote
+    def sender_spans(nbytes):
+        return _sender_spans(nbytes)
+
+    @fed.remote
+    def received_digest(tree):
+        return _arrive(tree, device)[1]["digest"]
+
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    trainers = {n: LocalTrainer.party(n).remote(n) for n in names}
+    evals = [fed.get(trainers[root].eval_loss.remote())]
+    rounds_out = []
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        starts = fed.get([trainers[n].digest.remote() for n in names])
+        pushed = {n: trainers[n].train.remote(r) for n in names}
+        agg, agg_info = aggregate.party(root).options(num_returns=2).remote(
+            pushed[root], pushed[other])
+        # Submitted after the push is registered, so the push captures
+        # the trained tree as it resolves; the step then rewrites those
+        # tensors in place while the push is in flight.
+        after = trainers[other].step_after_push.remote(r)
+        sent = trainers[other].sent_digest.remote()
+        fed.get(agg)
+        loaded = [trainers[n].load.remote(agg) for n in names]
+        sent, params_push, aggregate_push, _ = fed.get(
+            [sent, agg_info, loaded[1], after])
+        spans = fed.get([sender_spans.party(n).remote(push["nbytes"])
+                         for n, push in ((root, aggregate_push),
+                                         (other, params_push))])
+        params_push.update(spans[1], owner_digest=sent)
+        aggregate_push.update(spans[0],
+                              owner_digest=params_push.pop("owner_digest_next"))
+        evals.append(fed.get(trainers[root].eval_loss.remote()))
+        rounds_out.append(dict(
+            wall_s=time.perf_counter() - t0,
+            starts_identical=all(d == starts[0] for d in starts[1:]),
+            params_push=params_push, aggregate_push=aggregate_push))
+    bf = trainers[other].bf16_params.remote()
+    bf16 = fed.get([trainers[other].sent_digest.remote(),
+                    received_digest.party(root).remote(bf)])
+    reports = fed.get([trainers[n].report.remote() for n in names])
+    fed.shutdown()
+    return dict(party=party, evals=evals, rounds=rounds_out,
+                bf16_digests=bf16, reports=dict(zip(names, reports)))
+
+
+def fed_party(party, addresses, out_path, device, cfg_kw, batch, seq,
+              rounds, local_steps, lr):
+    """Phase 5's party process (spawned): runs :func:`_fed_program` and
+    writes its result, or the error, as JSON to ``out_path``."""
+    import traceback
+
+    try:
+        result = dict(ok=True, **_fed_program(
+            party, addresses, device, cfg_kw, batch, seq, rounds,
+            local_steps, lr))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result = dict(ok=False, error=traceback.format_exc())
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    sys.exit(0 if result["ok"] else 1)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_fed(device, cfg, *, batch, seq, rounds=FED_ROUNDS, local_steps=2,
+              lr=1e-3, label="", timeout_s=FED_JOIN_TIMEOUT_S):
+    """Phase 5: :func:`fedavg_rounds`'s FedAvg round driven through the
+    port's own engine, one spawned process per party over localhost TCP,
+    and checked: (a) every tree that crossed arrived bitwise as its
+    owner hashed it, (b) every round started from identical params, (c)
+    the receiver got the pre-step bytes although the owner stepped in
+    place right after its push, (d) the aggregate's loss fell, (e) each
+    party's train steps launched every kernel, (f) a bf16 tree crossed
+    bitwise. Returns both parties' results."""
+    import dataclasses
+    import multiprocessing
+
+    import torch
+
+    mp = multiprocessing.get_context("spawn")
+    addresses = {n: f"127.0.0.1:{_free_port()}" for n, _ in PARTIES}
+    cfg_kw = dataclasses.asdict(cfg)
+    if torch.device(device).type == "cuda":
+        free, total = torch.cuda.mem_get_info()
+        print(f"[fed] {label} at the spawn: {free} of {total} bytes free")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {n: os.path.join(tmp, f"{n}.json") for n, _ in PARTIES}
+        procs = {n: mp.Process(target=fed_party, name=f"party-{n}", args=(
+            n, addresses, outs[n], device, cfg_kw, batch, seq, rounds,
+            local_steps, lr)) for n, _ in PARTIES}
+        t0 = time.perf_counter()
+        for p in procs.values():
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        for p in procs.values():
+            p.join(max(0.0, deadline - time.monotonic()))
+        late = [n for n, p in procs.items() if p.is_alive()]
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        require(not late, f"party processes {late} did not finish within "
+                          f"{timeout_s} s")
+        results = {}
+        for n, p in procs.items():
+            require(os.path.exists(outs[n]),
+                    f"party {n} exited with code {p.exitcode} and no result")
+            with open(outs[n]) as f:
+                results[n] = json.load(f)
+            require(results[n]["ok"] and p.exitcode == 0,
+                    f"party {n} failed (exit code {p.exitcode}):\n"
+                    f"{results[n].get('error')}")
+    return check_fed(results, device, wall, label)
+
+
+def check_fed(results, device, wall, label=""):
+    """Phase 5's checks (a)-(f) over both parties' results, and its
+    report: per round the wall time and each push's ms, GB/s and split."""
+    import torch
+
+    root, other = (n for n, _ in PARTIES)
+    res = results[root]
+    require(all(results[other][k] == res[k]
+                for k in ("evals", "bf16_digests", "reports")),
+            "the parties disagree on values both fetched through fed.get")
+    for r, rnd in enumerate(res["rounds"]):
+        require(rnd["starts_identical"],
+                f"(b) round {r} started from different params")
+        for push in ("params_push", "aggregate_push"):
+            require(rnd[push]["digest"] == rnd[push]["owner_digest"],
+                    f"(a)/(c) round {r}: the {push} arrived with other bytes "
+                    f"than its owner pushed")
+    require(res["evals"][-1] < res["evals"][0],
+            f"(d) the aggregate's loss did not fall: {res['evals']}")
+    bf_sent, bf_got = res["bf16_digests"]
+    require(bf_sent == bf_got, "(f) the bf16 tree did not cross bitwise")
+    if torch.device(device).type == "cuda":
+        for n, rep in res["reports"].items():
+            require(all(v > 0 for v in rep["launches"].values()),
+                    f"(e) party {n}'s train steps did not launch every "
+                    f"kernel: {rep['launches']}")
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.1f} ms"
+
+    print(f"[fed] {label} two party processes, {len(res['rounds'])} rounds "
+          f"in {wall:.1f} s from spawn to exit; IO path "
+          f"{res['reports'][root]['io_path']}")
+    print(f"[fed] {label} aggregate eval loss per round {res['evals']}")
+    for r, rnd in enumerate(res["rounds"]):
+        parts = [f"round {r}: wall {rnd['wall_s']:.2f} s"]
+        for push in ("params_push", "aggregate_push"):
+            got = rnd[push]
+            total = got["push_ms"]
+            rate = ("" if total is None else
+                    f", {got['nbytes'] / total / 1e6:.3f} GB/s")
+            share = ("" if total is None or got["stage_ms"] is None else
+                     f" ({100 * got['stage_ms'] / total:.1f}%)")
+            parts.append(
+                f"{push} {got['nbytes']} B: {ms(total)}{rate}; host staging "
+                f"{ms(got['stage_ms'])}{share}, send {ms(got['send_ms'])}, "
+                f"decode {ms(got['decode_ms'])}, to the card "
+                f"{ms(got['h2d_ms'])}")
+        print(f"[fed] {label} " + "; ".join(parts))
+    for n, rep in res["reports"].items():
+        print(f"[fed] {label} party {n}: train launches {rep['launches']}, "
+              f"evaluations {rep['eval_launches']}, max_memory_allocated "
+              f"{rep['max_memory_allocated']}")
+    return results
+
+
 def main():
     import torch
 
@@ -630,6 +1028,16 @@ def main():
         require(summary["launches"][k["name"]] > 0,
                 f"{k['name']} was not launched by the train steps: "
                 f"{summary['launches']}")
+
+    # Phase 5 spawns two party processes on the same card: phase 4's
+    # tensors are gone, and the allocator hands its cache back first.
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[fed] reduced " + json.dumps(reduced))
+    phase_fed("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+              label=f"on {smi}:")
 
     line = []
     for k in KERNELS:

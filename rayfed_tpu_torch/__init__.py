@@ -12,11 +12,55 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""PyTorch/CUDA port of rayfed_tpu's accelerator half.
+"""rayfed_tpu_torch: the PyTorch/CUDA port of rayfed_tpu.
 
-It mirrors the JAX package's module paths (models/transformer.py,
-ops/flash_attention.py, ops/aggregate.py, parallel/train.py,
-data.py) and never imports jax or rayfed_tpu. Entry points run
-on CUDA unless the caller passes device="cpu"; the attention kernels
-are hand-written for Hopper (csrc/) and built at first use.
+The federated engine — ``init``, ``remote``, ``get``, ``kill``,
+``shutdown``, ``send``, ``recv``, ``FedObject``, ``FedRemoteError`` — over
+the native TCP wire, whose frames are the JAX package's, so parties of
+the two packages run one job; and the accelerator half, mirroring the
+JAX package's module paths (models/transformer.py,
+ops/flash_attention.py, ops/aggregate.py, parallel/train.py, data.py).
+It never imports jax or rayfed_tpu. Entry points run on CUDA unless the
+caller passes device="cpu"; the attention kernels are hand-written for
+Hopper (csrc/) and built at first use. Planes not ported yet are absent,
+and ``init`` refuses their config blocks (ROADMAP Queue 1).
 """
+
+from rayfed_tpu_torch import tree_util  # noqa: F401  (must precede api import)
+from rayfed_tpu_torch.api import (  # noqa: F401
+    get,
+    init,
+    is_party_leader,
+    kill,
+    remote,
+    shutdown,
+)
+from rayfed_tpu_torch.exceptions import FedRemoteError  # noqa: F401
+from rayfed_tpu_torch.fed_object import FedObject  # noqa: F401
+from rayfed_tpu_torch.proxy.barriers import recv, send  # noqa: F401
+from rayfed_tpu_torch.resilience import (  # noqa: F401
+    MISSING,
+    fault_trace,
+    liveness_view,
+    party_state,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "init",
+    "remote",
+    "get",
+    "kill",
+    "shutdown",
+    "send",
+    "is_party_leader",
+    "recv",
+    "FedObject",
+    "FedRemoteError",
+    "MISSING",
+    "fault_trace",
+    "liveness_view",
+    "party_state",
+    "__version__",
+]

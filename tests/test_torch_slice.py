@@ -135,6 +135,24 @@ def test_chip_smoke_slice_phase_on_cpu_at_tiny_size():
     assert summary["max_memory_allocated"] is None
 
 
+def test_chip_smoke_fed_phase_on_cpu_at_tiny_size():
+    # Phase 5's program, two spawned party processes over the port's
+    # engine, end to end at tiny size; phase_fed itself fails on any of
+    # its checks (a)-(f) but (e), which needs the card.
+    results = chip_smoke.phase_fed("cpu", tfm.tiny_config(), batch=BATCH,
+                                   seq=SEQ, lr=LR, timeout_s=60)
+    res = results[PARTIES[0][0]]
+    assert len(res["rounds"]) == chip_smoke.FED_ROUNDS
+    assert res["evals"][-1] < res["evals"][0]
+    for rnd in res["rounds"]:
+        assert rnd["starts_identical"]
+        for push in ("params_push", "aggregate_push"):
+            got = rnd[push]
+            assert got["digest"] == got["owner_digest"]
+            assert got["push_ms"] > 0 and got["stage_ms"] is not None
+    assert res["reports"][PARTIES[1][0]]["io_path"] == "python"
+
+
 def test_kernel_work_counts_the_causal_pairs():
     for b, sq, sk, h, off in [(1, 8, 8, 1, 0), (2, 5, 9, 3, 4), (1, 6, 4, 2, 0)]:
         q_pos = np.arange(sq)[:, None] + off
@@ -214,21 +232,39 @@ def test_ptxas_spills_sums_stores_and_loads_per_kernel():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    # Every module imports, and a party's fed.init / fed.shutdown runs,
+    # without jax, the JAX package, msgpack, cloudpickle or ml_dtypes.
     code = (
-        "import importlib, pkgutil, sys\n"
-        "import rayfed_tpu_torch, chip_smoke\n"
-        "for m in pkgutil.walk_packages(rayfed_tpu_torch.__path__, "
-        "'rayfed_tpu_torch.'):\n"
+        "import importlib, pkgutil, socket, sys\n"
+        "import rayfed_tpu_torch as fed, chip_smoke\n"
+        "for m in pkgutil.walk_packages(fed.__path__, 'rayfed_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'rayfed_tpu')\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'rayfed_tpu.')))\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0))\n"
+        "port = s.getsockname()[1]; s.close()\n"
+        "fed.init(addresses={'alice': f'127.0.0.1:{port}'}, party='alice')\n"
+        "@fed.remote\n"
+        "def f(x):\n"
+        "    return x + 1\n"
+        "assert fed.get(f.party('alice').remote(1)) == 2\n"
+        "fed.shutdown()\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'rayfed_tpu',\n"
+        "             'msgpack', 'cloudpickle', 'ml_dtypes')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'rayfed_tpu.',\n"
+        "                              'msgpack.', 'cloudpickle.')))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('rayfed_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 10  # every module was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 40  # every module
+
+
+def test_port_reset_hooks_run_clean_and_cover_its_singletons():
+    from rayfed_tpu_torch.tenancy import reset
+
+    assert reset.run_all_reset_hooks() == []
+    assert reset.verify_inventory_coverage() == []
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
