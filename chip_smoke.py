@@ -49,6 +49,20 @@ Phases:
    loss falls, (e) each party's train steps launch every kernel, (f) a
    bf16 tree crosses bitwise. Prints each push's ms, GB/s and split, the
    IO path and each party's peak memory.
+6. programs: the JAX package's FedAvg programs as the port's examples
+   (``rayfed_tpu_torch/examples``), two spawned party processes each,
+   with ``transport="cuda"``: ``federated_transformer.py`` at the same
+   width and depth (``fed_aggregate`` mean, received trees placed on
+   the party's card by the lane), then ``fedavg_cnn.py``
+   (``FedAvgTrainer``, wmean over 640/384 shards), 2 rounds each.
+   Checks: (a) every received tree is on the party's card in the
+   consuming task, with no ``.to()`` there, (b) the root's aggregate on the
+   card is bitwise the port's CPU fold of the two pushed trees, (c) both
+   parties' final aggregates hash the same, (d) the aggregate's loss
+   falls, (e) each party's steps launch every kernel; the CNN program's
+   two digests agree. Prints each push's ms, GB/s and split (host
+   staging, send, decode and the placement inside it), each round's
+   wall and each party's peak memory.
 
 It needs a CUDA card and exits non-zero without one. The last two lines
 are the kernel table and ``{"ok": true, "device": {...}}`` as JSON.
@@ -870,16 +884,14 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
                 bf16_digests=bf16, reports=dict(zip(names, reports)))
 
 
-def fed_party(party, addresses, out_path, device, cfg_kw, batch, seq,
-              rounds, local_steps, lr):
-    """Phase 5's party process (spawned): runs :func:`_fed_program` and
-    writes its result, or the error, as JSON to ``out_path``."""
+def fed_party(program, party, addresses, out_path, *args):
+    """A party process of phases 5 and 6 (spawned): runs ``program(party,
+    addresses, *args)`` and writes its result, or the error, as JSON to
+    ``out_path``."""
     import traceback
 
     try:
-        result = dict(ok=True, **_fed_program(
-            party, addresses, device, cfg_kw, batch, seq, rounds,
-            local_steps, lr))
+        result = dict(ok=True, **program(party, addresses, *args))
     except BaseException:  # noqa: BLE001 - reported to the parent
         result = dict(ok=False, error=traceback.format_exc())
     with open(out_path, "w") as f:
@@ -906,21 +918,32 @@ def phase_fed(device, cfg, *, batch, seq, rounds=FED_ROUNDS, local_steps=2,
     party's train steps launched every kernel, (f) a bf16 tree crossed
     bitwise. Returns both parties' results."""
     import dataclasses
-    import multiprocessing
 
     import torch
 
-    mp = multiprocessing.get_context("spawn")
-    addresses = {n: f"127.0.0.1:{_free_port()}" for n, _ in PARTIES}
-    cfg_kw = dataclasses.asdict(cfg)
     if torch.device(device).type == "cuda":
         free, total = torch.cuda.mem_get_info()
         print(f"[fed] {label} at the spawn: {free} of {total} bytes free")
+    results, wall = spawn_parties(
+        _fed_program, (device, dataclasses.asdict(cfg), batch, seq, rounds,
+                       local_steps, lr), timeout_s)
+    return check_fed(results, device, wall, label)
+
+
+def spawn_parties(program, args, timeout_s):
+    """Run ``program(party, addresses, *args)`` in one spawned process per
+    party over localhost TCP; returns each party's result and the wall
+    time from spawn to exit. Fails on a party's error, a missing result
+    or the join timeout (every process is stopped first)."""
+    import multiprocessing
+
+    mp = multiprocessing.get_context("spawn")
+    addresses = {n: f"127.0.0.1:{_free_port()}" for n, _ in PARTIES}
     with tempfile.TemporaryDirectory() as tmp:
         outs = {n: os.path.join(tmp, f"{n}.json") for n, _ in PARTIES}
         procs = {n: mp.Process(target=fed_party, name=f"party-{n}", args=(
-            n, addresses, outs[n], device, cfg_kw, batch, seq, rounds,
-            local_steps, lr)) for n, _ in PARTIES}
+            program, n, addresses, outs[n]) + tuple(args))
+            for n, _ in PARTIES}
         t0 = time.perf_counter()
         for p in procs.values():
             p.start()
@@ -944,7 +967,7 @@ def phase_fed(device, cfg, *, batch, seq, rounds=FED_ROUNDS, local_steps=2,
             require(results[n]["ok"] and p.exitcode == 0,
                     f"party {n} failed (exit code {p.exitcode}):\n"
                     f"{results[n].get('error')}")
-    return check_fed(results, device, wall, label)
+    return results, wall
 
 
 def check_fed(results, device, wall, label=""):
@@ -1003,6 +1026,299 @@ def check_fed(results, device, wall, label=""):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the JAX package's FedAvg programs on the port
+# ---------------------------------------------------------------------------
+
+PROGRAM_ROUNDS = 2
+# Check (b)'s three-party weights: inexact in bf16, their total in f32.
+W3 = (0.37, 1.7, 1000.5)
+PUSH_KINDS = ("stage", "send", "decode", "place")
+
+
+def _push_spans():
+    """This process's spans of ``PUSH_KINDS``, start on the wall clock:
+    ``[kind, up, down, start_s, duration_s, nbytes]``."""
+    from rayfed_tpu_torch import tracing
+
+    offset = time.time() - time.perf_counter()
+    return [[sp.kind, str(sp.upstream_seq_id), str(sp.downstream_seq_id),
+             sp.start_s + offset, sp.duration_s, sp.nbytes]
+            for sp in tracing.get_spans() if sp.kind in PUSH_KINDS]
+
+
+def _int_view(x):
+    """``x``'s bits as integers of its width (NaNs compare as bits)."""
+    import torch
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return x.view(ints[x.element_size()])
+
+
+def _lm_program(party, addresses, device, cfg_kw, batch, seq, rounds,
+                local_steps, lr):
+    """Phase 6's transformer program: the rounds of
+    ``rayfed_tpu_torch/examples/federated_transformer.py`` (its
+    ``LmWorker`` and ``run``) at ``cfg_kw``'s width, with
+    ``transport="cuda"`` on a card ("tcp" on the CPU), plus what the
+    parent checks: where the pushed tree landed and the root's aggregate
+    against the CPU fold each round, the aggregate's eval loss before and
+    after, the final aggregate's digest, each party's kernel launches,
+    peak memory and push spans."""
+    import numpy as np
+    import torch
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import mesh, topology, tracing, tree_util
+    from rayfed_tpu_torch.data import synthetic_lm_dataset
+    from rayfed_tpu_torch.examples import federated_transformer as example
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.ops.aggregate import reduce_by_plan
+
+    cfg = tfm.TransformerConfig(**cfg_kw)
+    on_cuda = torch.device(device).type == "cuda"
+    names = [n for n, _ in PARTIES]
+    root, other = names
+    tracing.enable()
+    fed.init(addresses=addresses, party=party, logging_level="warning",
+             transport="cuda" if on_cuda else "tcp",
+             config={"cross_silo_comm": FED_COMM})
+    party_dev = mesh.get_party_device() if on_cuda else torch.device("cpu")
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    eval_launches = dict.fromkeys(fa.LAUNCHES, 0)
+
+    @fed.remote
+    def evaluate(params):
+        """The loss of ``params`` (the workers' initial params when None)
+        on one window of each party's data."""
+        if params is None:
+            params = tfm.init_params(0, cfg, party_dev)
+        blk = torch.as_tensor(np.stack([next(synthetic_lm_dataset(
+            cfg.vocab, batch * local_steps * (seq + 1), seq, seed=s
+        ).batches(batch, epoch=0))[0] for _, s in PARTIES]),
+            device=party_dev).long()
+        before = dict(fa.LAUNCHES)
+        with torch.no_grad():
+            loss = float(tfm.lm_loss_pair(
+                params, blk[:, :-1], blk[:, 1:], cfg, fa.make_flash_attn_fn(),
+                loss_chunk=512))
+        for k in eval_launches:
+            eval_launches[k] += fa.LAUNCHES[k] - before[k]
+        return loss
+
+    @fed.remote
+    def check_round(mine, theirs, agg):
+        """At the root, once the round's aggregate is ready: (a) where
+        the other party's pushed tree landed, (b) the aggregate, computed
+        on the party's device, against the CPU fold of both pushed trees
+        taken to host (``reduce_by_plan``: the same sum and divide as
+        ``fed_aggregate``); and, since dividing two parties' sum by 2 is
+        exact, ``reduce_by_plan`` over three parties (the two pushed
+        trees and the aggregate) on the device against the CPU, in f32
+        and bf16, as a mean (divide by 3) and weighted by ``W3`` (a
+        total inexact in f32, weights inexact in bf16)."""
+        started = time.time()
+
+        def host(t):
+            return tree_util.tree_map(lambda x: x.detach().cpu(), t)
+
+        def mismatches(xs, ys):
+            return sum(int((_int_view(a) != _int_view(b)).sum())
+                       for a, b in zip(xs, ys))
+
+        want = reduce_by_plan(topology.plan(names, "flat"),
+                              {root: host(mine), other: host(theirs)})
+        got = tree_util.tree_flatten(host(agg))[0]
+        mismatched = mismatches(got, tree_util.tree_flatten(want)[0])
+        # Leaf by leaf, so the device holds one leaf's folds at a time.
+        three = [f"p{i}" for i in range(3)]
+        plan3 = topology.plan(three, "flat")
+        spec = tree_util.tree_flatten(mine)[1]
+        mismatched3 = elements3 = 0
+        for leaves in zip(tree_util.tree_flatten(mine)[0],
+                          tree_util.leaves_like(theirs, spec),
+                          tree_util.leaves_like(agg, spec)):
+            for dtype in (torch.float32, torch.bfloat16):
+                on_dev = dict(zip(three, (x.to(dtype) for x in leaves)))
+                on_cpu = {p: x.cpu() for p, x in on_dev.items()}
+                for w in (None, dict(zip(three, W3))):
+                    mismatched3 += mismatches(
+                        [reduce_by_plan(plan3, on_dev, w).cpu()],
+                        [reduce_by_plan(plan3, on_cpu, w)])
+                    elements3 += leaves[0].numel()
+        return dict(
+            started=started, mismatched=mismatched,
+            elements=sum(x.numel() for x in got),
+            mismatched3=mismatched3, elements3=elements3,
+            landed=sorted({str(x.device)
+                           for x in tree_util.tree_flatten(theirs)[0]}),
+            folded_on=sorted({str(x.device)
+                              for x in tree_util.tree_flatten(agg)[0]}))
+
+    @fed.remote
+    def report():
+        return dict(
+            launches={k: n - eval_launches[k] for k, n in fa.LAUNCHES.items()},
+            eval_launches=dict(eval_launches),
+            max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                  if on_cuda else None),
+            spans=_push_spans())
+
+    workers = {n: example.LmWorker.party(n).remote(
+        seed, cfg, batch=batch, seq=seq, local_steps=local_steps, lr=lr,
+        device=None if on_cuda else "cpu") for n, seed in PARTIES}
+    evals = [fed.get(evaluate.party(root).remote(None))]
+    checks, starts, last = [], [time.time()], {}
+
+    def on_round(r, locals_, global_params):
+        checks.append(fed.get(check_round.party(root).remote(
+            locals_[root], locals_[other], global_params)))
+        last["aggregate"] = global_params
+        starts.append(time.time())
+
+    final = example.run(party, workers, rounds=rounds, on_round=on_round)
+    evals.append(fed.get(evaluate.party(root).remote(last["aggregate"])))
+    received = fed.get([workers[n].received_devices.remote() for n in names])
+    reports = fed.get([report.party(n).remote() for n in names])
+    digest = _tree_digest(final)
+    fed.shutdown()
+    # A round: from its first submit to its aggregate ready at the root
+    # (the check task starts then), the checks left out.
+    walls = [c["started"] - t for c, t in zip(checks, starts)]
+    return dict(party=party, party_device=str(party_dev), evals=evals,
+                checks=checks, round_walls=walls, digest=digest,
+                received=dict(zip(names, received)),
+                reports=dict(zip(names, reports)))
+
+
+def _cnn_program(party, addresses, device, rounds):
+    """Phase 6's CNN program: ``rayfed_tpu_torch/examples/fedavg_cnn.py``
+    (wmean over the 640/384 shards) for ``rounds`` rounds."""
+    import torch
+
+    from rayfed_tpu_torch.examples import fedavg_cnn
+
+    on_cuda = torch.device(device).type == "cuda"
+    out = fedavg_cnn.run(party, addresses, rounds=rounds,
+                         device=None if on_cuda else "cpu",
+                         transport="cuda" if on_cuda else "tcp",
+                         comm=FED_COMM)
+    return dict(digest=out["digest"], loss=out["loss"])
+
+
+def pushes(reports):
+    """Each push of a tensor tree, from both parties' spans: the sender's
+    host staging (``stage``) and socket send, the receiver's decode and,
+    on the CUDA lane, the placement on its card inside the decode. The
+    total runs from the staging's start (the pushed value resolved) to
+    the receiver's placement's end (its decode's on the TCP lane)."""
+    spans = {}
+    for party, rep in reports.items():
+        for kind, up, down, start, dur, nbytes in rep["spans"]:
+            spans.setdefault((up, down), {})[kind] = (party, start, dur,
+                                                      nbytes)
+    out = []
+    for key, got in spans.items():
+        if "stage" not in got or "decode" not in got or got["stage"][3] == 0:
+            continue
+        sender, t0 = got["stage"][:2]
+        receiver, start, dur, nbytes = got.get("place", got["decode"])
+        out.append(dict(
+            src=sender, dst=receiver, nbytes=nbytes, t0=t0,
+            total_ms=1e3 * (start + dur - t0),
+            **{f"{k}_ms": 1e3 * got[k][2] if k in got else None
+               for k in PUSH_KINDS}))
+    return sorted(out, key=lambda p: p["t0"])
+
+
+def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
+                   local_steps=2, lr=1e-3, label="",
+                   timeout_s=FED_JOIN_TIMEOUT_S):
+    """Phase 6: the JAX package's FedAvg programs on the port, each in
+    two spawned party processes: the transformer program (``fed_aggregate``
+    mean) at ``cfg``'s width, checked: (a) every received tree is on the
+    receiving party's device in the consuming task, (b) the root's
+    aggregate on its device is bitwise the CPU fold of the two pushed
+    trees, (c) both parties' ``fed.get`` of the final aggregate hash the
+    same, (d) the aggregate's loss falls, (e) each party's steps launched
+    every kernel; then the CNN program (``FedAvgTrainer``, wmean), whose
+    two digests must agree. Returns the transformer program's results."""
+    import dataclasses
+
+    import torch
+
+    on_cuda = torch.device(device).type == "cuda"
+    root, other = (n for n, _ in PARTIES)
+    results, wall = spawn_parties(
+        _lm_program, (device, dataclasses.asdict(cfg), batch, seq, rounds,
+                      local_steps, lr), timeout_s)
+    res = results[root]
+    require(all(results[other][k] == res[k]
+                for k in ("evals", "checks", "received", "reports")),
+            "the parties disagree on values both fetched through fed.get")
+    devices = {n: results[n]["party_device"] for n in results}
+    for r, chk in enumerate(res["checks"]):
+        require(chk["landed"] == [devices[root]],
+                f"(a) round {r}: {other}'s tree reached the root's task on "
+                f"{chk['landed']}, not {devices[root]}")
+        require(chk["folded_on"] == [devices[root]] and chk["mismatched"] == 0,
+                f"(b) round {r}: the aggregate on {chk['folded_on']} differs "
+                f"from the CPU fold in {chk['mismatched']} of "
+                f"{chk['elements']} elements")
+        require(chk["mismatched3"] == 0,
+                f"(b) round {r}: the three-party folds on "
+                f"{chk['folded_on']} differ from the CPU's in "
+                f"{chk['mismatched3']} of {chk['elements3']} elements")
+    require(res["received"][other] == [devices[other]],
+            f"(a) {other}'s worker got the global tree on "
+            f"{res['received'][other]}, not {devices[other]}")
+    require(results[other]["digest"] == res["digest"],
+            "(c) the parties' final aggregates hash differently")
+    require(res["evals"][-1] < res["evals"][0],
+            f"(d) the aggregate's loss did not fall: {res['evals']}")
+    if on_cuda:
+        for n, rep in res["reports"].items():
+            require(all(v > 0 for v in rep["launches"].values()),
+                    f"(e) party {n}'s train steps did not launch every "
+                    f"kernel: {rep['launches']}")
+    cnn, cnn_wall = spawn_parties(_cnn_program, (device, rounds), timeout_s)
+    require(cnn[root]["digest"] == cnn[other]["digest"],
+            "the CNN program's parties hold different final aggregates")
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.1f} ms"
+
+    push_list = pushes(res["reports"])
+    print(f"[programs] {label} federated_transformer: two party processes "
+          f"({devices}), {rounds} rounds in {wall:.1f} s from spawn to "
+          f"exit; round walls "
+          + ", ".join(f"{w:.2f} s" for w in res["round_walls"]))
+    print(f"[programs] {label} aggregate eval loss {res['evals']}; fold "
+          f"bitwise each round ({res['checks'][0]['elements']} elements; "
+          f"three-party folds {res['checks'][0]['elements3']} elements); "
+          f"final digests equal")
+    for p in push_list:
+        place = p["place_ms"]
+        print(f"[programs] {label} push {p['src']} -> {p['dst']} "
+              f"{p['nbytes']} B: {p['total_ms']:.1f} ms, "
+              f"{p['nbytes'] / p['total_ms'] / 1e6:.3f} GB/s; host staging "
+              f"{ms(p['stage_ms'])}, send {ms(p['send_ms'])}, decode "
+              f"{ms(p['decode_ms'])}, of which placement on the card "
+              f"{ms(place)}")
+    for n, rep in res["reports"].items():
+        print(f"[programs] {label} party {n}: train launches "
+              f"{rep['launches']}, evaluations {rep['eval_launches']}, "
+              f"max_memory_allocated {rep['max_memory_allocated']}")
+    print(f"[programs] {label} fedavg_cnn: {rounds} rounds (wmean) in "
+          f"{cnn_wall:.1f} s from spawn to exit, digests equal, local "
+          f"losses {cnn[root]['loss']:.4f} / {cnn[other]['loss']:.4f}")
+    return dict(results=results, pushes=push_list, wall_s=wall,
+                cnn_wall_s=cnn_wall)
+
+
 def main():
     import torch
 
@@ -1038,6 +1354,9 @@ def main():
     print("[fed] reduced " + json.dumps(reduced))
     phase_fed("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
               label=f"on {smi}:")
+    print("[programs] reduced " + json.dumps(reduced))
+    phase_programs("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+                   label=f"on {smi}:")
 
     line = []
     for k in KERNELS:

@@ -17,9 +17,14 @@
 The federated engine — ``init``, ``remote``, ``get``, ``kill``,
 ``shutdown``, ``send``, ``recv``, ``FedObject``, ``FedRemoteError`` — over
 the native TCP wire, whose frames are the JAX package's, so parties of
-the two packages run one job; and the accelerator half, mirroring the
-JAX package's module paths (models/transformer.py,
-ops/flash_attention.py, ops/aggregate.py, parallel/train.py, data.py).
+the two packages run one job, or over the CUDA lane
+(``transport="cuda"``), which places received tensors on the party's
+card; FedAvg over planned topologies (federated.py: ``fed_aggregate``,
+``FedAvgTrainer``; topology.py); and the accelerator half, mirroring the
+JAX package's module paths (models/transformer.py, models/mlp.py,
+models/cnn.py, ops/flash_attention.py, ops/aggregate.py,
+parallel/train.py, data.py), with the JAX package's example programs in
+examples/.
 It never imports jax or rayfed_tpu. Entry points run on CUDA unless the
 caller passes device="cpu"; the attention kernels are hand-written for
 Hopper (csrc/) and built at first use. Planes not ported yet are absent,

@@ -24,7 +24,10 @@ Differences from the reference (SURVEY.md §7):
  - the transport is the native TCP data plane with the array fast path
    (``transport='tcp'``), whose frames are the JAX package's, so parties
    of the two packages run one job together; ``torch.Tensor`` leaves ride
-   it, CUDA tensors staged to host when the pushed value resolves.
+   it, CUDA tensors staged to host when the pushed value resolves;
+ - ``transport='cuda'`` (the JAX package's ``'tpu'``) additionally places
+   received tensors on the party's card, bound by ``init`` from
+   ``config['party_mesh']`` (one device) or the current card.
 
 This package ports the JAX package's engine without the planes still to
 port (ROADMAP Queue 1): ``init`` refuses their config blocks, before any
@@ -71,15 +74,7 @@ _UNPORTED_BLOCKS = {
         "multi-process parties (torch.distributed over a TCPStore) are "
         "ROADMAP Queue 1 item 17"
     ),
-    "party_mesh": (
-        "a party device mesh comes with the sharded train step, ROADMAP "
-        "Queue 1 item 8"
-    ),
     "collective": "the cross-party collective lane is ROADMAP Queue 1 item 12",
-    "aggregation": (
-        "aggregation topologies are ROADMAP Queue 1 item 5 and async "
-        "rounds item 10"
-    ),
     "serving": "the serving plane is ROADMAP Queue 1 item 9",
     "membership": "elastic membership is ROADMAP Queue 1 item 10",
     "checkpoint": "job checkpoints are ROADMAP Queue 1 item 10",
@@ -99,6 +94,14 @@ def _refuse_unported(config: Dict, transport: str) -> None:
                 f"config[{key!r}] is not supported by rayfed_tpu_torch yet: "
                 f"{why}"
             )
+    async_keys = sorted(k for k in (config.get("aggregation") or {})
+                        if k.startswith("async_"))
+    if async_keys:
+        raise NotImplementedError(
+            f"config['aggregation'] keys {async_keys}: buffered async rounds "
+            "are ROADMAP Queue 1 item 10, not ported to rayfed_tpu_torch yet "
+            "(the sync keys topology and group_size are)"
+        )
     if transport != "tcp":
         # The proxy table raises the item-naming ImportError for 'tpu'
         # and 'grpc' (ValueError for unknown names).
@@ -151,10 +154,14 @@ def init(
             :class:`~rayfed_tpu_torch.config.TcpCrossSiloMessageConfig`),
             ``barrier_on_initializing`` (bool: block until all parties are
             reachable), ``resilience`` (fault schedule, liveness),
-            ``tenancy``, ``kv_store``. The blocks of planes not ported
-            yet (``jax_distributed``, ``party_mesh``, ``collective``,
-            ``aggregation``, ``serving``, ``membership``,
-            ``checkpoint``, ``privacy``, ``telemetry``) are refused.
+            ``tenancy``, ``kv_store``, ``aggregation`` (``topology``,
+            ``group_size``: the job's ``fed_aggregate`` default),
+            ``party_mesh`` (``device_ids``: the party's one card). The
+            blocks of planes not ported yet (``jax_distributed``,
+            ``collective``, ``serving``, ``membership``, ``checkpoint``,
+            ``privacy``, ``telemetry``), the ``aggregation.async_*``
+            keys and a ``party_mesh`` over more than one device are
+            refused.
         tls_config: ``{ca_cert, cert, key}`` file paths for mutual TLS.
         logging_level: root logging level.
         sender_proxy_cls / receiver_proxy_cls: custom transport classes
@@ -168,7 +175,8 @@ def init(
         job_name: multi-job isolation name; peers in other jobs get 417.
         sending_failure_handler: called with the last sending error on
             unintended shutdown.
-        transport: 'tcp' (the default and, so far, the only one).
+        transport: 'tcp' (the default) or 'cuda' (received tensors
+            placed on the party's card; raises without one).
     """
     assert addresses, "fed.init needs addresses={party: 'host:port', ...}"
     assert party, "fed.init needs party=<this party's name>"
@@ -178,6 +186,18 @@ def init(
     config = config or {}
     transport = transport or config.get("transport", "tcp")
     _refuse_unported(config, transport)
+    # The party's card: bound when the job places on it (transport
+    # 'cuda') or names it (party_mesh); resolved here so a multi-device
+    # mesh, or no card at all, is refused before any state is built.
+    party_mesh_dict = config.get("party_mesh")
+    party_mesh_cfg = None
+    if party_mesh_dict is not None or transport == "cuda":
+        from rayfed_tpu_torch import mesh as fed_mesh
+
+        if party_mesh_dict is not None:
+            party_mesh_cfg = fed_config.PartyMeshConfig.from_dict(
+                party_mesh_dict)
+        fed_mesh.resolve_party_device(party_mesh_cfg)
 
     if job_name is None:
         job_name = constants.DEFAULT_JOB_NAME
@@ -224,6 +244,9 @@ def init(
         party_process_id=0,
         party_num_processes=1,
     )
+
+    if party_mesh_dict is not None or transport == "cuda":
+        fed_mesh.init_party_device(party_mesh_cfg)
 
     tls_config = {} if tls_config is None else tls_config
     if tls_config:
@@ -311,6 +334,18 @@ def init(
             proxy_cls=sender_proxy_cls,
             proxy_config=cross_silo_comm_dict,
             use_global_proxy=use_global_proxy,
+        )
+
+    # Aggregation topology default (rayfed_tpu_torch/topology.py): every
+    # driver reads the same config, so every party plans the identical
+    # reduction DAG (multi-controller contract).
+    aggregation_dict = config.get("aggregation") or {}
+    if aggregation_dict:
+        from rayfed_tpu_torch import topology as _topology
+
+        _topology.set_default(
+            aggregation_dict.get("topology", "auto"),
+            group_size=aggregation_dict.get("group_size"),
         )
 
     # Resilience wiring (docs/resilience.md). The fault injector wraps

@@ -21,9 +21,9 @@ globals (ref ``fed/proxy/barriers.py:137-140,209-212``), plus dataclasses
 for cross-silo messaging knobs with ``from_dict`` filtering unknown keys
 (ref ``fed/config.py:147-161``).
 
-TPU extension: ``ClusterConfig`` additionally carries a per-party device
-topology (``party_mesh_config``) — which local devices form this party's
-mesh and the logical axis layout (SURVEY.md C8 "adds mesh/slice topology").
+Device extension: ``PartyMeshConfig`` names the party's device
+(``config["party_mesh"]``), the card the CUDA lane places received
+tensors on (``mesh.py``).
 """
 
 from __future__ import annotations
@@ -165,12 +165,12 @@ class CrossSiloMessageConfig:
     # legacy shape where only per-attempt timeouts bound a send; set it
     # so a send against a dead peer fails after a predictable total
     # rather than attempts x timeout. Enforced by the unified retry
-    # engine (resilience/retry.py) on the native TCP/TPU lanes.
+    # engine (resilience/retry.py) on the native TCP/CUDA lanes.
     send_deadline_in_ms: Optional[int] = None
     messages_max_size_in_bytes: Optional[int] = None
     serializing_allowed_list: Optional[Dict[str, List[str]]] = None
     allow_pickle_payloads: bool = True
-    # Optional payload compression on the native TCP/TPU lanes ("zstd"
+    # Optional payload compression on the native TCP/CUDA lanes ("zstd"
     # or "zlib"; None = off). Worth its CPU on bandwidth-constrained DCN
     # links, not on loopback/ICI; zstd (level 1-3) is several times
     # faster than zlib at similar ratios on gradient data.
@@ -178,7 +178,7 @@ class CrossSiloMessageConfig:
     # lane ignores it (the reference wire has no such field).
     payload_compression: Optional[str] = None
     compression_level: int = 1
-    # LOSSY wire precision on the native TCP/TPU lanes (None = off):
+    # LOSSY wire precision on the native TCP/CUDA lanes (None = off):
     # "bf16" or "fp16" ships wide-float dense array leaves downcast,
     # halving bytes for fp32 gradient pushes — the standard federated
     # gradient-compression trade (bf16 keeps fp32's exponent range and
@@ -195,6 +195,10 @@ class CrossSiloMessageConfig:
     # WIRE_VERSION bump: that would reject all cross-version traffic,
     # including deployments that never enable this opt-in knob).
     payload_wire_dtype: Optional[str] = None
+    # Not ported (ROADMAP Queue 1 items 4 and 12): this package's senders
+    # never take the DMA or same-mesh lanes below, and its CUDA receiver
+    # refuses their frames; the fields stay so a JAX party's comm config
+    # parses unchanged.
     # Device-DMA data plane on the TPU transport (opt-in): all-jax-Array
     # payloads are pulled device-to-device through a per-party
     # jax.experimental.transfer server; the ordinary socket frame carries
@@ -462,15 +466,17 @@ GrpcCrossSiloMessageConfig = TcpCrossSiloMessageConfig
 
 @dataclasses.dataclass
 class PartyMeshConfig:
-    """Device topology for one party (no reference equivalent). The
-    party mesh comes with the sharded train step (ROADMAP Queue 1 item 8);
-    until then ``fed.init`` refuses ``config["party_mesh"]``.
+    """Device topology for one party (no reference equivalent). In this
+    package a party runs on one card (``mesh.resolve_party_device``): a
+    mesh over more than one device comes with the sharded train step
+    (ROADMAP Queue 1 item 8), and ``fed.init`` refuses it until then.
 
     Attributes:
         device_ids: CUDA device indices (``cuda:<i>``) forming this
-            party's mesh (None = all local devices).
-        mesh_shape: logical mesh shape over those devices.
-        axis_names: logical axis names, e.g. ("data", "model").
+            party's mesh, one entry (None = all local devices, which must
+            be one).
+        mesh_shape: logical mesh shape over those devices (one device).
+        axis_names: logical axis names, e.g. ("data",).
     """
 
     device_ids: Optional[List[int]] = None

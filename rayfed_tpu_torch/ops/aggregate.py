@@ -25,6 +25,14 @@ the CPU: ``/ n`` in the mean is a multiply by the f32 reciprocal, and the
 products of the weighted mean and the mix are fused into their sums
 (fused multiply-add, emulated exactly here so the result is the same on
 every device).
+
+The reference's plan-driven reduction (:func:`reduce_by_plan`, and
+``federated.fed_aggregate``'s tasks) is a different chain: an eager
+``x * w``, the jitted :func:`tree_sum`, then an eager ``x / total``. Its
+scalar ``w`` or ``total`` is a weakly-typed Python number, which JAX
+rounds to the leaf's dtype before the op, and its divide is a true
+division; :func:`tree_scale` and :func:`tree_divide` do the same on any
+device.
 """
 
 from __future__ import annotations
@@ -46,14 +54,27 @@ def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(np.float32(x), device=like.device)
 
 
+def _one_device(xs):
+    devices = {x.device for x in xs if isinstance(x, torch.Tensor)}
+    if len(devices) > 1:
+        raise ValueError(
+            f"a fold's leaves lie on different devices "
+            f"{sorted(map(str, devices))}: under transport='tcp' received "
+            "trees arrive on the CPU; fold trees that live on a card with "
+            "transport='cuda', which places received leaves on the "
+            "party's card"
+        )
+    return xs
+
+
 def _tree_map_n(fn, trees):
-    flat = [tree_util.tree_flatten(t) for t in trees]
-    spec = flat[0][1]
-    for _, other in flat[1:]:
-        if other != spec:
-            raise ValueError(f"tree structures differ: {spec} vs {other}")
+    """``fn`` over the trees' leaves at each key path, in the structure
+    (and dict key order) of the first tree. The leaves at one key path
+    must lie on one device."""
+    leaves, spec = tree_util.tree_flatten(trees[0])
+    rest = [tree_util.leaves_like(t, spec) for t in trees[1:]]
     return tree_util.tree_unflatten(
-        [fn(*leaves) for leaves in zip(*(f[0] for f in flat))], spec
+        [fn(*_one_device(xs)) for xs in zip(leaves, *rest)], spec
     )
 
 
@@ -144,3 +165,123 @@ def tree_mix(old, new, lr: float, acc_dtype: Optional[str] = "float32"):
         return _fma(_scalar(lr, oa), na - oa, oa).to(n.dtype)
 
     return _tree_map_n(leaf, (old, new))
+
+
+def _like(scalar, x: torch.Tensor) -> torch.Tensor:
+    """A Python scalar as the reference's weakly-typed operand: rounded to
+    ``x``'s floating dtype (f32 for an integer ``x``), a 0-dim tensor on
+    ``x``'s device. A Python scalar would meet a bf16 leaf in f32, and on
+    a card a CPU scalar turns ``x / s`` into ``x * (1/s)``."""
+    return torch.full((), scalar, device=x.device,
+                      dtype=x.dtype if x.is_floating_point() else None)
+
+
+def tree_scale(tree, w):
+    """Every leaf times the scalar ``w`` in the leaf's dtype (the
+    reference's eager ``x * w``)."""
+    return tree_util.tree_map(lambda x: x * _like(w, x), tree)
+
+
+def tree_divide(tree, denom):
+    """Every leaf over the scalar ``denom`` in the leaf's dtype, a true
+    division (the reference's eager ``x / denom``)."""
+    return tree_util.tree_map(lambda x: x / _like(denom, x), tree)
+
+
+def reduce_by_plan(
+    plan,
+    contributions,
+    weights=None,
+    acc_dtype: Optional[str] = "float32",
+):
+    """Fold ``{party: tree}`` following a
+    :class:`~rayfed_tpu_torch.topology.TopologyPlan`'s exact association
+    order.
+
+    This is the local-execution twin of ``fed_aggregate``'s distributed
+    lowering: each plan step k-ary-folds its ``srcs`` partials (weighted:
+    premultiplied trees + running weight totals), so the arithmetic — and
+    therefore the bits — matches what the wire topology produces.
+
+    Returns the weighted mean over ``plan.parties``.
+    """
+    missing = set(plan.parties) - set(contributions)
+    if missing:
+        raise ValueError(
+            f"plan references parties with no contribution: {sorted(missing)}"
+        )
+    held = {}
+    totals = {}
+    for p in plan.parties:
+        w = 1.0 if weights is None else weights[p]
+        held[p] = tree_scale(contributions[p], w)
+        totals[p] = w
+    for level in plan.levels:
+        for step in level:
+            held[step.dst] = tree_sum(
+                *[held[s] for s in step.srcs], acc_dtype=acc_dtype
+            )
+            totals[step.dst] = sum(totals[s] for s in step.srcs)
+            for s in step.srcs[1:]:
+                del held[s], totals[s]
+    return tree_divide(held[plan.root], totals[plan.root])
+
+
+def elastic_weighted_mean(
+    contributions,
+    weights=None,
+    liveness=None,
+    acc_dtype: Optional[str] = "float32",
+    topology: Optional[str] = None,
+    group_size: Optional[int] = None,
+):
+    """Degraded-mode FedAvg: the weighted mean over SURVIVING
+    contributors, re-normalized so the aggregate stays an average of what
+    actually arrived.
+
+    ``contributions`` is ``{party: tree_or_missing}``. A contributor is
+    dropped when its value is absent — None or the ``fed.MISSING``
+    sentinel, what ``fed.get(..., on_missing="default")`` yields for a
+    lost push — or when ``liveness`` (a ``{party: state}`` view from
+    ``fed.liveness_view()``) marks it DEAD, even when its value arrived: a
+    partitioned peer's stale update is worse than no update.
+
+    ``weights`` maps party -> sample count (uniform when None). Raises
+    ``ValueError`` when no contributor survives. Survivors fold in
+    party-name order, so the same surviving set gives bitwise-identical
+    aggregates on every party.
+
+    ``topology`` (None = the flat left-to-right :func:`tree_weighted_mean`)
+    folds along a reduction plan laid out over the survivors instead (a
+    DEAD party re-plans the topology rather than leaving a hole in it), in
+    the association order ``fed_aggregate`` produces on the wire.
+    """
+    from rayfed_tpu_torch.resilience.degraded import MISSING
+    from rayfed_tpu_torch.resilience.liveness import DEAD
+
+    liveness = liveness or {}
+    survivors = [
+        p for p in sorted(contributions)
+        if contributions[p] is not None
+        and contributions[p] is not MISSING
+        and liveness.get(p) != DEAD
+    ]
+    if not survivors:
+        raise ValueError(
+            "no surviving contributors to aggregate: all values missing "
+            "or their parties marked DEAD"
+        )
+    if topology is not None:
+        from rayfed_tpu_torch import topology as topo
+
+        surv_plan = topo.plan(survivors, topology, group_size=group_size)
+        return reduce_by_plan(
+            surv_plan,
+            {p: contributions[p] for p in survivors},
+            weights=None if weights is None
+            else {p: weights[p] for p in survivors},
+            acc_dtype=acc_dtype,
+        )
+    trees = [contributions[p] for p in survivors]
+    w = [1.0 if weights is None else weights[p] for p in survivors]
+    return tree_weighted_mean(trees, w, acc_dtype=acc_dtype)

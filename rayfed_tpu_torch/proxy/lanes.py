@@ -93,7 +93,7 @@ except ImportError:  # pragma: no cover
 class PeerCapabilities:
     """What the connection to one peer can support, probed at setup.
 
-    ``transport`` is the configured proxy family ("tcp", "tpu", or
+    ``transport`` is the configured proxy family ("tcp", "cuda", or
     "grpc"); ``plaintext`` is False when TLS is configured; ``shm``
     means the shm lane is *permitted and implementable* on this side
     (config opt-in + a ring implementation); ``same_process`` reflects
@@ -131,9 +131,9 @@ def allowed_tiers(cfg) -> Tuple[str, ...]:
 
 
 # The socket families: tiers tcp/tls describe the native FTP1 socket
-# lanes regardless of whether the proxy is the plain TCP or the TPU
-# transport (the TPU proxy layers device lanes over the same sockets).
-_SOCKET_TRANSPORTS = ("tcp", "tpu")
+# lanes regardless of whether the proxy is the plain TCP or the CUDA
+# transport (the CUDA proxy places on the card behind the same sockets).
+_SOCKET_TRANSPORTS = ("tcp", "cuda")
 
 
 def negotiate(caps: PeerCapabilities,
@@ -282,9 +282,10 @@ def reactor_mode(cfg, tls_config) -> bool:
 def transport_proxy_classes(transport: str):
     """(sender_cls, receiver_cls) for a transport family — the proxy
     class table, colocated with the tier policy so transport selection
-    has one home. This package has the TCP family only; the JAX
-    package's other two raise an ImportError naming the ROADMAP item that
-    brings them."""
+    has one home. ``"cuda"`` is the counterpart of the JAX package's
+    ``"tpu"`` (received tensors placed on the party's card), which raises
+    an ImportError naming it, as ``"grpc"`` names the ROADMAP item that
+    brings it."""
     if transport == "tcp":
         from rayfed_tpu_torch.proxy.tcp.tcp_proxy import (
             TcpReceiverProxy,
@@ -292,10 +293,18 @@ def transport_proxy_classes(transport: str):
         )
 
         return TcpSenderProxy, TcpReceiverProxy
+    if transport == "cuda":
+        from rayfed_tpu_torch.proxy.cuda.cuda_proxy import (
+            CudaReceiverProxy,
+            CudaSenderProxy,
+        )
+
+        return CudaSenderProxy, CudaReceiverProxy
     if transport == "tpu":
         raise ImportError(
-            "transport='tpu' has no counterpart in rayfed_tpu_torch yet: "
-            "the CUDA placement lane is ROADMAP Queue 1 item 4"
+            "transport='tpu' is the JAX package's TPU placement lane; its "
+            "counterpart in rayfed_tpu_torch is transport='cuda' (ROADMAP "
+            "Queue 1 item 4)"
         )
     if transport == "grpc":
         raise ImportError(
@@ -303,7 +312,7 @@ def transport_proxy_classes(transport: str):
             "gRPC lane is ROADMAP Queue 1 item 15"
         )
     raise ValueError(
-        f"unknown transport {transport!r}; expected 'tcp', 'tpu' or 'grpc'"
+        f"unknown transport {transport!r}; expected 'tcp', 'cuda' or 'grpc'"
     )
 
 

@@ -117,6 +117,18 @@ def _hook_metrics() -> None:
     zero_registry()
 
 
+def _hook_topology() -> None:
+    from rayfed_tpu_torch.topology import reset_default
+
+    reset_default()
+
+
+def _hook_mesh() -> None:
+    from rayfed_tpu_torch.mesh import clear_party_device
+
+    clear_party_device()
+
+
 def _hook_tracing() -> None:
     from rayfed_tpu_torch import tracing
 
@@ -159,6 +171,7 @@ RESET_HOOKS: Dict[str, List[Tuple[Callable[[], None], str]]] = {
     "rayfed_tpu_torch.resilience.liveness": [(_hook_liveness, JOB)],
     "rayfed_tpu_torch.resilience.inject": [(_hook_inject, JOB)],
     "rayfed_tpu_torch.resilience.linkhealth": [(_hook_linkhealth, JOB)],
+    "rayfed_tpu_torch.topology": [(_hook_topology, JOB)],
     "rayfed_tpu_torch.proxy.barriers": [(_hook_barriers, JOB)],
     "rayfed_tpu_torch.proxy.rendezvous": [(_hook_rendezvous, JOB)],
     "rayfed_tpu_torch._private.kv": [(_hook_kv, JOB)],
@@ -177,6 +190,7 @@ RESET_HOOKS: Dict[str, List[Tuple[Callable[[], None], str]]] = {
     ],
     "rayfed_tpu_torch.tenancy.context": [(_hook_tenancy_registry, JOB)],
     "rayfed_tpu_torch.proxy.tcp.tcp_proxy": [(_hook_tcp_listeners, GLOBAL)],
+    "rayfed_tpu_torch.mesh": [(_hook_mesh, GLOBAL)],
     "rayfed_tpu_torch.tracing": [(_hook_tracing, GLOBAL)],
 }
 

@@ -47,7 +47,7 @@ _request_events: Deque["RequestEvent"] = deque(maxlen=_MAX_REQUEST_EVENTS)  # fe
 
 @dataclass
 class Span:
-    kind: str                 # "send" | "recv" | "decode" | "task" | "stage"
+    kind: str                 # "send" | "recv" | "decode" | "place" | "task" | "stage"
     peer: str                 # destination or source party ("" if n/a)
     upstream_seq_id: str
     downstream_seq_id: str
@@ -115,7 +115,7 @@ def last_span_index() -> int:
 # "recv" spans are arrival events with no duration — no throughput for them.
 # "fold"/"publish" are the async aggregation buffer's K-publish spans
 # (rayfed_tpu_torch/async_rounds.py; docs/async_rounds.md).
-_TIMED_KINDS = {"send", "decode", "task", "fold", "publish"}
+_TIMED_KINDS = {"send", "decode", "place", "task", "fold", "publish"}
 
 
 def summary() -> Dict[str, Dict]:

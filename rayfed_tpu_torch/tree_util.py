@@ -35,7 +35,8 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_flatten", "tree_unflatten", "tree_map", "TreeSpec"]
+__all__ = ["tree_flatten", "tree_unflatten", "tree_map", "leaves_like",
+           "TreeSpec"]
 
 _LEAF = "leaf"
 
@@ -135,3 +136,31 @@ def tree_unflatten(leaves: List[Any], spec: TreeSpec) -> Any:
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     leaves, spec = tree_flatten(tree)
     return tree_unflatten([fn(x) for x in leaves], spec)
+
+
+def leaves_like(tree: Any, spec: TreeSpec) -> List[Any]:
+    """``tree``'s leaves in the order of ``spec``, dicts matched by key:
+    a tree from the JAX package has its dict keys sorted (as
+    ``jax.tree_util`` rebuilds dicts), a tree of this package keeps its
+    insertion order, and two such trees pair their leaves by key path."""
+    out = []
+
+    def go(node, s):
+        if s.kind == "leaf":
+            if isinstance(node, (dict, list, tuple)):
+                raise ValueError(f"tree structures differ at {node!r}")
+            out.append(node)
+        elif s.kind in ("dict", "odict"):
+            if not isinstance(node, dict) or set(node) != set(s.meta):
+                raise ValueError(f"tree structures differ: keys {s.meta}")
+            for k, c in zip(s.meta, s.children):
+                go(node[k], c)
+        else:
+            if (not isinstance(node, (list, tuple))
+                    or len(node) != len(s.children)):
+                raise ValueError(f"tree structures differ: {spec}")
+            for n, c in zip(node, s.children):
+                go(n, c)
+
+    go(tree, spec)
+    return out

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from rayfed_tpu.ops import aggregate as jagg
+from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch.models.transformer import params_from_numpy, params_to_numpy
 from rayfed_tpu_torch.ops import aggregate as agg
 
@@ -120,6 +121,37 @@ def test_mismatched_trees_raise():
         agg.tree_mean(*tt)
     with pytest.raises(ValueError, match="weights"):
         agg.tree_weighted_mean(tt, [1.0])
+
+
+def test_folds_pair_dict_leaves_by_key_not_by_order():
+    # A tree from the JAX package reaches the port with its dict keys
+    # sorted (jax.tree_util rebuilds dicts so); the port's own trees keep
+    # insertion order. The fold pairs leaves by key and keeps the first
+    # tree's order.
+    jt, tt = _both(_trees(2, "float32"))
+    sorted_second = {k: tt[1][k] for k in sorted(tt[1], reverse=True)}
+    assert list(sorted_second) != list(tt[0])
+    out = agg.tree_mean(tt[0], sorted_second)
+    assert list(out) == list(tt[0])
+    _assert_bitwise(out, jagg.tree_mean(*jt))
+
+
+@pytest.mark.parametrize("fold", ["tree_sum", "tree_mean",
+                                  "tree_weighted_mean", "tree_mix"])
+def test_a_fold_over_leaves_on_two_devices_names_the_transport(fold):
+    # A root's own tree on its card meets a tree received under
+    # transport="tcp", which lands on the CPU. The meta device stands in
+    # for the card here.
+    _, tt = _both(_trees(2, "float32"))
+    elsewhere = tree_util.tree_map(
+        lambda v: torch.empty_like(v, device="meta"), tt[1])
+    call = {"tree_sum": lambda: agg.tree_sum(tt[0], elsewhere),
+            "tree_mean": lambda: agg.tree_mean(tt[0], elsewhere),
+            "tree_weighted_mean":
+                lambda: agg.tree_weighted_mean([tt[0], elsewhere], [1.0, 2.0]),
+            "tree_mix": lambda: agg.tree_mix(tt[0], elsewhere, 0.5)}[fold]
+    with pytest.raises(ValueError, match="transport='cuda'"):
+        call()
 
 
 def test_fma_rounds_once():

@@ -464,9 +464,8 @@ def test_late_capture_refuses_a_value_mutated_since_it_resolved():
 
 _REFUSED = [
     ({"jax_distributed": {"num_processes": 2, "process_id": 0}}, "item 17"),
-    ({"party_mesh": {"device_ids": [0]}}, "item 8"),
+    ({"party_mesh": {"device_ids": [0, 1]}}, "item 8"),
     ({"collective": {"coordinator": "127.0.0.1:1"}}, "item 12"),
-    ({"aggregation": {"topology": "tree"}}, "item 5"),
     ({"aggregation": {"async_buffer_k": 2}}, "item 10"),
     ({"serving": {}}, "item 9"),
     ({"membership": {}}, "item 10"),

@@ -17,8 +17,12 @@
 
 f32 and bf16 trees cross in both directions and come back byte-identical;
 a one-round FedAvg with its root in either package equals
-``rayfed_tpu.ops.aggregate.tree_mean`` of the same trees bitwise; a task
-that raises in one package surfaces as ``FedRemoteError`` in the other.
+``rayfed_tpu.ops.aggregate.tree_mean`` of the same trees bitwise; so do
+``fed_aggregate`` mean and wmean (weights bf16 cannot represent) over a
+tree of f32 and bf16 leaves, each party running its own package's
+``fed_aggregate`` (one DAG), with the root in either package, against the
+JAX package's ``reduce_by_plan``; a task that raises in one package
+surfaces as ``FedRemoteError`` in the other.
 The module imports neither package at the top: each party process loads
 only its own.
 """
@@ -139,6 +143,21 @@ def run_mixed(party, addresses, pkgs, case, expected):
         assert _leaf_bytes(agg["w"]) == expected["w"]
         assert _leaf_bytes(agg["layers"][0]["b"]) == expected["b"]
         assert _leaf_bytes(agg["layers"][0]["h"]) == expected["h"]
+    elif case == "fed_aggregate":
+        if pkg == "jax":
+            from rayfed_tpu.federated import fed_aggregate
+        else:
+            from rayfed_tpu_torch.federated import fed_aggregate
+
+        @fed.remote
+        def contribution(name):
+            return _agg_tree(name, pkg)
+
+        objs = {p: contribution.party(p).remote(p) for p in ("alice", "bob")}
+        for op in ("mean", "wmean"):
+            agg = fed.get(fed_aggregate(
+                objs, op=op, weights=AGG_WEIGHTS if op == "wmean" else None))
+            assert _agg_bytes(agg) == expected[op], op
     else:  # error
         # The task raises in the JAX party, and the port's task fed its
         # value fails in turn: an envelope crosses each way. The port's
@@ -167,6 +186,38 @@ def run_mixed(party, addresses, pkgs, case, expected):
     assert other not in sys.modules
 
 
+AGG_WEIGHTS = {"alice": 0.37, "bob": 1.7}
+
+
+def _agg_tree(name, pkg):
+    """A tree of f32 and bf16 leaves: jax arrays for the JAX package (its
+    premultiply is then JAX arithmetic), torch tensors for the port."""
+    tree = _to_package(_numpy_tree(SEEDS[name]), pkg)
+    tree.pop("step")
+    if pkg == "jax":
+        import jax
+
+        tree = jax.tree_util.tree_map(jax.numpy.asarray, tree)
+    return tree
+
+
+def _agg_bytes(tree):
+    return (_leaf_bytes(tree["w"]), _leaf_bytes(tree["layers"][0]["b"]),
+            _leaf_bytes(tree["layers"][0]["h"]))
+
+
+def _expected_fed_aggregate():
+    """The JAX package's ``reduce_by_plan`` (the arithmetic of its
+    ``fed_aggregate``) of the two parties' trees, as bytes per op."""
+    from rayfed_tpu import topology
+    from rayfed_tpu.ops.aggregate import reduce_by_plan
+
+    plan = topology.plan(["alice", "bob"], "flat")
+    trees = {p: _agg_tree(p, "jax") for p in ("alice", "bob")}
+    return {"mean": _agg_bytes(reduce_by_plan(plan, trees)),
+            "wmean": _agg_bytes(reduce_by_plan(plan, trees, AGG_WEIGHTS))}
+
+
 def _expected_fedavg():
     """The JAX package's tree_mean of the two parties' trees, as bytes."""
     from rayfed_tpu.ops.aggregate import tree_mean
@@ -181,9 +232,12 @@ def _expected_fedavg():
             "h": _leaf_bytes(agg["layers"][0]["h"])}
 
 
-@pytest.mark.parametrize("case", ["roundtrip", "fedavg", "error"])
+@pytest.mark.parametrize("case", ["roundtrip", "fedavg", "fed_aggregate",
+                                  "error"])
 @pytest.mark.parametrize("direction", sorted(DIRECTIONS))
 def test_mixed_package_job(direction, case):
-    expected = _expected_fedavg() if case == "fedavg" else None
+    expected = {"fedavg": _expected_fedavg,
+                "fed_aggregate": _expected_fed_aggregate}.get(
+                    case, lambda: None)()
     run_parties(run_mixed, ["alice", "bob"], timeout=60,
                 extra_args=(DIRECTIONS[direction], case, expected))

@@ -260,6 +260,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert int(out.stdout.strip().splitlines()[-1]) >= 40  # every module
 
 
+def test_chip_smoke_programs_phase_at_tiny_size_on_cpu():
+    # Phase 6 on the CPU: the example programs over the TCP lane; the
+    # phase itself fails on any of its checks (a)-(d).
+    out = chip_smoke.phase_programs("cpu", tfm.tiny_config(), batch=BATCH,
+                                    seq=SEQ, timeout_s=240)
+    res = out["results"]["alice"]
+    assert len(res["checks"]) == chip_smoke.PROGRAM_ROUNDS
+    assert all(c["mismatched"] == 0 for c in res["checks"])
+    assert all(c["mismatched3"] == 0 and c["elements3"] > 0
+               for c in res["checks"])
+    # One params push and one aggregate push a round.
+    assert [(p["src"], p["dst"]) for p in out["pushes"]] == \
+        [("bob", "alice"), ("alice", "bob")] * chip_smoke.PROGRAM_ROUNDS
+
+
 def test_port_reset_hooks_run_clean_and_cover_its_singletons():
     from rayfed_tpu_torch.tenancy import reset
 
