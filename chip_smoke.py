@@ -20,22 +20,28 @@
 Phases:
 
 1. device: the card's name, count, power limit; TF32 off.
-2. build: the Hopper kernels from ``rayfed_tpu_torch/csrc`` (nvcc); each
-   kernel's registers, spills, shared memory and resident blocks per SM
-   at the flagship head dim (no kernel may spill).
+2. build: the Hopper kernels from ``rayfed_tpu_torch/csrc`` (nvcc, one
+   process per source); each kernel's registers, spills, shared memory
+   and resident blocks per SM at the flagship head dim (no kernel may
+   spill).
 3. kernels: each flash kernel against its plain PyTorch version on the
-   card, in bf16, at the flagship attention shape and at small shapes
-   (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every head dim); times of
-   kernel, plain version and ``scaled_dot_product_attention`` (a yardstick
-   only) with CUDA events; FLOPs, bytes and the roofline bound.
+   card, the bf16 ones and the f32 ones, at the flagship attention shape
+   and at small shapes (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every
+   head dim); times of kernel, plain version and
+   ``scaled_dot_product_attention`` (a yardstick only; its backend named)
+   with CUDA events; FLOPs, bytes and the roofline bound.
 4. slice: one federated transformer round loop at the flagship width —
    two parties ("alice", "bob") each take local AdamW steps through
    ``make_fed_train_step(attn="flash")``, ``tree_mean`` folds their params
    on the card, both load the aggregate, for a few rounds. Checks: every
    round starts from bitwise-identical trees, losses are finite, the
    aggregate's loss falls, flash and dense attention agree on it, and
-   the train steps launched every kernel (the evaluations' launches are
-   counted apart).
+   the train steps launched every bf16 kernel (the evaluations' launches
+   are counted apart).
+4b. f32: the same model in f32 (``compute_dtype=torch.float32``,
+   ``attn="auto"``) at the same width and depth: a few AdamW steps, which
+   must launch every f32 kernel; then, at batch 1, one step's loss and
+   gradients against the dense attention's (``attn="xla"``).
 5. fed: the same FedAvg round through the port's own engine, at the same
    width and depth: ``alice`` and ``bob`` are spawned processes that
    ``fed.init`` over localhost TCP; a party-pinned ``LocalTrainer`` actor
@@ -46,9 +52,12 @@ Phases:
    arrives bitwise as its owner hashed it, (b) every round starts from
    identical params, (c) the receiver gets the pre-step bytes although
    the owner steps in place right after its push, (d) the aggregate's
-   loss falls, (e) each party's train steps launch every kernel, (f) a
-   bf16 tree crosses bitwise. Prints each push's ms, GB/s and split, the
-   IO path and each party's peak memory.
+   loss falls, (e) each party's train steps launch every bf16 kernel, (f)
+   a bf16 tree crosses bitwise, (g) both parties ran the native IO path
+   (``rayfed_tpu_torch._fastwire``). Prints each push's ms, GB/s and
+   split, the IO path and each party's peak memory; then runs the phase
+   once more with the parties on sockio's Python IO path and prints both
+   splits side by side.
 6. programs: the JAX package's FedAvg programs as the port's examples
    (``rayfed_tpu_torch/examples``), two spawned party processes each,
    with ``transport="cuda"``: ``federated_transformer.py`` at the same
@@ -59,10 +68,11 @@ Phases:
    consuming task, with no ``.to()`` there, (b) the root's aggregate on the
    card is bitwise the port's CPU fold of the two pushed trees, (c) both
    parties' final aggregates hash the same, (d) the aggregate's loss
-   falls, (e) each party's steps launch every kernel; the CNN program's
-   two digests agree. Prints each push's ms, GB/s and split (host
-   staging, send, decode and the placement inside it), each round's
-   wall and each party's peak memory.
+   falls, (e) each party's steps launch every bf16 kernel, (f) both
+   parties ran the native IO path; the CNN program's two digests agree.
+   Prints each push's ms, GB/s and split (host staging, send, decode and
+   the placement inside it), each round's wall and each party's peak
+   memory.
 
 It needs a CUDA card and exits non-zero without one. The last two lines
 are the kernel table and ``{"ok": true, "device": {...}}`` as JSON.
@@ -91,6 +101,11 @@ SMOKE_LAYERS = 4
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# Exact f32 has two routes (H100 SXM data sheet): FFMA on the CUDA cores,
+# or each product split into three TF32 products on the tensor cores; an
+# f32 kernel's bound takes the faster.
+PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 # Tolerances, kernel vs plain version on the same bf16 inputs. A bf16
 # output (O, dq, dk, dv) is cut along the sequence into TILE-row tiles;
@@ -105,22 +120,36 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 TILE = 64
 BF16_TILE_REL_TOL = 1e-2
 F32_STAT_TOL = 1e-3
+# The f32 kernels are held as the JAX package's tests hold its f32
+# kernels (tests/test_flash_attention.py): O to 2e-5 and the gradients to
+# 3e-4, absolute; they round nothing between products, so only the order
+# of f32 sums differs from the plain version's. lse and delta, f32 in both
+# paths, are held tighter than the bf16 path's.
+F32_OUT_TOL = 2e-5
+F32_GRAD_TOL = 3e-4
+F32_KERNEL_STAT_TOL = 1e-4
+# Phase 4b, batch 1: the f32 model with the f32 kernels against the dense
+# attention, one step's loss (relative) and each gradient leaf (its
+# difference's norm over its norm).
+F32_LOSS_RTOL = 1e-4
+F32_GRAD_RTOL = 1e-3
 # Loss of the aggregate with flash vs dense attention (bf16 compute).
 ATTN_LOSS_TOL = 2e-2
 # The federation of phase 4: each party's name and data seed.
 PARTIES = (("alice", 1), ("bob", 2))
 
+# Each TPU kernel (rayfed_tpu/ops/flash_attention.py) takes bf16 or f32;
+# the port has a Hopper kernel for each dtype.
 KERNELS = [
-    dict(name="flash_fwd", route="cuda",
-         source="rayfed_tpu_torch/csrc/flash_attention.cu",
-         replaces="rayfed_tpu/ops/flash_attention.py:51"),
-    dict(name="flash_bwd_dq", route="cuda",
-         source="rayfed_tpu_torch/csrc/flash_attention.cu",
-         replaces="rayfed_tpu/ops/flash_attention.py:151"),
-    dict(name="flash_bwd_dkv", route="cuda",
-         source="rayfed_tpu_torch/csrc/flash_attention.cu",
-         replaces="rayfed_tpu/ops/flash_attention.py:200"),
+    dict(name=name + sfx, route="cuda",
+         source=f"rayfed_tpu_torch/csrc/flash_attention{sfx}.cu",
+         replaces=f"rayfed_tpu/ops/flash_attention.py:{line}")
+    for sfx in ("", "_f32")
+    for name, line in (("flash_fwd", 51), ("flash_bwd_dq", 151),
+                       ("flash_bwd_dkv", 200))
 ]
+BF16_KERNELS = [k["name"] for k in KERNELS if not k["name"].endswith("_f32")]
+F32_KERNELS = [k["name"] for k in KERNELS if k["name"].endswith("_f32")]
 
 
 class SmokeError(RuntimeError):
@@ -208,7 +237,8 @@ def ptxas_report(log):
     """Each kernel's registers and spills from ``nvcc -Xptxas -v``."""
     out, kernel = [], "?"
     for line in log.splitlines():
-        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E", line)
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_f32)?_kernel)ILi(\d+)E",
+                      line)
         if m:
             kernel = f"{m.group(1)}<{m.group(2)}>"
         elif "registers" in line or "spill" in line:
@@ -238,17 +268,32 @@ def causal_pairs(b, sq, sk, h, q_offset):
     return b * h * sum(min(q_offset + i + 1, sk) for i in range(sq))
 
 
-def kernel_work(b, sq, sk, h, d, q_offset):
+def kernel_work(b, sq, sk, h, d, q_offset, elem=2):
     """FLOPs and bytes each kernel needs on these shapes: 2*D FLOPs per
     kept (q, k) pair per matmul (K1 2 matmuls, K2 3, K3 4); bytes count
-    each input read once and each output written once."""
+    each input read once and each output written once, q/k/v/o/do and
+    their gradients ``elem`` bytes an element (2 in bf16, 4 in f32)."""
     pairs = causal_pairs(b, sq, sk, h, q_offset)
-    rq, rk, st = b * sq * h * d * 2, b * sk * h * d * 2, b * sq * h * 4
+    rq, rk, st = b * sq * h * d * elem, b * sk * h * d * elem, b * sq * h * 4
     return {
         "flash_fwd": (4 * d * pairs, rq + 2 * rk + rq + st),
         "flash_bwd_dq": (6 * d * pairs, 3 * rq + 2 * rk + rq + 2 * st),
         "flash_bwd_dkv": (8 * d * pairs, 2 * rq + 2 * rk + 2 * rk + 2 * st),
     }
+
+
+def bound(flops, nbytes, dtype):
+    """(bound ms, what bounds it): the larger of the bytes over the
+    memory rate and the operations over the card's rate for ``dtype``
+    (bf16 on the tensor cores; f32 exactly, by the faster of FFMA and
+    three TF32 products)."""
+    if dtype == "bfloat16":
+        t_ops = flops / PEAK_BF16_FLOPS
+    else:
+        t_ops = min(flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -267,14 +312,14 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def _inputs(device, b, sq, sk, h, d, seed):
+def _inputs(device, b, sq, sk, h, d, seed, dtype="bfloat16"):
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(s):
         return torch.randn((b, s, h, d), generator=g, device=device).to(
-            torch.bfloat16)
+            getattr(torch, dtype))
 
     return rnd(sq), rnd(sk), rnd(sk), rnd(sq)
 
@@ -292,16 +337,24 @@ def tile_rel_err(got, want):
     return max(errs)
 
 
-def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0):
-    """Each kernel's outputs against its plain version's on the same
-    inputs (K2 and K3 fed the plain version's o, lse and delta). Returns
-    ({output: (reading, limit)}, {kernel: max abs err}, inputs); a
-    reading of NaN is a failure."""
+def abs_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
+                  dtype="bfloat16"):
+    """Each kernel of ``dtype`` ("bfloat16" or "float32") against its
+    plain version on the same inputs (K2 and K3 fed the plain version's o,
+    lse and delta). The plain version runs its f32 products in full f32
+    (TF32 off). Returns ({output: (reading, limit)}, {kernel: max abs
+    err}, inputs); a reading of NaN is a failure. bf16 outputs are read
+    by :func:`tile_rel_err`, f32 ones by their largest absolute error."""
     import torch
 
     from rayfed_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = _inputs(device, b, sq, sk, h, d, seed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _inputs(device, b, sq, sk, h, d, seed, dtype)
     bq, bk = fa._pow2_block(sq, 512), fa._pow2_block(sk, 512)
     o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, bq, bk, q_offset)
     dq_ref, delta_ref = fa._flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do,
@@ -313,57 +366,120 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0):
     dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta_ref, q_offset)
     torch.cuda.synchronize()
 
-    def abs_err(got, want):
-        return float((got - want).abs().max())
+    if dtype == "bfloat16":
+        tag, sfx = "", ""
+        out = grad = (tile_rel_err, BF16_TILE_REL_TOL)
+        stat_tol = F32_STAT_TOL
+    else:
+        tag, sfx = " f32", "_f32"
+        out, grad = (abs_err, F32_OUT_TOL), (abs_err, F32_GRAD_TOL)
+        stat_tol = F32_KERNEL_STAT_TOL
+
+    def reading(measure, got, want):
+        return measure[0](got, want), measure[1]
 
     readings = {
-        "K1 O": (tile_rel_err(o, o_ref), BF16_TILE_REL_TOL),
-        "K1 lse": (abs_err(lse, lse_ref), F32_STAT_TOL),
-        "K2 dq": (tile_rel_err(dq, dq_ref), BF16_TILE_REL_TOL),
-        "K2 delta": (abs_err(delta, delta_ref), F32_STAT_TOL),
-        "K3 dk": (tile_rel_err(dk, dk_ref), BF16_TILE_REL_TOL),
-        "K3 dv": (tile_rel_err(dv, dv_ref), BF16_TILE_REL_TOL),
+        f"K1{tag} O": reading(out, o, o_ref),
+        f"K1{tag} lse": (abs_err(lse, lse_ref), stat_tol),
+        f"K2{tag} dq": reading(grad, dq, dq_ref),
+        f"K2{tag} delta": (abs_err(delta, delta_ref), stat_tol),
+        f"K3{tag} dk": reading(grad, dk, dk_ref),
+        f"K3{tag} dv": reading(grad, dv, dv_ref),
     }
     errs = {
-        "flash_fwd": abs_err(o.float(), o_ref.float()),
-        "flash_bwd_dq": abs_err(dq.float(), dq_ref.float()),
-        "flash_bwd_dkv": max(abs_err(dk.float(), dk_ref.float()),
-                             abs_err(dv.float(), dv_ref.float())),
+        "flash_fwd" + sfx: abs_err(o, o_ref),
+        "flash_bwd_dq" + sfx: abs_err(dq, dq_ref),
+        "flash_bwd_dkv" + sfx: max(abs_err(dk, dk_ref), abs_err(dv, dv_ref)),
     }
     return readings, errs, (q, k, v, do, o_ref, lse_ref, delta_ref, bq, bk)
 
 
-def check_kernels(device, b, sq, sk, h, d, q_offset, seed=0):
+def check_kernels(device, b, sq, sk, h, d, q_offset, seed=0,
+                  dtype="bfloat16"):
     """:func:`kernel_errors`, printed, raising past any limit. Returns
     ({kernel: max abs err}, inputs)."""
     readings, errs, inputs = kernel_errors(device, b, sq, sk, h, d, q_offset,
-                                           seed)
-    shape = f"B={b} Sq={sq} Sk={sk} H={h} D={d} q_offset={q_offset}"
+                                           seed, dtype)
+    shape = f"{dtype} B={b} Sq={sq} Sk={sk} H={h} D={d} q_offset={q_offset}"
+    how = ("O/dq/dk/dv: tile norm rel err" if dtype == "bfloat16"
+           else "O/dq/dk/dv: max abs err")
     bad = [f"{n} {r:.3g} > {lim:.3g}" for n, (r, lim) in readings.items()
            if not r <= lim]
     print(f"[kernels] {shape}: " + " ".join(
         f"{n}={r:.3g}" for n, (r, _) in readings.items())
-        + " (O/dq/dk/dv: tile norm rel err; lse/delta: max abs err)"
+        + f" ({how}; lse/delta: max abs err)"
         + (f"  FAILED: {bad}" if bad else "  ok"))
     require(not bad, f"kernel vs plain at {shape}: {bad}")
     return errs, inputs
 
 
+def profiled_kernels(fn):
+    """Run ``fn`` once under ``torch.profiler``; the device kernels it
+    launched (chrome trace events: ``name``, ``ts``, ``dur`` in
+    microseconds) and the host's wall time around it in microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
+    with profile(activities=acts) as prof:
+        if on_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if on_cuda:
+            torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    return ([e for e in events if e.get("cat") == "kernel" and "dur" in e],
+            wall_us)
+
+
+def sdpa_backend(kernel_names):
+    """Which ``scaled_dot_product_attention`` backend launched these
+    device kernels."""
+    names = " ".join(kernel_names).lower()
+    # cuDNN's kernel names contain "flash" too: it is matched first.
+    for backend, marks in (("cudnn", ("cudnn",)),
+                           ("efficient", ("fmha", "efficient", "mem_eff")),
+                           ("flash", ("flash",))):
+        if any(m in names for m in marks):
+            return backend
+    return "math"
+
+
 def phase_kernels(device, batch, seq, heads, head_dim, smi):
+    """Phase 3: every kernel, bf16 and f32, against its plain version at
+    small shapes and at the main path's; then each kernel's time there
+    beside its plain version's, SDPA's on the same inputs and its bound.
+    Returns {kernel: results}."""
+    results = {}
+    for dtype in ("bfloat16", "float32"):
+        for shape in [(2, 96, 160, 3, 32, 64), (1, 192, 320, 4, 64, 128),
+                      (2, 128, 128, 2, 16, 0), (1, 200, 200, 2, 128, 0),
+                      (1, 256, 512, 4, 128, 256), (1, 136, 328, 3, 128, 150),
+                      (2, 64, 64, 2, 128, 0), (1, 72, 200, 3, 128, 128)]:
+            check_kernels(device, *shape, seed=1, dtype=dtype)
+        results.update(time_kernels(device, batch, seq, heads, head_dim,
+                                    dtype, smi))
+    return results
+
+
+def time_kernels(device, b, s, h, d, dtype, smi):
+    """The kernels of ``dtype`` at the main path's shape: checked, then
+    timed with CUDA events beside their plain versions and SDPA."""
     import torch
     import torch.nn.functional as F
 
     from rayfed_tpu_torch.ops import flash_attention as fa
 
-    for shape in [(2, 96, 160, 3, 32, 64), (1, 192, 320, 4, 64, 128),
-                  (2, 128, 128, 2, 16, 0), (1, 200, 200, 2, 128, 0),
-                  (1, 256, 512, 4, 128, 256), (1, 136, 328, 3, 128, 150),
-                  (2, 64, 64, 2, 128, 0), (1, 72, 200, 3, 128, 128)]:
-        check_kernels(device, *shape, seed=1)
-
-    b, s, h, d = batch, seq, heads, head_dim
+    sfx = "" if dtype == "bfloat16" else "_f32"
     errs, (q, k, v, do, o, lse, delta, bq, bk) = check_kernels(
-        device, b, s, s, h, d, 0)
+        device, b, s, s, h, d, 0, dtype=dtype)
     iters = 10
     ms = {
         "flash_fwd": cuda_ms(lambda: fa._flash_fwd_cuda(q, k, v, 0), iters),
@@ -385,31 +501,37 @@ def phase_kernels(device, batch, seq, heads, head_dim, smi):
     # K1; the whole backward (dq, dk, dv at once) for K2 and K3.
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
-    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters)
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    sdpa_fwd = cuda_ms(sdpa, iters)
+    out = sdpa()
     dot = do.transpose(1, 2)
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), iters)
+
+    def sdpa_grad():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    sdpa_bwd = cuda_ms(sdpa_grad, iters)
+    names = sorted({e["name"] for fn in (sdpa, sdpa_grad)
+                    for e in profiled_kernels(fn)[0]})
+    print(f"[kernels] {dtype} sdpa backend {sdpa_backend(names)}: "
+          f"{names[:6]}")
     library_ms = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
                   "flash_bwd_dkv": sdpa_bwd}
 
-    work = kernel_work(b, s, s, h, d, 0)
+    work = kernel_work(b, s, s, h, d, 0, elem=2 if dtype == "bfloat16" else 4)
     results = {}
-    for kern in KERNELS:
-        n = kern["name"]
+    for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         flops, nbytes = work[n]
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-        bound_ms = 1e3 * max(t_ops, t_bytes)
-        results[n] = dict(
-            max_abs_err=errs[n], ms=ms[n], plain_ms=plain_ms[n],
-            library_ms=library_ms[n], bound_ms=bound_ms,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-        )
-        print(f"[kernels] {n} B={b} S={s} H={h} D={d}: {ms[n]:.3f} ms "
-              f"(plain {plain_ms[n]:.3f}, sdpa {library_ms[n]:.3f}); "
-              f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB; bound "
-              f"{bound_ms:.3f} ms by {results[n]['bound_by']} "
+        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        results[n + sfx] = dict(
+            max_abs_err=errs[n + sfx], ms=ms[n], plain_ms=plain_ms[n],
+            library_ms=library_ms[n], bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[kernels] {n + sfx} {dtype} B={b} S={s} H={h} D={d}: "
+              f"{ms[n]:.3f} ms (plain {plain_ms[n]:.3f}, sdpa "
+              f"{library_ms[n]:.3f}); {flops / 1e12:.3f} TFLOP, "
+              f"{nbytes / 1e6:.1f} MB; bound {bound_ms:.3f} ms by {bound_by} "
               f"({100 * bound_ms / ms[n]:.1f}% of roofline, "
               f"{flops / ms[n] / 1e9:.1f} TFLOP/s) on {smi}")
     return results
@@ -514,25 +636,7 @@ def device_breakdown(fn):
     CUTLASS names), everything else; plus the device's busy share of the
     host's wall time around the call. Returns None when the profiler
     recorded no device kernel (a CPU run)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    on_cuda = torch.cuda.is_available()
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
-    with profile(activities=acts) as prof:
-        if on_cuda:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        if on_cuda:
-            torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    kernels, wall_us = profiled_kernels(fn)
     return kernel_split(kernels, wall_us) if kernels else None
 
 
@@ -629,6 +733,97 @@ def phase_slice(device, cfg, *, batch, seq, rounds=3, local_steps=2,
                           if k not in ("idle_share", "n_kernels"))
               + f"; idle share {breakdown['idle_share']:.3f}, "
               f"{breakdown['n_kernels']} kernels")
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the f32 model through the f32 kernels
+# ---------------------------------------------------------------------------
+
+F32_STEPS = 4  # timed, after one that warms the allocator and kernels up
+
+
+def phase_f32(device, cfg, *, batch, seq, steps=F32_STEPS, lr=1e-3,
+              label=""):
+    """Phase 4b: ``cfg`` in f32 (``compute_dtype=torch.float32``) through
+    ``make_fed_train_step(attn="auto")``, which takes the f32 flash
+    kernels on a card: ``steps`` + 1 AdamW steps at ``batch``, then one
+    batch-1 step's loss and gradients (the train step's loss function,
+    ``lm_loss_pair``) with the flash kernels against the same with the
+    dense attention (``attn="xla"``). Returns a summary with the kernel
+    launches of the steps."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.data import synthetic_lm_dataset
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+
+    on_cuda = torch.device(device).type == "cuda"
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    data = synthetic_lm_dataset(cfg.vocab, batch * (steps + 1) * (seq + 1),
+                                seq, seed=PARTIES[0][1])
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    init_fn, step_fn = make_fed_train_step(cfg, device, lr=lr, attn="auto")
+    params, opt = init_fn(0)
+    step_ms, losses = [], []
+    for blk in data.batches(batch, epoch=0):
+        t0 = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, blk[:, :-1], blk[:, 1:])
+        if on_cuda:
+            torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_cuda else None
+    require(len(losses) == steps + 1 and
+            all(x == x and abs(x) < 1e30 for x in losses),
+            f"f32 steps: losses {losses}")
+    del params, opt
+    gc.collect()
+    if on_cuda:
+        torch.cuda.empty_cache()
+
+    # Batch 1: one step's loss and gradients, flash kernels vs dense.
+    params = tree_util.tree_map(lambda p: p.requires_grad_(True),
+                                tfm.init_params(0, cfg, device))
+    leaves = tree_util.tree_flatten(params)[0]
+    blk = torch.as_tensor(next(data.batches(1, epoch=1)), device=device).long()
+    got = {}
+    for attn, attn_fn in (("flash", fa.make_flash_attn_fn()), ("xla", None)):
+        loss = tfm.lm_loss_pair(params, blk[:, :-1], blk[:, 1:], cfg, attn_fn,
+                                loss_chunk=512)
+        got[attn] = (float(loss.detach()),
+                     torch.autograd.grad(loss, leaves))
+    loss_rel = abs(got["flash"][0] - got["xla"][0]) / abs(got["xla"][0])
+    grad_rel = max(
+        float(torch.linalg.vector_norm(g - w)
+              / torch.linalg.vector_norm(w).clamp(min=1e-30))
+        for g, w in zip(got["flash"][1], got["xla"][1]))
+    timed = step_ms[1:]
+    summary = dict(
+        step_ms=statistics.median(timed),
+        tokens_per_s=len(timed) * batch * seq / sum(timed) * 1e3,
+        losses=losses, launches=launches, max_memory_allocated=peak,
+        loss_rel=loss_rel, grad_rel=grad_rel)
+    print(f"[f32] {label} {len(timed)} steps after the first: step median "
+          f"{summary['step_ms']:.1f} ms, {summary['tokens_per_s']:.1f} "
+          f"tokens/s, max_memory_allocated {peak}; losses {losses}")
+    print(f"[f32] {label} launches {launches}")
+    print(f"[f32] {label} batch 1, flash vs attn='xla': loss "
+          f"{got['flash'][0]:.6f} vs {got['xla'][0]:.6f} (rel {loss_rel:.3g} "
+          f"<= {F32_LOSS_RTOL}), largest gradient leaf rel err "
+          f"{grad_rel:.3g} (<= {F32_GRAD_RTOL})")
+    require(loss_rel <= F32_LOSS_RTOL,
+            f"f32 loss with flash vs dense: rel {loss_rel}")
+    require(grad_rel <= F32_GRAD_RTOL,
+            f"f32 gradients with flash vs dense: rel {grad_rel}")
     return summary
 
 
@@ -823,7 +1018,7 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
                 eval_launches=self.eval_launches,
                 max_memory_allocated=(torch.cuda.max_memory_allocated()
                                       if on_cuda else None),
-                io_path="native" if sockio._fastwire is not None else "python",
+                io_path=sockio.io_path(),
             )
 
     @fed.remote
@@ -884,6 +1079,17 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
                 bf16_digests=bf16, reports=dict(zip(names, reports)))
 
 
+def _fed_program_python_io(party, addresses, *args):
+    """:func:`_fed_program` with this party's wire on sockio's Python IO
+    path: the port's references to its native module are taken away
+    before ``fed.init`` (the comparison run of phase 5)."""
+    from rayfed_tpu_torch.proxy import lanes
+    from rayfed_tpu_torch.proxy.tcp import checksum, sockio
+
+    sockio._fastwire = checksum._fw = lanes._fw = None
+    return _fed_program(party, addresses, *args)
+
+
 def fed_party(program, party, addresses, out_path, *args):
     """A party process of phases 5 and 6 (spawned): runs ``program(party,
     addresses, *args)`` and writes its result, or the error, as JSON to
@@ -908,15 +1114,18 @@ def _free_port():
 
 
 def phase_fed(device, cfg, *, batch, seq, rounds=FED_ROUNDS, local_steps=2,
-              lr=1e-3, label="", timeout_s=FED_JOIN_TIMEOUT_S):
+              lr=1e-3, label="", timeout_s=FED_JOIN_TIMEOUT_S,
+              io_path="native"):
     """Phase 5: :func:`fedavg_rounds`'s FedAvg round driven through the
     port's own engine, one spawned process per party over localhost TCP,
     and checked: (a) every tree that crossed arrived bitwise as its
     owner hashed it, (b) every round started from identical params, (c)
     the receiver got the pre-step bytes although the owner stepped in
     place right after its push, (d) the aggregate's loss fell, (e) each
-    party's train steps launched every kernel, (f) a bf16 tree crossed
-    bitwise. Returns both parties' results."""
+    party's train steps launched every bf16 kernel, (f) a bf16 tree
+    crossed bitwise, (g) both parties ran ``io_path`` ("native", or
+    "python" for the comparison run, whose parties drop the native
+    module). Returns both parties' results."""
     import dataclasses
 
     import torch
@@ -924,10 +1133,11 @@ def phase_fed(device, cfg, *, batch, seq, rounds=FED_ROUNDS, local_steps=2,
     if torch.device(device).type == "cuda":
         free, total = torch.cuda.mem_get_info()
         print(f"[fed] {label} at the spawn: {free} of {total} bytes free")
+    program = _fed_program if io_path == "native" else _fed_program_python_io
     results, wall = spawn_parties(
-        _fed_program, (device, dataclasses.asdict(cfg), batch, seq, rounds,
-                       local_steps, lr), timeout_s)
-    return check_fed(results, device, wall, label)
+        program, (device, dataclasses.asdict(cfg), batch, seq, rounds,
+                  local_steps, lr), timeout_s)
+    return check_fed(results, device, wall, label, io_path)
 
 
 def spawn_parties(program, args, timeout_s):
@@ -970,8 +1180,8 @@ def spawn_parties(program, args, timeout_s):
     return results, wall
 
 
-def check_fed(results, device, wall, label=""):
-    """Phase 5's checks (a)-(f) over both parties' results, and its
+def check_fed(results, device, wall, label="", io_path="native"):
+    """Phase 5's checks (a)-(g) over both parties' results, and its
     report: per round the wall time and each push's ms, GB/s and split."""
     import torch
 
@@ -993,16 +1203,18 @@ def check_fed(results, device, wall, label=""):
     require(bf_sent == bf_got, "(f) the bf16 tree did not cross bitwise")
     if torch.device(device).type == "cuda":
         for n, rep in res["reports"].items():
-            require(all(v > 0 for v in rep["launches"].values()),
+            require(all(rep["launches"][k] > 0 for k in BF16_KERNELS),
                     f"(e) party {n}'s train steps did not launch every "
                     f"kernel: {rep['launches']}")
+    paths = {n: rep["io_path"] for n, rep in res["reports"].items()}
+    require(set(paths.values()) == {io_path},
+            f"(g) the parties ran IO paths {paths}, not {io_path!r}")
 
     def ms(v):
         return "not measured" if v is None else f"{v:.1f} ms"
 
     print(f"[fed] {label} two party processes, {len(res['rounds'])} rounds "
-          f"in {wall:.1f} s from spawn to exit; IO path "
-          f"{res['reports'][root]['io_path']}")
+          f"in {wall:.1f} s from spawn to exit; IO path {paths}")
     print(f"[fed] {label} aggregate eval loss per round {res['evals']}")
     for r, rnd in enumerate(res["rounds"]):
         parts = [f"round {r}: wall {rnd['wall_s']:.2f} s"]
@@ -1024,6 +1236,27 @@ def check_fed(results, device, wall, label=""):
               f"evaluations {rep['eval_launches']}, max_memory_allocated "
               f"{rep['max_memory_allocated']}")
     return results
+
+
+def compare_io_paths(runs):
+    """Print phase 5's pushes of the native and the Python IO path's runs
+    side by side: total, host staging, send and decode."""
+    root = PARTIES[0][0]
+    rows = {io: [(r, push, rnd[push]) for r, rnd in
+                 enumerate(res[root]["rounds"])
+                 for push in ("params_push", "aggregate_push")]
+            for io, res in runs.items()}
+
+    def ms(v):
+        return "n/m" if v is None else f"{v:.1f}"
+
+    for (r, push, nat), (_, _, py) in zip(rows["native"], rows["python"]):
+        print(f"[fed] IO paths, round {r} {push} {nat['nbytes']} B, ms "
+              f"native / python: total {ms(nat['push_ms'])} / "
+              f"{ms(py['push_ms'])}, host staging {ms(nat['stage_ms'])} / "
+              f"{ms(py['stage_ms'])}, send {ms(nat['send_ms'])} / "
+              f"{ms(py['send_ms'])}, decode {ms(nat['decode_ms'])} / "
+              f"{ms(py['decode_ms'])}")
 
 
 # ---------------------------------------------------------------------------
@@ -1075,6 +1308,7 @@ def _lm_program(party, addresses, device, cfg_kw, batch, seq, rounds,
     from rayfed_tpu_torch.models import transformer as tfm
     from rayfed_tpu_torch.ops import flash_attention as fa
     from rayfed_tpu_torch.ops.aggregate import reduce_by_plan
+    from rayfed_tpu_torch.proxy.tcp import sockio
 
     cfg = tfm.TransformerConfig(**cfg_kw)
     on_cuda = torch.device(device).type == "cuda"
@@ -1165,7 +1399,7 @@ def _lm_program(party, addresses, device, cfg_kw, batch, seq, rounds,
             eval_launches=dict(eval_launches),
             max_memory_allocated=(torch.cuda.max_memory_allocated()
                                   if on_cuda else None),
-            spans=_push_spans())
+            io_path=sockio.io_path(), spans=_push_spans())
 
     workers = {n: example.LmWorker.party(n).remote(
         seed, cfg, batch=batch, seq=seq, local_steps=local_steps, lr=lr,
@@ -1244,8 +1478,9 @@ def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
     aggregate on its device is bitwise the CPU fold of the two pushed
     trees, (c) both parties' ``fed.get`` of the final aggregate hash the
     same, (d) the aggregate's loss falls, (e) each party's steps launched
-    every kernel; then the CNN program (``FedAvgTrainer``, wmean), whose
-    two digests must agree. Returns the transformer program's results."""
+    every bf16 kernel, (f) both parties ran the native IO path; then the
+    CNN program (``FedAvgTrainer``, wmean), whose two digests must agree.
+    Returns the transformer program's results."""
     import dataclasses
 
     import torch
@@ -1281,9 +1516,12 @@ def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
             f"(d) the aggregate's loss did not fall: {res['evals']}")
     if on_cuda:
         for n, rep in res["reports"].items():
-            require(all(v > 0 for v in rep["launches"].values()),
+            require(all(rep["launches"][k] > 0 for k in BF16_KERNELS),
                     f"(e) party {n}'s train steps did not launch every "
                     f"kernel: {rep['launches']}")
+    paths = {n: rep["io_path"] for n, rep in res["reports"].items()}
+    require(set(paths.values()) == {"native"},
+            f"(f) the parties ran IO paths {paths}, not the native one")
     cnn, cnn_wall = spawn_parties(_cnn_program, (device, rounds), timeout_s)
     require(cnn[root]["digest"] == cnn[other]["digest"],
             "the CNN program's parties hold different final aggregates")
@@ -1293,8 +1531,8 @@ def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
 
     push_list = pushes(res["reports"])
     print(f"[programs] {label} federated_transformer: two party processes "
-          f"({devices}), {rounds} rounds in {wall:.1f} s from spawn to "
-          f"exit; round walls "
+          f"({devices}, IO path {paths}), {rounds} rounds in {wall:.1f} s "
+          f"from spawn to exit; round walls "
           + ", ".join(f"{w:.2f} s" for w in res["round_walls"]))
     print(f"[programs] {label} aggregate eval loss {res['evals']}; fold "
           f"bitwise each round ({res['checks'][0]['elements']} elements; "
@@ -1340,20 +1578,35 @@ def main():
     print("[slice] reduced " + json.dumps(reduced))
     summary = phase_slice("cuda", cfg, batch=FLAGSHIP["batch"],
                           seq=FLAGSHIP["seq"], label=f"on {smi}:")
-    for k in KERNELS:
-        require(summary["launches"][k["name"]] > 0,
-                f"{k['name']} was not launched by the train steps: "
+    for kern_name in BF16_KERNELS:
+        require(summary["launches"][kern_name] > 0,
+                f"{kern_name} was not launched by the train steps: "
                 f"{summary['launches']}")
 
-    # Phase 5 spawns two party processes on the same card: phase 4's
-    # tensors are gone, and the allocator hands its cache back first.
+    # Phase 4b, then phase 5 (two party processes on the same card): the
+    # last phase's tensors are gone, and the allocator hands its cache
+    # back first.
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()
+    print("[f32] reduced " + json.dumps(reduced))
+    f32 = phase_f32("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+                    label=f"on {smi}:")
+    for kern_name in F32_KERNELS:
+        require(f32["launches"][kern_name] > 0,
+                f"{kern_name} was not launched by the f32 steps: "
+                f"{f32['launches']}")
+    launches = {n: summary["launches"][n] for n in BF16_KERNELS}
+    launches.update({n: f32["launches"][n] for n in F32_KERNELS})
+    gc.collect()
+    torch.cuda.empty_cache()
     print("[fed] reduced " + json.dumps(reduced))
-    phase_fed("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
-              label=f"on {smi}:")
+    fed = {io: phase_fed("cuda", cfg, batch=FLAGSHIP["batch"],
+                         seq=FLAGSHIP["seq"], label=f"on {smi} ({io} IO):",
+                         io_path=io)
+           for io in ("native", "python")}
+    compare_io_paths(fed)
     print("[programs] reduced " + json.dumps(reduced))
     phase_programs("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                    label=f"on {smi}:")
@@ -1361,7 +1614,7 @@ def main():
     line = []
     for k in KERNELS:
         r = kern[k["name"]]
-        line.append(dict(k, launches=summary["launches"][k["name"]],
+        line.append(dict(k, launches=launches[k["name"]],
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=r["library_ms"]))

@@ -96,7 +96,8 @@ def main():
     results = []
     for i, setting in enumerate(settings):
         root = os.path.join(ROOT, str(i))
-        fc.copy_port(root, lambda text: tiled_source(text, setting))
+        fc.copy_port(root, lambda name, text: tiled_source(text, setting)
+                     if name == "flash_attention.cu" else text)
         out = json.loads(fc.run_code(root, RUN).strip().splitlines()[-1])
         print(f"{setting or 'base'}: K1 ms {out['ms']['flash_fwd']}, K2 ms "
               f"{out['ms']['flash_bwd_dq']}, K3 ms "

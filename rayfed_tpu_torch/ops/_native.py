@@ -14,8 +14,9 @@
 
 """Build and load the port's CUDA kernels (``rayfed_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes`` (no PyTorch headers, so the build takes
+``nvcc`` compiles every ``csrc/*.cu`` (one compiler process per source, all
+started together) and links them into one shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so the build takes
 seconds). The build runs at first use, never at import, into
 ``build/rayfed_tpu_torch/`` beside the package, keyed on a hash of the
 sources and flags: a changed source rebuilds, an unchanged one loads the
@@ -51,9 +52,15 @@ _SIGNATURES = {
     # kernel (0 = K1, 1 = K2, 2 = K3), head dim, int[4] out
     "rf_kernel_resources": [ctypes.c_int, ctypes.c_int, _P],
 }
-#: The kernels in the order the C entry ``rf_kernel_resources`` numbers them.
+# The f32 kernels (csrc/flash_attention_f32.cu) take the same arguments.
+_SIGNATURES.update({name + "_f32": argtypes
+                    for name, argtypes in list(_SIGNATURES.items())})
+#: The kernels: the bf16 ones in the order the C entry
+#: ``rf_kernel_resources`` numbers them, then the f32 ones in the order of
+#: ``rf_kernel_resources_f32``.
 KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel")
+                "flash_bwd_dkv_kernel", "flash_fwd_f32_kernel",
+                "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -94,17 +101,32 @@ def build() -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    srcs = [s for s in _sources() if s.endswith(".cu")]
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True,
-    )
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *(f for f in NVCC_FLAGS if f != "-shared"), "-c", "-o",
+             obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [(p, p.communicate()[0]) for p in procs]
+    failed = [out for p, out in logs if p.returncode != 0]
+    link = None
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(link.stdout + link.stderr)
     with open(path + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+        f.write("".join(out for _, out in logs))
+        if link is not None:
+            f.write(link.stdout + link.stderr)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
     os.replace(tmp, path)  # atomic: no loader sees a partial file
     return path
 
@@ -130,8 +152,10 @@ def kernel_resources(name: str, head_dim: int) -> dict:
     dynamic shared memory, threads per block and resident blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     out = (ctypes.c_int * 4)()
-    code = lib().rf_kernel_resources(KERNEL_NAMES.index(name), head_dim,
-                                     ctypes.addressof(out))
+    which = KERNEL_NAMES.index(name)
+    entry = lib().rf_kernel_resources if which < 3 \
+        else lib().rf_kernel_resources_f32
+    code = entry(which % 3, head_dim, ctypes.addressof(out))
     check(code, f"resources of {name}<{head_dim}>")
     return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"),
                     out))

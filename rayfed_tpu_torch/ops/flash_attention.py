@@ -15,15 +15,19 @@
 """Causal flash attention with a blockwise backward: Hopper kernels and
 their plain PyTorch versions (port of ``rayfed_tpu/ops/flash_attention.py``).
 
-Three kernels, each hand-written in CUDA C++ for ``sm_90a``
-(``csrc/flash_attention.cu``), replace the three Pallas TPU kernels:
+The three Pallas TPU kernels take bf16 or f32 inputs; each has two
+hand-written CUDA C++ counterparts for ``sm_90a``, one per dtype: the bf16
+ones on ``wgmma`` (``csrc/flash_attention.cu``), the f32 ones in exact f32
+on the CUDA cores (``csrc/flash_attention_f32.cu``):
 
-- ``_flash_fwd_cuda`` launches ``flash_fwd_kernel``, which replaces
-  ``_flash_kernel`` (the forward);
-- ``_flash_bwd_dq_cuda`` launches ``flash_bwd_dq_kernel``, which replaces
-  ``_flash_bwd_dq_kernel`` (the dQ pass);
-- ``_flash_bwd_dkv_cuda`` launches ``flash_bwd_dkv_kernel``, which
-  replaces ``_flash_bwd_dkv_kernel`` (the dK/dV pass).
+- ``_flash_fwd_cuda`` launches ``flash_fwd_kernel`` or
+  ``flash_fwd_f32_kernel``, which replace ``_flash_kernel`` (the forward);
+- ``_flash_bwd_dq_cuda`` launches ``flash_bwd_dq_kernel`` or
+  ``flash_bwd_dq_f32_kernel``, which replace ``_flash_bwd_dq_kernel`` (the
+  dQ pass);
+- ``_flash_bwd_dkv_cuda`` launches ``flash_bwd_dkv_kernel`` or
+  ``flash_bwd_dkv_f32_kernel``, which replace ``_flash_bwd_dkv_kernel``
+  (the dK/dV pass).
 
 Every wrapper works by its tensors' device: a CPU tensor takes the plain
 version (``_flash_*_plain``, which repeats the reference's blocked
@@ -33,17 +37,20 @@ launches the kernel, or raises on a dtype, head dim or layout the kernel
 does not take. There is no fallback between the two. ``LAUNCHES`` counts
 kernel launches, so a run can show that it went through the kernels.
 
-The kernels choose their own tiles (K1 128 queries x 128 keys, K2 128
-queries x 64 keys, K3 128 keys x 64 queries) and mask ragged edges, whatever
-``block_q``/``block_k`` say; the block sizes drive the plain versions.
-dQ's kernel also computes ``delta = rowsum(dO * O)``, which the reference
-left to XLA between its two backward passes.
+The kernels choose their own tiles (bf16: K1 128 queries x 128 keys, K2
+128 queries x 64 keys, K3 128 keys x 64 queries; f32: 64 x 64 throughout)
+and mask ragged edges, whatever ``block_q``/``block_k`` say; the block
+sizes drive the plain versions. Both dQ kernels also compute ``delta =
+rowsum(dO * O)``, which the reference left to XLA between its two backward
+passes. The entry points take the reference's arguments in its order;
+its ``interpret`` flag is accepted and ignored, since the tensors' device
+picks the path.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -53,7 +60,11 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 #: Launches of each CUDA kernel; a wrapper adds one where it launches.
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
 }
+#: The dtypes the kernels take, with the suffix of their C entry points
+#: and ``LAUNCHES`` keys.
+_KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 
 
 def reset_launch_counts() -> None:
@@ -187,13 +198,15 @@ def _flash_bwd_dkv_plain(q, k, v, do, lse, delta, block_q, block_k,
 # ---------------------------------------------------------------------------
 
 
-def _check_qkv(name, x, b, s, h, d, device):
+def _check_qkv(name, x, b, s, h, d, device, dtype):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, q on {device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(
-            f"the CUDA flash kernels take bfloat16; {name} is {x.dtype}"
-        )
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the CUDA flash kernels take bfloat16 or float32; "
+                        f"{name} is {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} is {x.dtype} and q {dtype}: the CUDA flash "
+                        "kernels take one dtype for all of q, k, v, o, do")
     if tuple(x.shape) != (b, s, h, d):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, "
                          f"expected {(b, s, h, d)}")
@@ -246,73 +259,79 @@ def _stream(device):
 
 
 def _flash_fwd_cuda(q, k, v, q_offset):
-    """K1: launches ``flash_fwd_kernel``; returns (O, lse)."""
+    """K1: launches ``flash_fwd_kernel`` (bf16) or ``flash_fwd_f32_kernel``
+    (f32); returns (O, lse)."""
     from rayfed_tpu_torch.ops import _native
 
     b, sq, sk, h, d = _geometry(q, k, q_offset)
     for name, x, s in (("q", q, sq), ("k", k, sk), ("v", v, sk)):
-        _check_qkv(name, x, b, s, h, d, q.device)
+        _check_qkv(name, x, b, s, h, d, q.device, q.dtype)
+    kind = "flash_fwd" + _KERNEL_DTYPES[q.dtype]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     dims = _dims(q, k, v, None, None, q_offset)
-    lib = _native.lib()
+    entry = getattr(_native.lib(), "rf_" + kind)
     with torch.cuda.device(q.device):
-        code = lib.rf_flash_fwd(
+        code = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), ctypes.addressof(dims), d**-0.5,
             _stream(q.device),
         )
-    _native.check(code, "flash_fwd_kernel")
-    LAUNCHES["flash_fwd"] += 1
+    _native.check(code, kind + "_kernel")
+    LAUNCHES[kind] += 1
     return o, lse
 
 
 def _flash_bwd_dq_cuda(q, k, v, o, lse, do, q_offset):
-    """K2: launches ``flash_bwd_dq_kernel``; returns (dq, delta)."""
+    """K2: launches ``flash_bwd_dq_kernel`` (bf16) or
+    ``flash_bwd_dq_f32_kernel`` (f32); returns (dq, delta)."""
     from rayfed_tpu_torch.ops import _native
 
     b, sq, sk, h, d = _geometry(q, k, q_offset)
     for name, x, s in (("q", q, sq), ("k", k, sk), ("v", v, sk),
                        ("o", o, sq), ("do", do, sq)):
-        _check_qkv(name, x, b, s, h, d, q.device)
+        _check_qkv(name, x, b, s, h, d, q.device, q.dtype)
     _check_stat("lse", lse, b, sq, h, q.device)
+    kind = "flash_bwd_dq" + _KERNEL_DTYPES[q.dtype]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     dims = _dims(q, k, v, o, do, q_offset)
-    lib = _native.lib()
+    entry = getattr(_native.lib(), "rf_" + kind)
     with torch.cuda.device(q.device):
-        code = lib.rf_flash_bwd_dq(
+        code = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
             ctypes.addressof(dims), d**-0.5, _stream(q.device),
         )
-    _native.check(code, "flash_bwd_dq_kernel")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _native.check(code, kind + "_kernel")
+    LAUNCHES[kind] += 1
     return dq, delta
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_offset):
-    """K3: launches ``flash_bwd_dkv_kernel``; returns (dk, dv)."""
+    """K3: launches ``flash_bwd_dkv_kernel`` (bf16) or
+    ``flash_bwd_dkv_f32_kernel`` (f32); returns (dk, dv)."""
     from rayfed_tpu_torch.ops import _native
 
     b, sq, sk, h, d = _geometry(q, k, q_offset)
     for name, x, s in (("q", q, sq), ("k", k, sk), ("v", v, sk),
                        ("do", do, sq)):
-        _check_qkv(name, x, b, s, h, d, q.device)
+        _check_qkv(name, x, b, s, h, d, q.device, q.dtype)
     _check_stat("lse", lse, b, sq, h, q.device)
     _check_stat("delta", delta, b, sq, h, q.device)
+    kind = "flash_bwd_dkv" + _KERNEL_DTYPES[q.dtype]
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
     dims = _dims(q, k, v, None, do, q_offset)
-    lib = _native.lib()
+    entry = getattr(_native.lib(), "rf_" + kind)
     with torch.cuda.device(q.device):
-        code = lib.rf_flash_bwd_dkv(
+        code = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             ctypes.addressof(dims), d**-0.5, _stream(q.device),
         )
-    _native.check(code, "flash_bwd_dkv_kernel")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _native.check(code, kind + "_kernel")
+    LAUNCHES[kind] += 1
     return dk, dv
 
 
@@ -333,17 +352,19 @@ def _on_cpu(*xs) -> bool:
                      f"got {sorted(types)}")
 
 
-def _flash_fwd_raw(q, k, v, block_q, block_k, q_offset):
+def _flash_fwd_raw(q, k, v, block_q, block_k, interpret=None, q_offset=0):
     """(O, lse) of causal attention; lse is (B, Sq, H) f32, the key the
-    backward and the ring merge consume."""
+    backward and the ring merge consume. ``interpret`` is the reference's
+    Pallas flag, accepted at its position and ignored."""
     if _on_cpu(q, k, v):
         return _flash_fwd_plain(q, k, v, block_q, block_k, q_offset)
     return _flash_fwd_cuda(q, k, v, q_offset)
 
 
-def _flash_bwd_raw(q, k, v, o, lse, do, block_q, block_k, q_offset):
+def _flash_bwd_raw(q, k, v, o, lse, do, block_q, block_k, interpret=None,
+                   q_offset=0):
     """(dq, dk, dv) via the two backward passes (the counterpart of
-    ``_flash_bwd_pallas``)."""
+    ``_flash_bwd_pallas``, with its arguments; ``interpret`` is ignored)."""
     if _on_cpu(q, k, v, o, lse, do):
         dq, delta = _flash_bwd_dq_plain(q, k, v, o, lse, do, block_q,
                                         block_k, q_offset)
@@ -361,7 +382,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, block_q, block_k, q_offset):
-        out, lse = _flash_fwd_raw(q, k, v, block_q, block_k, q_offset)
+        out, lse = _flash_fwd_raw(q, k, v, block_q, block_k,
+                                  q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.blocks = (block_q, block_k, q_offset)
         return out
@@ -371,17 +393,19 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         block_q, block_k, q_offset = ctx.blocks
         dq, dk, dv = _flash_bwd_raw(q, k, v, out, lse, do.contiguous(),
-                                    block_q, block_k, q_offset)
+                                    block_q, block_k, q_offset=q_offset)
         return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, block_q: int = 512, block_k: int = 512,
-                    q_offset: int = 0):
+                    interpret: Optional[bool] = None, q_offset: int = 0):
     """Causal flash attention on (B, S, H, D) tensors; differentiable.
 
     ``q_offset`` shifts query positions (sequence-parallel callers pass the
     shard's global offset). Block sizes shrink to the largest power-of-two
-    divisor of the sequence length, so they always tile it.
+    divisor of the sequence length, so they always tile it. ``interpret``
+    stands where the reference has it and is ignored: CPU tensors take the
+    plain versions, CUDA tensors the kernels.
     """
     block_q = min(block_q, _pow2_block(q.shape[1], cap=block_q))
     block_k = min(block_k, _pow2_block(k.shape[1], cap=block_k))

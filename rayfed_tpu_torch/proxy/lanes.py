@@ -68,6 +68,7 @@ from typing import Dict, Optional, Tuple
 from rayfed_tpu_torch._private import msgpack_codec as msgpack
 
 from rayfed_tpu_torch import sanitize
+from rayfed_tpu_torch._private import native_wire
 from rayfed_tpu_torch._private.constants import (
     CODE_INTERNAL_ERROR,
     CODE_JOB_MISMATCH,
@@ -78,10 +79,8 @@ from rayfed_tpu_torch.telemetry import metrics as telemetry_metrics
 
 logger = logging.getLogger(__name__)
 
-try:  # pragma: no cover - exercised via the native build
-    from rayfed_tpu_torch import _fastwire as _fw
-except ImportError:  # pragma: no cover
-    _fw = None
+# The native shm ring (None without a C++ compiler: the mmap twin).
+_fw = native_wire.load()
 
 
 # --------------------------------------------------------------------------

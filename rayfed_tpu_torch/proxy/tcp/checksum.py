@@ -45,10 +45,10 @@ import logging
 import zlib
 from typing import Iterable, Optional, Tuple
 
-try:
-    from rayfed_tpu_torch import _fastwire as _fw
-except Exception:  # pragma: no cover - extension genuinely absent
-    _fw = None
+from rayfed_tpu_torch._private import native_wire
+
+# The native crc32c (None without a C++ compiler: the table fallback).
+_fw = native_wire.load()
 
 logger = logging.getLogger(__name__)
 

@@ -32,13 +32,13 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from rayfed_tpu_torch._private import msgpack_codec as msgpack
+from rayfed_tpu_torch._private import native_wire
 
 from rayfed_tpu_torch.proxy.tcp import wire
 
-try:  # native C++ lane (build with `make native`); Python IO is the fallback
-    from rayfed_tpu_torch import _fastwire
-except ImportError:  # pragma: no cover - environment-dependent
-    _fastwire = None
+# The native C++ lane, built from csrc/fastwire.cc at first import; None
+# (no C++ compiler on the machine) leaves the Python IO path.
+_fastwire = native_wire.load()
 
 _SOCK_BUF = 8 * 1024 * 1024
 
@@ -59,6 +59,12 @@ _COALESCE_COPY_MAX = 256 * 1024
 # Sentinel for "caller did not pass a fastwire snapshot" — distinct from
 # None, which legitimately means "no native engine".
 _UNSET = object()
+
+
+def io_path() -> str:
+    """The IO path plaintext frames take in this process: ``"native"``
+    (``rayfed_tpu_torch._fastwire``) or ``"python"``."""
+    return "python" if _fastwire is None else "native"
 
 
 def _native_ok(sock, fw=_UNSET) -> bool:

@@ -59,12 +59,19 @@ class Span:
     idx: int = -1             # ring-append index (monotonic per process)
 
 
-def enable(profiler_annotations: bool = False) -> None:
+def enable(profiler_annotations: Optional[bool] = None, *,
+           jax_annotations: Optional[bool] = None) -> None:
     """Turn span recording on. ``profiler_annotations=True`` additionally
-    wraps spans in ``torch.profiler.record_function``."""
+    wraps spans in ``torch.profiler.record_function``. ``jax_annotations``
+    is the JAX package's name for the same switch (its spans go to
+    ``jax.profiler``), accepted so that code written for it runs here;
+    passing both raises TypeError."""
     global _enabled, _use_profiler_annotations
+    if profiler_annotations is not None and jax_annotations is not None:
+        raise TypeError("pass profiler_annotations or its JAX package name "
+                        "jax_annotations, not both")
     _enabled = True
-    _use_profiler_annotations = profiler_annotations
+    _use_profiler_annotations = bool(profiler_annotations or jax_annotations)
 
 
 def disable() -> None:

@@ -41,8 +41,9 @@ setup(
     ),
     packages=find_packages(include=["rayfed_tpu", "rayfed_tpu.*",
                                     "rayfed_tpu_torch", "rayfed_tpu_torch.*"]),
-    # The PyTorch/CUDA port builds its kernels from these at first use.
-    package_data={"rayfed_tpu_torch": ["csrc/*.cu"]},
+    # The PyTorch/CUDA port builds its kernels (nvcc) and its native wire
+    # module (the C++ compiler) from these at first use.
+    package_data={"rayfed_tpu_torch": ["csrc/*.cu", "csrc/*.cc"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",

@@ -23,36 +23,49 @@ import pytest
 
 import chip_fault_check as fc
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "rayfed_tpu_torch", "csrc", "flash_attention.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "rayfed_tpu_torch", "csrc")
+FAULTS = [(name, i) for name, faults in sorted(fc.FAULTS.items())
+          for i in range(len(faults))]
 
 
-def _source():
-    with open(SOURCE) as f:
+def _source(name):
+    with open(os.path.join(CSRC, name)) as f:
         return f.read()
 
 
-@pytest.mark.parametrize("i", range(len(fc.FAULTS)))
-def test_fault_anchor_found_its_stated_number_of_times(i):
-    anchor, _, count = fc.FAULTS[i]
+def test_every_kernel_source_has_its_faults():
+    # One planted fault per kernel: K1-K3 in bf16 and in f32.
+    assert sorted(fc.FAULTS) == ["flash_attention.cu",
+                                 "flash_attention_f32.cu"]
+    assert all(len(faults) == 3 for faults in fc.FAULTS.values())
+
+
+@pytest.mark.parametrize("name,i", FAULTS)
+def test_fault_anchor_found_its_stated_number_of_times(name, i):
+    anchor, _, count = fc.FAULTS[name][i]
     assert count >= 1
-    assert _source().count(anchor) == count
+    assert _source(name).count(anchor) == count
 
 
-def test_planted_source_inserts_every_fault_after_its_anchor():
-    text = _source()
-    planted = fc.planted_source(text)
-    for anchor, line, count in fc.FAULTS:
+@pytest.mark.parametrize("name", sorted(fc.FAULTS))
+def test_planted_source_inserts_every_fault_after_its_anchor(name):
+    text = _source(name)
+    planted = fc.planted_source(name, text)
+    for anchor, line, count in fc.FAULTS[name]:
         assert planted.count(anchor + line) == count
     assert len(planted) == len(text) + sum(
-        len(line) * count for _, line, count in fc.FAULTS)
+        len(line) * count for _, line, count in fc.FAULTS[name])
     # The faults name the tiles the module documents.
-    joined = "".join(line for _, line, _ in fc.FAULTS)
+    joined = "".join(line for _, line, _ in fc.FAULTS[name])
     assert f"kt == {fc.SKIP_KT}" in joined
     assert f"/ 64 == {fc.SKIP_QT}" in joined
+    # A source without faults of its own passes through unchanged.
+    assert fc.planted_source("other.cu", text) == text
 
 
-def test_planted_source_refuses_a_source_without_an_anchor():
-    anchor = fc.FAULTS[0][0]
+@pytest.mark.parametrize("name", sorted(fc.FAULTS))
+def test_planted_source_refuses_a_source_without_an_anchor(name):
+    anchor = fc.FAULTS[name][0][0]
     with pytest.raises(ValueError, match="fault anchor found 0 times"):
-        fc.planted_source(_source().replace(anchor, ""))
+        fc.planted_source(name, _source(name).replace(anchor, ""))

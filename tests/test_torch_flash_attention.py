@@ -63,7 +63,7 @@ def _close(got, want, tol):
 def test_fwd_raw_matches_pallas(s, block):
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(0, [(2, s, 2, 32)] * 3))
     jo, jl = jfa._flash_fwd_raw(jq, jk, jv, block, block, True, 0)
-    to, tl = fa._flash_fwd_raw(tq, tk, tv, block, block, 0)
+    to, tl = fa._flash_fwd_raw(tq, tk, tv, block, block, True, 0)
     assert to.shape == (2, s, 2, 32) and tl.shape == (2, s, 2)
     _close(to, jo, 2e-5)
     _close(tl, jl, 2e-5)
@@ -74,7 +74,7 @@ def test_fwd_raw_q_offset_and_short_queries():
     arrs = _inputs(1, [(1, 32, 2, 16), (1, 64, 2, 16), (1, 64, 2, 16)])
     (jq, jk, jv), (tq, tk, tv) = _both(arrs)
     jo, jl = jfa._flash_fwd_raw(jq, jk, jv, 16, 16, True, 32)
-    to, tl = fa._flash_fwd_raw(tq, tk, tv, 16, 16, 32)
+    to, tl = fa._flash_fwd_raw(tq, tk, tv, 16, 16, True, 32)
     _close(to, jo, 2e-5)
     _close(tl, jl, 2e-5)
 
@@ -91,7 +91,8 @@ def test_bwd_passes_match_pallas(sq, sk, q_offset):
                                    q_offset)
     to = torch.from_numpy(np.array(jo))
     tl = torch.from_numpy(np.array(jl))
-    tgrads = fa._flash_bwd_raw(tq, tk, tv, to, tl, tdo, 16, 16, q_offset)
+    tgrads = fa._flash_bwd_raw(tq, tk, tv, to, tl, tdo, 16, 16, True,
+                               q_offset)
     for got, want in zip(tgrads, jgrads):
         _close(got, want, 3e-4)
 
@@ -149,7 +150,7 @@ def test_cuda_wrappers_refuse_cpu_and_mixed_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa._flash_fwd_cuda(q, q, q, 0)
     with pytest.raises(ValueError, match="all-CPU or all-CUDA"):
-        fa._flash_fwd_raw(q, q.to("meta"), q, 16, 16, 0)
+        fa._flash_fwd_raw(q, q.to("meta"), q, 16, 16, None, 0)
 
 
 def test_plain_path_launches_no_kernel():
@@ -158,4 +159,31 @@ def test_plain_path_launches_no_kernel():
     tq.requires_grad_(True)
     fa.flash_attention(tq, tk, tv, block_q=16, block_k=16).sum().backward()
     assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                           "flash_bwd_dkv": 0}
+                           "flash_bwd_dkv": 0, "flash_fwd_f32": 0,
+                           "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
+
+
+@pytest.mark.parametrize("q_offset", [0, 5])
+def test_reference_positional_arguments_match_the_jax_package(q_offset):
+    """The reference's order (q, k, v, block_q, block_k, interpret,
+    q_offset), positionally: ``interpret`` is taken at its place and
+    ignored, so ``q_offset`` lands where the JAX package reads it."""
+    sq, sk = 32, 48
+    arrs = _inputs(8, [(1, sq, 2, 16), (1, sk, 2, 16), (1, sk, 2, 16),
+                       (1, sq, 2, 16)])
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(arrs)
+    args = (16, 16, True) if q_offset == 0 else (16, 16, True, q_offset)
+    jo = jfa.flash_attention(jq, jk[:, :sq], jv[:, :sq], *args)
+    to = fa.flash_attention(tq, tk[:, :sq], tv[:, :sq], *args)
+    _close(to, jo, 2e-5)
+    # The raw passes, as ring attention calls them: Sk > Sq at an offset.
+    jo, jl = jfa._flash_fwd_raw(jq, jk, jv, 16, 16, True, q_offset)
+    to, tl = fa._flash_fwd_raw(tq, tk, tv, 16, 16, True, q_offset)
+    _close(to, jo, 2e-5)
+    _close(tl, jl, 2e-5)
+    jgrads = jfa._flash_bwd_pallas(jq, jk, jv, jo, jl, jdo, 16, 16, True,
+                                   q_offset)
+    tgrads = fa._flash_bwd_raw(tq, tk, tv, to, tl, tdo, 16, 16, True,
+                               q_offset)
+    for got, want in zip(tgrads, jgrads):
+        _close(got, want, 3e-4)

@@ -22,7 +22,10 @@ a one-round FedAvg with its root in either package equals
 tree of f32 and bf16 leaves, each party running its own package's
 ``fed_aggregate`` (one DAG), with the root in either package, against the
 JAX package's ``reduce_by_plan``; a task that raises in one package
-surfaces as ``FedRemoteError`` in the other.
+surfaces as ``FedRemoteError`` in the other. The port's party runs its
+native IO path (``rayfed_tpu_torch._fastwire``) against the JAX party's
+Python IO path, which these jobs pin, with leaves large enough for the
+pooled scatter receive.
 The module imports neither package at the top: each party process loads
 only its own.
 """
@@ -104,6 +107,17 @@ def run_mixed(party, addresses, pkgs, case, expected):
     pkg = pkgs[party]
     fed = _fed(pkg)
     other = "rayfed_tpu" if pkg == "torch" else "rayfed_tpu_torch"
+    if case == "io_paths":
+        if pkg == "jax":
+            # The JAX party on its Python IO path, whatever is built.
+            from rayfed_tpu.proxy import lanes
+            from rayfed_tpu.proxy.tcp import checksum, sockio
+
+            sockio._fastwire = checksum._fw = lanes._fw = None
+        else:
+            from rayfed_tpu_torch.proxy.tcp import sockio
+
+            assert sockio.io_path() == "native"
     fed.init(addresses=addresses, party=party,
              config={"cross_silo_comm": dict(FAST_COMM_CONFIG)})
 
@@ -115,7 +129,22 @@ def run_mixed(party, addresses, pkgs, case, expected):
     def identity(x):
         return x
 
-    if case == "roundtrip":
+    if case == "io_paths":
+        @fed.remote
+        def make_big(name):
+            return _big_tree(name, pkg)
+
+        a = make_big.party("alice").remote("alice")
+        b = make_big.party("bob").remote("bob")
+        ea = identity.party("bob").remote(a)
+        eb = identity.party("alice").remote(b)
+        got = fed.get([a, b, ea, eb])
+        for value, name in zip(got, ["alice", "bob", "alice", "bob"]):
+            want = _big_tree(name, pkg)
+            _assert_tree_bytes(value, want)
+            for key in ("big_f32", "big_bf16"):
+                assert _leaf_bytes(value[key]) == _leaf_bytes(want[key])
+    elif case == "roundtrip":
         a = make.party("alice").remote("alice")
         b = make.party("bob").remote("bob")
         # Each tree crosses, is echoed back by the other package, and
@@ -189,6 +218,26 @@ def run_mixed(party, addresses, pkgs, case, expected):
 AGG_WEIGHTS = {"alice": 0.37, "bob": 1.7}
 
 
+def _big_tree(name, pkg):
+    """The party's tree plus a 2 MiB f32 leaf and a 1 MiB bf16 leaf."""
+    tree = _to_package(_numpy_tree(SEEDS[name]), pkg)
+    rng = np.random.default_rng(SEEDS[name] + 10)
+    f32 = rng.standard_normal(1 << 19).astype(np.float32)
+    bits = rng.integers(0, 1 << 16, 1 << 19, dtype=np.uint16)
+    bits[(bits & 0x7F80) == 0x7F80] = 0  # no NaN or Inf patterns
+    if pkg == "jax":
+        import ml_dtypes
+
+        tree.update(big_f32=f32, big_bf16=bits.view(ml_dtypes.bfloat16))
+    else:
+        import torch
+
+        tree.update(big_f32=torch.from_numpy(f32),
+                    big_bf16=torch.from_numpy(bits.view(np.int16))
+                    .view(torch.bfloat16))
+    return tree
+
+
 def _agg_tree(name, pkg):
     """A tree of f32 and bf16 leaves: jax arrays for the JAX package (its
     premultiply is then JAX arithmetic), torch tensors for the port."""
@@ -241,3 +290,12 @@ def test_mixed_package_job(direction, case):
                     case, lambda: None)()
     run_parties(run_mixed, ["alice", "bob"], timeout=60,
                 extra_args=(DIRECTIONS[direction], case, expected))
+
+
+@pytest.mark.parametrize("direction", sorted(DIRECTIONS))
+def test_native_port_and_python_jax_party_exchange_trees_bitwise(direction):
+    # The port's party on its native IO path, the JAX party on its Python
+    # one: f32 and bf16 trees (with MiB leaves) cross both ways, are
+    # echoed back by the other package and arrive byte-identical.
+    run_parties(run_mixed, ["alice", "bob"], timeout=60,
+                extra_args=(DIRECTIONS[direction], "io_paths", None))

@@ -129,7 +129,7 @@ def test_chip_smoke_slice_phase_on_cpu_at_tiny_size():
     assert summary["eval"][-1] < summary["eval"][0]
     assert all(len(v) == 4 for v in summary["losses"].values())
     # The CPU run takes the plain versions: no kernel launches.
-    none = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    none = {k["name"]: 0 for k in chip_smoke.KERNELS}
     assert summary["launches"] == none
     assert summary["eval_launches"] == none
     assert summary["max_memory_allocated"] is None
@@ -150,7 +150,34 @@ def test_chip_smoke_fed_phase_on_cpu_at_tiny_size():
             got = rnd[push]
             assert got["digest"] == got["owner_digest"]
             assert got["push_ms"] > 0 and got["stage_ms"] is not None
-    assert res["reports"][PARTIES[1][0]]["io_path"] == "python"
+    # Both parties ran the port's native lane (built here by g++).
+    assert {rep["io_path"] for rep in res["reports"].values()} == {"native"}
+
+
+def test_chip_smoke_fed_phase_on_the_python_io_path_at_tiny_size():
+    # Phase 5's comparison run: its parties drop the native module and
+    # run sockio's Python IO path; check (g) holds them to it.
+    results = chip_smoke.phase_fed("cpu", tfm.tiny_config(), batch=BATCH,
+                                   seq=SEQ, lr=LR, timeout_s=60,
+                                   io_path="python")
+    res = results[PARTIES[0][0]]
+    assert {rep["io_path"] for rep in res["reports"].values()} == {"python"}
+    assert all(rnd[push]["digest"] == rnd[push]["owner_digest"]
+               for rnd in res["rounds"]
+               for push in ("params_push", "aggregate_push"))
+    chip_smoke.compare_io_paths({"native": results, "python": results})
+
+
+def test_chip_smoke_f32_phase_on_cpu_at_tiny_size():
+    # Phase 4b at tiny size: the f32 steps (the dense attention on the
+    # CPU) and the batch-1 check of the flash path's loss and gradients
+    # against the dense attention's.
+    summary = chip_smoke.phase_f32("cpu", tfm.tiny_config(), batch=BATCH,
+                                   seq=SEQ, steps=2, lr=LR, label="tiny")
+    assert len(summary["losses"]) == 3
+    assert summary["loss_rel"] <= chip_smoke.F32_LOSS_RTOL
+    assert summary["grad_rel"] <= chip_smoke.F32_GRAD_RTOL
+    assert all(n == 0 for n in summary["launches"].values())
 
 
 def test_kernel_work_counts_the_causal_pairs():
@@ -161,6 +188,23 @@ def test_kernel_work_counts_the_causal_pairs():
     flops, nbytes = chip_smoke.kernel_work(1, 64, 64, 2, 16, 0)["flash_fwd"]
     assert flops == 4 * 16 * (64 * 65 // 2) * 2
     assert nbytes == 4 * 64 * 2 * 16 * 2 + 64 * 2 * 4
+    # f32: four bytes an element of q/k/v/o; lse stays f32.
+    flops32, nbytes32 = chip_smoke.kernel_work(1, 64, 64, 2, 16, 0,
+                                               elem=4)["flash_fwd"]
+    assert flops32 == flops
+    assert nbytes32 == 4 * 64 * 2 * 16 * 4 + 64 * 2 * 4
+
+
+def test_bound_takes_the_faster_exact_route_for_f32():
+    # The main path's K1: 402.9M kept pairs, 206.3 GFLOP.
+    flops, nbytes = chip_smoke.kernel_work(12, 2048, 2048, 16, 128, 0,
+                                           elem=4)["flash_fwd"]
+    ms, by = chip_smoke.bound(flops, nbytes, "float32")
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * 3 * flops / 495e12)  # split TF32
+    assert ms == pytest.approx(1.250, abs=1e-3)
+    ms16, _ = chip_smoke.bound(flops, nbytes // 2, "bfloat16")
+    assert ms16 == pytest.approx(1e3 * flops / 989e12)
 
 
 def test_tile_rel_err_passes_rounding_and_catches_a_skipped_tile():
@@ -182,6 +226,21 @@ def test_tile_rel_err_passes_rounding_and_catches_a_skipped_tile():
     lim = chip_smoke.BF16_TILE_REL_TOL
     assert chip_smoke.tile_rel_err(want.bfloat16(), want) <= lim / 2
     assert chip_smoke.tile_rel_err(attn(faulty).transpose(1, 2), want) > 5 * lim
+
+
+def test_sdpa_backend_reads_the_kernel_names():
+    # Names printed by chip runs: cuDNN's contain "flash" too.
+    assert chip_smoke.sdpa_backend([
+        "cudnn_generated_fort_native_sdpa_sm90_flash_fprop_wgmma_f16_knob_7",
+        "void cudnn::fusion::compute_dot_do_o_specialized<true, 128>"]) \
+        == "cudnn"
+    assert chip_smoke.sdpa_backend([
+        "fmha_cutlassF_f32_aligned_64x128_rf_sm80(PyTorchMemEffAttention)"]) \
+        == "efficient"
+    assert chip_smoke.sdpa_backend(
+        ["void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits>"]) \
+        == "flash"
+    assert chip_smoke.sdpa_backend(["void at::native::softmax_warp"]) == "math"
 
 
 def test_kernel_split_groups_and_unions_device_time():

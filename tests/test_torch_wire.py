@@ -676,10 +676,19 @@ def _roundtrip_frame(header, buffers, max_payload=None):
     return result["frame"]
 
 
-def test_python_io_path_runs_without_the_native_extension():
-    # The port's fastwire build is a later ROADMAP item: every frame here
-    # goes through sockio's Python path.
-    assert sockio._fastwire is None
+def test_python_io_path_runs_without_the_native_extension(monkeypatch):
+    # The port builds its native lane where a C++ compiler exists (here);
+    # with the module taken away, frames take sockio's Python path and
+    # cross the same.
+    assert sockio.io_path() == "native"
+    monkeypatch.setattr(sockio, "_fastwire", None)
+    assert sockio.io_path() == "python"
+    payload = bytes(range(256)) * 300
+    header = {"up": 1, "down": 2, "job": "j", "pkind": "tree"}
+    ftype, hdr, got = _roundtrip_frame(header, [payload[:1000],
+                                                payload[1000:]])
+    assert ftype == wire.FTYPE_DATA and hdr == header
+    assert ser.payload_bytes(got) == payload
 
 
 @pytest.mark.parametrize("nbytes", [0, 1, 65535, 65536, 1 << 20])
