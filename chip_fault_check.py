@@ -18,16 +18,26 @@ kernel, on one card:
 
     python3 chip_fault_check.py
 
-It copies the port into ``build/fault_check/``, plants one fault in each
-flash kernel there, bf16 and f32 (K1 and K2 skip the key step holding key
-tile SKIP_KT, K3 skips query tile SKIP_QT, both of 64 rows: a
-mid-sequence tile dropped for the late rows or the early keys;
-``planted_source`` does the patching), builds the copy,
-and reads ``chip_smoke.kernel_errors`` for the sound and the faulted
-kernels on the same inputs at the main-path shape, in both dtypes.
-It exits 0 when every sound reading is within its limit and every output
-(O, dq, dk, dv) of every faulted kernel is past it. The last line is the
-readings as JSON.
+It copies the port into ``build/fault_check/`` twice, each time with
+one kind of planted fault (``planted_source`` does the patching), builds
+the copy, and reads ``chip_smoke.kernel_errors`` for the sound and the
+faulted kernels on the same inputs at the main-path shape, in both
+dtypes, the f32 ones with the exact-f32 reading:
+
+- "skip", one fault in each flash kernel, bf16 and f32: K1 and K2 skip
+  the keys of 64-row tile SKIP_KT, K3 the queries of 64-row tile
+  SKIP_QT (a mid-sequence tile dropped for the late rows or the early
+  keys). Every output (O, dq, dk, dv) of every kernel must be past its
+  limit.
+- "split", one fault in the f32 split helper: ``lo`` is zeroed, so each
+  product of the f32 K2 and K3 is one TF32 product. Their exact-f32
+  readings (dq, dk, dv against a tenth of the TF32 plain version's
+  error) must be past their limits; the script also prints whether the
+  3e-4 limit alone would have caught it.
+
+It exits 0 when every sound reading is within its limit and every
+faulted reading named above is past it. The last line is the readings as
+JSON.
 """
 
 from __future__ import annotations
@@ -43,40 +53,50 @@ COPY = os.path.join(REPO, "build", "fault_check")
 
 SKIP_KT = 16  # keys 1024..1087 at a 64-row tile
 SKIP_QT = 24  # queries 1536..1599 at a 64-row tile
-# {kernel source: [(anchor in it, line inserted after it, occurrences)]}.
-# The bf16 kernels run a copy ring: the skip goes after the barrier at
-# which a tile has landed and keeps the barrier that frees its stage, so
-# the ring runs on. K1 and K2 skip the key step that holds SKIP_KT (K1
-# steps 128 keys, so keys 1024..1151; K2 steps 64, exactly SKIP_KT); K3
-# steps 64 query rows, exactly SKIP_QT. The f32 kernels step 64 rows in
-# every loop, and each step begins at a barrier, so the skip is a
-# ``continue`` once the tile has landed.
+# {kernel source: [(anchor in it, line inserted after it, occurrences,
+# kind)]}. The kernels with a copy ring (bf16 K1-K3, f32 K2 and K3): the
+# skip goes after the barrier at which a tile has landed and keeps the
+# barrier that frees its stage, so the ring runs on. K1 and K2 skip the
+# key steps within SKIP_KT (bf16 K1 steps 128 keys, so keys 1024..1151;
+# bf16 K2 steps 64, exactly SKIP_KT; f32 K2 steps kN = 32, two steps); K3
+# the query steps within SKIP_QT. The f32 K1 steps 64 rows, and each step
+# begins at a barrier, so its skip is a ``continue`` once the tile has
+# landed. The split fault zeroes the low TF32 part of every split value.
 FAULTS = {
     "flash_attention.cu": [
         # K1: the key-tile loop, once tile kt is in shared memory.
         ("    __syncthreads();  // key tile kt has landed in stage st\n",
          f"    if (kt == {SKIP_KT} * 64 / C::kN) {{ __syncthreads(); continue; }}\n",
-         1),
+         1, "skip"),
         # K2: the key-tile loop, once tile kt is in shared memory.
         ("    __syncthreads();  // keys and values of step kt have landed in stage st\n",
          f"    if (kt == {SKIP_KT} * 64 / C::kN) {{ __syncthreads(); continue; }}\n",
-         1),
+         1, "skip"),
         # K3: the query-tile loop, once tile qt is in shared memory.
         ("    __syncthreads();  // query tile qt has landed in stage st\n",
-         f"    if (q0 / 64 == {SKIP_QT}) {{ __syncthreads(); continue; }}\n", 1),
+         f"    if (q0 / 64 == {SKIP_QT}) {{ __syncthreads(); continue; }}\n",
+         1, "skip"),
     ],
     "flash_attention_f32.cu": [
         # K1 f32: the key-tile loop.
         ("    __syncthreads();  // key tile kt has landed\n",
-         f"    if (kt == {SKIP_KT}) continue;\n", 1),
-        # K2 f32: the key-tile loop.
-        ("    __syncthreads();  // keys and values of step kt have landed\n",
-         f"    if (kt == {SKIP_KT}) continue;\n", 1),
-        # K3 f32: the query-tile loop.
-        ("    __syncthreads();  // query tile qt has landed\n",
-         f"    if (q0 / 64 == {SKIP_QT}) continue;\n", 1),
+         f"    if (kt == {SKIP_KT}) continue;\n", 1, "skip"),
+        # K2 f32: the key-step loop, once step kt is in its ring stage.
+        ("    __syncthreads();  // keys and values of step kt have landed in stage st\n",
+         f"    if (k0 / 64 == {SKIP_KT}) {{ __syncthreads(); continue; }}\n",
+         1, "skip"),
+        # K3 f32: the query-step loop, once step qt is in its ring stage.
+        ("    __syncthreads();  // query tile qt has landed in stage st\n",
+         f"    if (q0 / 64 == {SKIP_QT}) {{ __syncthreads(); continue; }}\n",
+         1, "skip"),
+        # The split of K2 and K3 f32: one TF32 product per f32 product.
+        ("  lo = __float_as_uint(x - __uint_as_float(hi));\n", "  lo = 0u;\n",
+         1, "split"),
     ],
 }
+FAULT_KINDS = ("skip", "split")
+# The readings the split fault must push past their limits.
+SPLIT_CAUGHT_BY = ("K2 f32 dq exact", "K3 f32 dk exact", "K3 f32 dv exact")
 
 READ = """
 import json, chip_smoke as cs
@@ -85,21 +105,27 @@ readings = {}
 for dtype in ("bfloat16", "float32"):
     readings.update(cs.kernel_errors(
         "cuda", f["batch"], f["seq"], f["seq"], f["n_heads"],
-        f["d_model"] // f["n_heads"], 0, dtype=dtype)[0])
+        f["d_model"] // f["n_heads"], 0, dtype=dtype,
+        exact_f32=dtype == "float32")[0])
 print(json.dumps(readings))
 """
 
 
-def planted_source(name, text):
+def planted_source(name, text, kind="skip"):
     """``text`` (the kernel source file ``name``) with every fault of
-    ``FAULTS`` for it inserted; raises ValueError when an anchor is not
-    found exactly its stated number of times, so a changed kernel cannot
-    disarm the check."""
-    for anchor, line, count in FAULTS.get(name, ()):
+    ``FAULTS`` of ``kind`` for it inserted; raises ValueError when any of
+    its anchors is not found exactly its stated number of times, so a
+    changed kernel cannot disarm the check."""
+    if kind not in FAULT_KINDS:
+        raise ValueError(f"no fault kind {kind!r}; kinds {FAULT_KINDS}")
+    faults = FAULTS.get(name, ())
+    for anchor, _, count, _ in faults:
         if text.count(anchor) != count:
             raise ValueError(f"fault anchor found {text.count(anchor)} "
                              f"times, not {count}: {anchor!r}")
-        text = text.replace(anchor, anchor + line)
+    for anchor, line, _, fault_kind in faults:
+        if fault_kind == kind:
+            text = text.replace(anchor, anchor + line)
     return text
 
 
@@ -135,23 +161,34 @@ def read(root):
     return json.loads(run_code(root, READ).strip().splitlines()[-1])
 
 
+def read_planted(kind):
+    copy_port(COPY, lambda name, text: planted_source(name, text, kind))
+    return read(COPY)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the check runs the kernels on a card")
-    copy_port(COPY, planted_source)
-    sound, faulted = read(REPO), read(COPY)
+    sound = read(REPO)
+    faulted, split = read_planted("skip"), read_planted("split")
     ok = True
     for name, (r, lim) in sound.items():
-        fr = faulted[name][0]
+        fr, sr = faulted[name][0], split[name][0]
         output = name.split()[-1] in ("O", "dq", "dk", "dv")
-        good = r <= lim and (fr > lim if output else True)
+        good = (r <= lim and (fr > lim if output else True)
+                and (sr > lim if name in SPLIT_CAUGHT_BY else True))
         ok &= good
-        print(f"{name}: sound {r:.4g}, faulted {fr:.4g}, limit {lim:.3g}"
-              f"{'' if good else '  WRONG SIDE'}")
+        print(f"{name}: sound {r:.4g}, skip-faulted {fr:.4g}, split-faulted "
+              f"{sr:.4g}, limit {lim:.3g}{'' if good else '  WRONG SIDE'}")
+    for name in SPLIT_CAUGHT_BY:
+        plain = name[:-len(" exact")]
+        r, lim = split[plain]
+        print(f"split fault, {plain}: {r:.4g} against the {lim:.3g} limit "
+              f"alone: {'caught' if r > lim else 'NOT caught'}")
     print(json.dumps({"skip_kt": SKIP_KT, "skip_qt": SKIP_QT,
-                      "sound": sound, "faulted": faulted}))
+                      "sound": sound, "faulted": faulted, "split": split}))
     shutil.rmtree(COPY, ignore_errors=True)
     sys.exit(0 if ok else 1)
 

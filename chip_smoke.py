@@ -23,11 +23,15 @@ Phases:
 2. build: the Hopper kernels from ``rayfed_tpu_torch/csrc`` (nvcc, one
    process per source); each kernel's registers, spills, shared memory
    and resident blocks per SM at the flagship head dim (no kernel may
-   spill).
+   spill), and, where the toolkit's ``cuobjdump`` runs, the tensor-core
+   (HMMA, HGMMA) and FFMA instructions in each kernel's SASS.
 3. kernels: each flash kernel against its plain PyTorch version on the
    card, the bf16 ones and the f32 ones, at the flagship attention shape
    and at small shapes (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every
-   head dim); times of kernel, plain version and
+   head dim); at the flagship shape each f32 output (O, dq, dk, dv) is
+   also held to a tenth of the error of one TF32 product (the plain
+   version run again with ``allow_tf32``), which an f32 kernel computing
+   in TF32 fails; times of kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick only; its backend named)
    with CUDA events; FLOPs, bytes and the roofline bound.
 4. slice: one federated transformer round loop at the flagship width —
@@ -83,6 +87,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -128,6 +133,14 @@ F32_STAT_TOL = 1e-3
 F32_OUT_TOL = 2e-5
 F32_GRAD_TOL = 3e-4
 F32_KERNEL_STAT_TOL = 1e-4
+# Exact f32: at the main path's shape each f32 output's error is held to
+# this fraction of the error of one TF32 product per f32 product (the
+# plain version with ``allow_tf32``, on the same inputs). The f32 K2 and
+# K3 multiply on the tensor cores as three TF32 products each; a kernel
+# that issued one fails this limit whatever the size of its error against
+# the limits above (at the main path's shape it also fails 3e-4, on small
+# inputs it can pass it).
+EXACT_F32_FRACTION = 0.1
 # Phase 4b, batch 1: the f32 model with the f32 kernels against the dense
 # attention, one step's loss (relative) and each gradient leaf (its
 # difference's norm over its norm).
@@ -218,7 +231,53 @@ def phase_build(head_dim):
     for name in _native.KERNEL_NAMES:
         require(resources[name]["spill_bytes"] == 0,
                 f"{name}<{head_dim}> spills: {resources[name]}")
+    counts = sass_counts(path)
+    if counts is None:
+        print("[build] SASS instruction counts: no cuobjdump in the toolkit")
+    else:
+        for name in _native.KERNEL_NAMES:
+            c = counts.get(f"{name}<{head_dim}>", {})
+            print(f"[build] {name}<{head_dim}> SASS: " + ", ".join(
+                f"{c.get(op, 0)} {op}" for op in SASS_OPS))
     return secs
+
+
+KERNEL_RE = r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_f32)?_kernel)ILi(\d+)E"
+# Tensor-core products (mma.sync, wgmma) and CUDA-core f32 multiply-adds.
+SASS_OPS = ("HMMA", "HGMMA", "FFMA")
+
+
+def sass_counts(path):
+    """{"kernel<D>": {op: instructions}} for ``SASS_OPS`` in the SASS of
+    the library at ``path`` (``cuobjdump -sass``); None where the toolkit
+    has no ``cuobjdump`` or it fails."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if not tool:
+        return None
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        return None
+    return parse_sass_counts(out.stdout)
+
+
+def parse_sass_counts(sass):
+    """:func:`sass_counts` from the text of ``cuobjdump -sass``."""
+    counts, kernel = {}, None
+    ops = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(KERNEL_RE, line)
+            kernel = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if kernel:
+                counts.setdefault(kernel, dict.fromkeys(SASS_OPS, 0))
+        elif kernel:
+            m = ops.search(line)
+            if m:
+                counts[kernel][m.group(1)] += 1
+    return counts
 
 
 def kernel_resources(log, head_dim):
@@ -237,8 +296,7 @@ def ptxas_report(log):
     """Each kernel's registers and spills from ``nvcc -Xptxas -v``."""
     out, kernel = [], "?"
     for line in log.splitlines():
-        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_f32)?_kernel)ILi(\d+)E",
-                      line)
+        m = re.search(KERNEL_RE, line)
         if m:
             kernel = f"{m.group(1)}<{m.group(2)}>"
         elif "registers" in line or "spill" in line:
@@ -342,13 +400,17 @@ def abs_err(got, want):
 
 
 def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
-                  dtype="bfloat16"):
+                  dtype="bfloat16", exact_f32=False):
     """Each kernel of ``dtype`` ("bfloat16" or "float32") against its
     plain version on the same inputs (K2 and K3 fed the plain version's o,
     lse and delta). The plain version runs its f32 products in full f32
     (TF32 off). Returns ({output: (reading, limit)}, {kernel: max abs
     err}, inputs); a reading of NaN is a failure. bf16 outputs are read
-    by :func:`tile_rel_err`, f32 ones by their largest absolute error."""
+    by :func:`tile_rel_err`, f32 ones by their largest absolute error.
+    With ``exact_f32`` (f32 only) the plain version runs once more with
+    TF32 on, and each output's reading "<kernel> f32 <output> exact" is
+    its error against a limit of ``EXACT_F32_FRACTION`` times that TF32
+    run's error; TF32 is off again before anything else runs."""
     import torch
 
     from rayfed_tpu_torch.ops import flash_attention as fa
@@ -386,6 +448,25 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
         f"K3{tag} dk": reading(grad, dk, dk_ref),
         f"K3{tag} dv": reading(grad, dv, dv_ref),
     }
+    if exact_f32:
+        require(dtype == "float32", "the exact-f32 reading is for f32")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            o_tf = fa._flash_fwd_plain(q, k, v, bq, bk, q_offset)[0]
+            dq_tf = fa._flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do, bq,
+                                           bk, q_offset)[0]
+            dk_tf, dv_tf = fa._flash_bwd_dkv_plain(q, k, v, do, lse_ref,
+                                                   delta_ref, bq, bk,
+                                                   q_offset)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        for name, got, tf, want in (("K1 f32 O", o, o_tf, o_ref),
+                                    ("K2 f32 dq", dq, dq_tf, dq_ref),
+                                    ("K3 f32 dk", dk, dk_tf, dk_ref),
+                                    ("K3 f32 dv", dv, dv_tf, dv_ref)):
+            readings[name + " exact"] = (
+                abs_err(got, want), EXACT_F32_FRACTION * abs_err(tf, want))
     errs = {
         "flash_fwd" + sfx: abs_err(o, o_ref),
         "flash_bwd_dq" + sfx: abs_err(dq, dq_ref),
@@ -395,19 +476,24 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
 
 
 def check_kernels(device, b, sq, sk, h, d, q_offset, seed=0,
-                  dtype="bfloat16"):
+                  dtype="bfloat16", exact_f32=False):
     """:func:`kernel_errors`, printed, raising past any limit. Returns
     ({kernel: max abs err}, inputs)."""
     readings, errs, inputs = kernel_errors(device, b, sq, sk, h, d, q_offset,
-                                           seed, dtype)
+                                           seed, dtype, exact_f32)
     shape = f"{dtype} B={b} Sq={sq} Sk={sk} H={h} D={d} q_offset={q_offset}"
     how = ("O/dq/dk/dv: tile norm rel err" if dtype == "bfloat16"
            else "O/dq/dk/dv: max abs err")
     bad = [f"{n} {r:.3g} > {lim:.3g}" for n, (r, lim) in readings.items()
            if not r <= lim]
+    exact = {n: rl for n, rl in readings.items() if n.endswith(" exact")}
     print(f"[kernels] {shape}: " + " ".join(
-        f"{n}={r:.3g}" for n, (r, _) in readings.items())
+        f"{n}={r:.3g}" for n, (r, _) in readings.items() if n not in exact)
         + f" ({how}; lse/delta: max abs err)"
+        + ("; exact f32, kernel err vs one TF32 product's err: " + ", ".join(
+            f"{n.split()[-2]} {r:.3g} vs {lim / EXACT_F32_FRACTION:.3g}"
+            for n, (r, lim) in exact.items())
+           + f" (limit {EXACT_F32_FRACTION:g}x)" if exact else "")
         + (f"  FAILED: {bad}" if bad else "  ok"))
     require(not bad, f"kernel vs plain at {shape}: {bad}")
     return errs, inputs
@@ -479,7 +565,8 @@ def time_kernels(device, b, s, h, d, dtype, smi):
 
     sfx = "" if dtype == "bfloat16" else "_f32"
     errs, (q, k, v, do, o, lse, delta, bq, bk) = check_kernels(
-        device, b, s, s, h, d, 0, dtype=dtype)
+        device, b, s, s, h, d, 0, dtype=dtype,
+        exact_f32=dtype == "float32")
     iters = 10
     ms = {
         "flash_fwd": cuda_ms(lambda: fa._flash_fwd_cuda(q, k, v, 0), iters),

@@ -13,19 +13,24 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Times K1, K2 and K3 under other tilings against each other, on one card:
+"""Times K1, K2 and K3, bf16 and f32, under other tilings against each
+other, on one card:
 
     python3 chip_tile_sweep.py base kFwdN=64 kDqWG=1 kDkvWG=1,kDkvM=32 base
+    python3 chip_tile_sweep.py base kDqF32W=4,kDqF32N=64 base
 
-Each argument sets tile constants of ``rayfed_tpu_torch/csrc/
-flash_attention.cu`` (``TILE_CONSTANTS``; comma-separated ``name=value``),
-or is ``base``, the source as committed. Per argument, in that order, it
-copies the port into ``build/tile_sweep/<i>/``, sets the constants, and
-in a fresh process builds the copy, prints each kernel's resources at the
-flagship head dim, holds the kernels to ``chip_smoke.py``'s limits at the
-main-path shape and times K1, K2 and K3 there (CUDA events, 20 launches
-after 2 warm-ups, twice). Put ``base`` first and last to read the spread. The
-last line is every setting's readings and times as JSON.
+Each argument sets tile constants (``TILE_CONSTANTS``; comma-separated
+``name=value``) of ``rayfed_tpu_torch/csrc/flash_attention.cu`` (bf16)
+or, for the f32 K2 and K3 (``F32_TILE_CONSTANTS``: warps a block and
+rows a ring stage), ``flash_attention_f32.cu``; or is ``base``, the
+sources as committed. Per argument, in that order, it copies the port
+into ``build/tile_sweep/<i>/``, sets the constants, and in a fresh
+process builds the copy, prints each kernel's resources at the flagship
+head dim, holds the kernels of both dtypes to ``chip_smoke.py``'s limits
+at the main-path shape (the f32 ones with the exact-f32 reading) and
+times the six kernels there (CUDA events, 20 launches after 2 warm-ups,
+twice). Put ``base`` first and last to read the spread. The last line is
+every setting's readings and times as JSON.
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ import sys
 import chip_fault_check as fc
 
 ROOT = os.path.join(fc.REPO, "build", "tile_sweep")
-TILE_CONSTANTS = ("kFwdWG", "kFwdN", "kDqWG", "kDqN", "kDkvWG", "kDkvM")
+F32_TILE_CONSTANTS = ("kDqF32W", "kDqF32N", "kDkvF32W", "kDkvF32N")
+TILE_CONSTANTS = ("kFwdWG", "kFwdN", "kDqWG", "kDqN", "kDkvWG",
+                  "kDkvM") + F32_TILE_CONSTANTS
 
 RUN = """
 import json, chip_smoke as cs
@@ -48,16 +55,22 @@ f = cs.FLAGSHIP
 d = f["d_model"] // f["n_heads"]
 with open(_native.build() + ".log") as log:
     res = cs.kernel_resources(log.read(), d)
-readings, _, (q, k, v, do, o, lse, delta, _, _) = cs.kernel_errors(
-    "cuda", f["batch"], f["seq"], f["seq"], f["n_heads"], d, 0)
+readings, ms = {}, {}
+for dtype, sfx in (("bfloat16", ""), ("float32", "_f32")):
+    got, _, (q, k, v, do, o, lse, delta, _, _) = cs.kernel_errors(
+        "cuda", f["batch"], f["seq"], f["seq"], f["n_heads"], d, 0,
+        dtype=dtype, exact_f32=dtype == "float32")
+    readings.update(got)
+    fns = {
+        "flash_fwd": lambda: fa._flash_fwd_cuda(q, k, v, 0),
+        "flash_bwd_dq": lambda: fa._flash_bwd_dq_cuda(q, k, v, o, lse, do, 0),
+        "flash_bwd_dkv": lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse,
+                                                        delta, 0),
+    }
+    for name, fn in fns.items():
+        ms[name + sfx] = [cs.cuda_ms(fn, 20) for _ in range(2)]
+    del q, k, v, do, o, lse, delta, fns
 bad = [n for n, (r, lim) in readings.items() if not r <= lim]
-ms = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
-for _ in range(2):
-    ms["flash_fwd"].append(cs.cuda_ms(lambda: fa._flash_fwd_cuda(q, k, v, 0), 20))
-    ms["flash_bwd_dq"].append(cs.cuda_ms(
-        lambda: fa._flash_bwd_dq_cuda(q, k, v, o, lse, do, 0), 20))
-    ms["flash_bwd_dkv"].append(cs.cuda_ms(
-        lambda: fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, 0), 20))
 print(json.dumps(dict(resources=res, readings=readings, over_limit=bad, ms=ms)))
 """
 
@@ -74,6 +87,12 @@ def parse_setting(arg):
                              f"{TILE_CONSTANTS}, integer values)")
         out[name] = int(value)
     return out
+
+
+def source_of(name):
+    """The kernel source that defines tile constant ``name``."""
+    return ("flash_attention_f32.cu" if name in F32_TILE_CONSTANTS
+            else "flash_attention.cu")
 
 
 def tiled_source(text, setting):
@@ -96,13 +115,13 @@ def main():
     results = []
     for i, setting in enumerate(settings):
         root = os.path.join(ROOT, str(i))
-        fc.copy_port(root, lambda name, text: tiled_source(text, setting)
-                     if name == "flash_attention.cu" else text)
+        fc.copy_port(root, lambda name, text: tiled_source(
+            text, {c: n for c, n in setting.items() if source_of(c) == name}))
         out = json.loads(fc.run_code(root, RUN).strip().splitlines()[-1])
-        print(f"{setting or 'base'}: K1 ms {out['ms']['flash_fwd']}, K2 ms "
-              f"{out['ms']['flash_bwd_dq']}, K3 ms "
-              f"{out['ms']['flash_bwd_dkv']}, over limit {out['over_limit']}; "
-              f"{out['resources']}", flush=True)
+        print(f"{setting or 'base'}: ms " + ", ".join(
+            f"{n} {t}" for n, t in out["ms"].items())
+            + f"; over limit {out['over_limit']}; {out['resources']}",
+            flush=True)
         results.append(dict(setting=setting, **out))
     shutil.rmtree(ROOT, ignore_errors=True)
     print(json.dumps(results))

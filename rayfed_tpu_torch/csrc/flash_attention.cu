@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -85,8 +87,8 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// Hopper building blocks: cp.async ring, swizzled tiles,
-// wgmma descriptors and instructions
+// Hopper building blocks: cp.async ring (copies in cp_async.cuh),
+// swizzled tiles, wgmma descriptors and instructions
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 128;  // one warpgroup
@@ -112,30 +114,6 @@ __device__ __forceinline__ uint32_t sw_offset(int r, int c) {
   return (c / 64) * (R * 128) + r * 128 + ((((c % 64) / 8) ^ (r & 7)) * 16);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 (or 4) bytes global -> shared without passing through registers;
-// an invalid source zero-fills the destination and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 // Make this thread's shared-memory writes visible to wgmma's reads.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

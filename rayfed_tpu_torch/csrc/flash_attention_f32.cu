@@ -33,31 +33,82 @@
 // f32. dQ's kernel also computes delta = rowsum(dO * O), as the bf16 one
 // does.
 //
-// What bounds them on this card: exact f32 leaves two routes, FFMA on the
-// CUDA cores (67 TFLOP/s) or a product split into three TF32 products on
-// the tensor cores (3 x 1/495 TFLOP/s, the faster bound). These kernels
-// take the first: wgmma rounds its f32 operands to TF32 (10-bit mantissa),
-// about three digits, far from the 2e-5 the reference's f32 tests hold.
-// At the main path's shape every kernel does ~S/2 multiply-adds per byte it
-// must move, so they are bound by operations. The design is the simple
-// one: a block of 256 threads owns 64 rows (queries in K1 and K2, keys in
-// K3) of one (batch, head), keeps them in shared memory, and streams the
-// other side in 64-row tiles through shared memory, stopping at the causal
-// diagonal. Thread (ty, tx) of the 16 x 16 holds the scores of rows
-// 4 ty .. 4 ty + 3 against columns tx + 16 j (j < 4), reads both operands
-// as float4 along D from tiles padded to a row stride of D + 4 floats
-// (conflict-free), and keeps the softmax of its rows in registers, reduced
-// over the 16 lanes that share them. P (or dS) goes through one 64 x 68
-// shared tile into the second product, where the same thread owns the
-// same rows and D / 16 columns of the output. The S x S scores never reach
-// device memory, and there are no atomics: dQ and dK/dV are two passes.
+// What bounds them on this card: at the main path's shape every kernel
+// does ~S/2 multiply-adds per byte it must move, so they are bound by
+// operations, and exact f32 leaves two routes: FFMA on the CUDA cores
+// (67 TFLOP/s), or each product split into three TF32 products on the
+// tensor cores (3 x FLOP / 495 TFLOP/s, the faster bound). No score tile
+// reaches device memory, and there are no atomics: dQ and dK/dV are two
+// passes, so the gradients are deterministic as in the reference.
+//
+// K1 takes the first route, in the simple first design: a block of 256
+// threads owns 64 query rows of one (batch, head), keeps them in shared
+// memory, and streams the keys in 64-row tiles through shared memory,
+// stopping at the causal diagonal. Thread (ty, tx) of the 16 x 16 holds
+// the scores of rows 4 ty .. 4 ty + 3 against columns tx + 16 j (j < 4),
+// reads both operands as float4 along D from tiles padded to a row stride
+// of D + 4 floats (conflict-free), and keeps the softmax of its rows in
+// registers, reduced over the 16 lanes that share them. P goes through
+// one 64 x 68 shared tile into the second product, where the same thread
+// owns the same rows and D / 16 columns of the output.
+//
+// K2 and K3 take the second route. FFMA caps a kernel at 67 TFLOP/s,
+// and an FFMA loop fed from shared memory gets 2-3 FMAs per word it
+// reads, far less. Here each operand value x is split as hi = x rounded
+// to TF32 (to nearest) and lo = x - hi (exact in f32, read by the tensor
+// core as TF32), and each product a b runs as lo(a) hi(b) + hi(a) lo(b) +
+// hi(a) hi(b), the two corrections issued into the f32 accumulator before
+// the large one (as CUTLASS's OpMultiplyAddFastF32 does); the dropped
+// lo(a) lo(b) term is below 2^-22 of the product, so the sums keep f32's
+// digits where one TF32 product keeps three. Every product is split: S
+// and dP, then dQ += dS K (K2); S^T and dP^T, then dV += P^T dO and
+// dK += dS^T Q (K3), the register operands P and dS too. The tensor
+// core's f32 accumulation does not round to nearest, so each step's
+// products go into a fresh accumulator and join dQ, dK and dV by an f32
+// add. delta stays an FFMA row sum in K2's prologue.
+//
+// The products are mma.sync m16n8k8 (tf32 in, f32 accumulate), not wgmma.
+// tf32 wgmma reads a shared-memory operand only K-major (its transpose
+// flags exist for 16-bit types only), and each operand would have to be
+// stored twice, as a hi tile and a lo tile: K3 would hold K and V as hi/lo
+// plus Q and dO as hi/lo in both layouts (row-major for S^T = K Q^T and
+// dP^T = V dO^T, transposed for P^T dO and dS^T Q), 393,216 B at 64 x 128
+// tiles, and K2 K in both layouts, 327,680 B, where a block has 232,448 B.
+// mma.sync takes its fragments from registers: each thread reads its
+// fragment elements from one raw f32 tile in shared memory, in whichever
+// order the product needs (a transpose is addressing), and splits them in
+// registers. Shared memory holds raw tiles only.
+//
+// A block of kW warps owns 16 kW resident rows, 16 a warp (the m16 of its
+// products): queries with their dO, lse and delta in K2, keys with their
+// values in K3. The other side streams through a two-stage cp.async ring
+// of kN-row tiles (K2: K and V; K3: Q, dO, lse and delta), 16-byte copies
+// that zero-fill ragged rows, so the copy of step i+1 runs under the
+// products of step i, with one barrier when a stage lands and one when it
+// is free. S and dP come out of the mma in registers; P and dS are formed
+// there and go straight back as the A operand of the second product. The
+// m16n8 accumulator gives a thread columns 2t and 2t+1 of each n8 tile
+// (t = lane % 4, g = lane / 4), where the tf32 A fragment wants columns t
+// and t+4 of a k8 slice: instead of shuffling, the k order is relabelled
+// (A's column t is key 2t, t+4 is key 2t+1) and the B fragment reads its
+// rows in that same order, since a sum over k does not care. No score, P
+// or dS tile goes through shared memory. Every tile has a row stride of
+// D + 4 floats: the row-wise fragment reads hit banks 4 g + t and, in the
+// relabelled order, the column-wise ones (rows 2t, 2t+1, column g) banks
+// 8 t + g, so both orders are free of bank conflicts with no swizzle. K2
+// runs the last query tiles first, K3 the first key tiles first (they see
+// the most keys or queries), and a warp skips a step that lies wholly on
+// the masked side of its diagonal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr float kNegBig = -1e30f;
+// K1's geometry.
 constexpr int kT = 64;         // rows of every tile, the block's and streamed
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kLP = kT + 4;    // row stride (floats) of a 64 x 64 score tile
@@ -65,7 +116,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 template <int D>
 struct Cfg {
-  static constexpr int kLD = D + 4;        // row stride of a 64 x D tile
+  static constexpr int kLD = D + 4;        // row stride of a D-wide tile
   static constexpr int kTile = kT * kLD;   // floats of one 64 x D tile
   static constexpr int kVec = D >= 64 ? 4 : D / 16;  // output columns per load
   static constexpr int kCols = D / 16;     // output columns per thread
@@ -326,41 +377,237 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// K2: the dQ pass. One block per (b, h) and 64-query tile, with its dO,
-// lse and delta; P = exp(S scale - lse) and dS = P (dP - delta) scale per
-// 64-key tile, dQ += dS K.
+// K2 and K3: each f32 product as three TF32 mma.sync products
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+// kW warps, 16 resident rows each, against kN-row ring stages; every tile
+// has a row stride of D + 4 floats.
+template <int D, int kW, int kN_>
+struct BwdCfg {
+  static constexpr int kM = 16 * kW;          // resident rows per block
+  static constexpr int kN = kN_;              // streamed rows per stage
+  static constexpr int kThreads = 32 * kW;
+  static constexpr int kResident = kM * Cfg<D>::kLD;  // floats, resident tile
+  static constexpr int kStream = kN * Cfg<D>::kLD;    // floats, streamed tile
+  // Two resident tiles and a two-stage ring of two streamed tiles; K3's
+  // ring also carries kN lse and kN delta values a stage.
+  static constexpr size_t kSmemDq =
+      sizeof(float) * (2 * kResident + 4 * kStream);
+  static constexpr size_t kSmemDkv = kSmemDq + sizeof(float) * 4 * kN;
+  static_assert(kN % 8 == 0 && 2 * kN <= kThreads, "ring stage rows");
+};
+// 8 warps (128 resident rows) against 32-row stages: two warps a scheduler
+// and ~203 KB of shared memory, one block per SM. chip_tile_sweep.py times
+// other settings (4 warps against 64-row stages is the other candidate).
+constexpr int kDqF32W = 8;
+constexpr int kDqF32N = 32;
+constexpr int kDkvF32W = 8;
+constexpr int kDkvF32N = 32;
+
+// x as hi + lo for the TF32 products. hi is x rounded to TF32 (10
+// mantissa bits, to nearest, ties away from zero, low 13 bits clear):
+// for finite x the bits of cvt.rna.tf32.f32, which compiles to an inf/NaN
+// test, a predicated add and a mask, where this is an add and a mask
+// (every value here is finite). lo = x - hi is exact in f32 and goes to
+// the product as it is: a TF32 operand is read from its upper 19 bits, so
+// the product takes lo rounded toward zero, within 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b, a 16 x 8 (row) by 8 x 8 (col) TF32 product into f32. With
+// g = lane / 4, t = lane % 4 a thread holds A's (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4), B's (k t, n g), (k t + 4, n g) and the
+// accumulator's (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in f32: the corrections lo(a) hi(b) and hi(a) lo(b) first,
+// then hi(a) hi(b).
+__device__ __forceinline__ void mma_f32(float (&d)[4],
+                                        const uint32_t (&a_hi)[4],
+                                        const uint32_t (&a_lo)[4],
+                                        const uint32_t (&b_hi)[2],
+                                        const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
+
+// A fragment, split: rows r0 .. r0 + 15 and columns k0 .. k0 + 7 of a
+// row-major tile of row stride LD.
+template <int LD>
+__device__ __forceinline__ void frag_a(const float* T, int r0, int k0,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x % 32;
+  const float* x = T + (r0 + lane / 4) * LD + k0 + lane % 4;
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[8 * LD], hi[1], lo[1]);
+  split_tf32(x[4], hi[2], lo[2]);
+  split_tf32(x[8 * LD + 4], hi[3], lo[3]);
+}
+
+// B fragment of A T^T, split: the tile's rows n0 .. n0 + 7 are the
+// columns, its columns k0 .. k0 + 7 the reduction.
+template <int LD>
+__device__ __forceinline__ void frag_bt(const float* T, int n0, int k0,
+                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int lane = threadIdx.x % 32;
+  const float* x = T + (n0 + lane / 4) * LD + k0 + lane % 4;
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[4], hi[1], lo[1]);
+}
+
+// B fragment of A T with A from an accumulator (frag_acc), split: the
+// tile's rows k0 .. k0 + 7 are the reduction in the relabelled order (k t
+// is row k0 + 2t, k t + 4 is row k0 + 2t + 1), its columns n0 .. n0 + 7
+// the columns.
+template <int LD>
+__device__ __forceinline__ void frag_b(const float* T, int k0, int n0,
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int lane = threadIdx.x % 32;
+  const float* x = T + (k0 + 2 * (lane % 4)) * LD + n0 + lane / 4;
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[LD], hi[1], lo[1]);
+}
+
+// An accumulator tile as the split A fragment of the k8 slice over its 8
+// columns, in the relabelled order: A's column t is the tile's column 2t,
+// t + 4 is 2t + 1. No value moves between lanes.
+__device__ __forceinline__ void frag_acc(const float (&c)[4],
+                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// s[j] += A[r0 + i] . B[8 j + n] over D (i < 16, n < 8, j < N / 8): the
+// scores of a warp's 16 resident rows against the N rows of a streamed
+// tile, both row-major.
+template <int D, int N>
+__device__ __forceinline__ void scores_tc(const float* A, int r0,
+                                          const float* B, float (&s)[N / 8][4]) {
+  constexpr int kLD = Cfg<D>::kLD;
+#pragma unroll
+  for (int k0 = 0; k0 < D; k0 += 8) {
+    uint32_t a_hi[4], a_lo[4];
+    frag_a<kLD>(A, r0, k0, a_hi, a_lo);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      uint32_t b_hi[2], b_lo[2];
+      frag_bt<kLD>(B, 8 * j, k0, b_hi, b_lo);
+      mma_f32(s[j], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// acc[i] += P M[:, 8 i .. 8 i + 7] (i < D / 8): P a warp's 16 x N
+// accumulator tiles (p[j] holds its columns 8 j .. 8 j + 7), M the N x D
+// streamed tile; one k8 slice per accumulator tile. acc sums over the
+// whole sequence, so the step's products go into a fresh accumulator and
+// join acc by an f32 add: chained into acc on the tensor core, whose
+// accumulation does not round to nearest, the error grows with the
+// sequence (PERF.md).
+template <int D, int N>
+__device__ __forceinline__ void pv_tc(const float (&p)[N / 8][4],
+                                      const float* M, float (&acc)[D / 8][4]) {
+  constexpr int kLD = Cfg<D>::kLD;
+  uint32_t a_hi[N / 8][4], a_lo[N / 8][4];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) frag_acc(p[j], a_hi[j], a_lo[j]);
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    float part[4] = {};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      uint32_t b_hi[2], b_lo[2];
+      frag_b<kLD>(M, 8 * j, 8 * i, b_hi, b_lo);
+      mma_f32(part, a_hi[j], a_lo[j], b_hi, b_lo);
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[i][x] += part[x];
+  }
+}
+
+// Rows row0 .. row0 + R - 1 of one (b, h) slice (`src` at its row 0, rows
+// `row_stride` elements apart) into an R x D tile of row stride D + 4 by
+// 16-byte cp.async, T threads; rows at or past n_rows are zero-filled.
+template <int D, int R, int T>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* src,
+                                                long long row_stride, int row0,
+                                                int n_rows) {
+  constexpr int kChunks = D / 4;
+  constexpr int kTotal = R * kChunks;
+#pragma unroll
+  for (int i = 0; i < (kTotal + T - 1) / T; ++i) {
+    const int c = threadIdx.x + i * T;
+    if (kTotal % T == 0 || c < kTotal) {
+      const int r = c / kChunks, col = (c % kChunks) * 4;
+      const bool valid = row0 + r < n_rows;
+      cp_async16(smem_u32(dst + r * Cfg<D>::kLD + col),
+                 valid ? src + (long long)(row0 + r) * row_stride + col : src,
+                 valid);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: the dQ pass. One block per (b, h) and 16 kW-query tile, with its dO,
+// lse and delta; per kN-key step S = Q K^T and dP = dO V^T, P = exp(S
+// scale - lse) and dS = P (dP - delta) scale in registers, dQ += dS K.
+// ---------------------------------------------------------------------------
+
+template <int D, int kW, int kN>
+__global__ void __launch_bounds__(32 * kW, 1)
     flash_bwd_dq_f32_kernel(const Params p) {
-  using C = Cfg<D>;
+  using C = BwdCfg<D, kW, kN>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* DOs = Qs + C::kTile;
-  float* Ks = DOs + C::kTile;
-  float* Vs = Ks + C::kTile;
-  float* Ps = Vs + C::kTile;
-  float* lse_s = Ps + kT * kLP;
-  float* delta_s = lse_s + kT;
+  float* DOs = Qs + C::kResident;
+  float* ring = DOs + C::kResident;  // stage s: K, then V
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  // The last query tiles see the most keys: they go in the first wave.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kM;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = threadIdx.x / 32 * 16;  // this warp's first row
   const float* q = p.q + b * p.q_sb + h * p.q_sh;
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
   const float* v = p.v + b * p.v_sb + h * p.v_sh;
   const float* dout = p.dout + b * p.do_sb + h * p.do_sh;
-  load_tile<D>(Qs, q, p.q_ss, q0, p.Sq);
-  load_tile<D>(DOs, dout, p.do_ss, q0, p.Sq);
-  {
-    // delta = rowsum(dO * O) in f32, four threads a row.
-    const int r = threadIdx.x / 4, part = threadIdx.x % 4;
-    const int row = q0 + r;
+  auto load_kv = [&](int st, int kt) {
+    float* Ks = ring + 2 * st * C::kStream;
+    load_tile_async<D, kN, C::kThreads>(Ks, k, p.k_ss, kt * kN, p.Sk);
+    load_tile_async<D, kN, C::kThreads>(Ks + C::kStream, v, p.v_ss, kt * kN,
+                                        p.Sk);
+  };
+  load_tile_async<D, C::kM, C::kThreads>(Qs, q, p.q_ss, q0, p.Sq);
+  load_tile_async<D, C::kM, C::kThreads>(DOs, dout, p.do_ss, q0, p.Sq);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // lse and delta = rowsum(dO * O) (f32 FFMA) of this thread's rows
+  // r0 + g and r0 + g + 8, while the tiles land: the four lanes of a quad
+  // sum every fourth float4 of a row and join by two shuffles. Rows past
+  // Sq take 0.
+  float lse[2], delta[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g + 8 * e;
+    const bool valid = row < p.Sq;
     float sum = 0.f;
-    if (row < p.Sq) {
+    if (valid) {
       const float* orow = p.o + b * p.o_sb + row * p.o_ss + h * p.o_sh;
       const float* drow = dout + row * p.do_ss;
-      for (int c = 4 * part; c < D; c += 16) {
+      for (int c = 4 * t; c < D; c += 16) {
         const float4 x = *reinterpret_cast<const float4*>(orow + c);
         const float4 y = *reinterpret_cast<const float4*>(drow + c);
         sum += y.x * x.x + y.y * x.y + y.z * x.z + y.w * x.w;
@@ -368,139 +615,196 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     sum += __shfl_xor_sync(kFull, sum, 1);
     sum += __shfl_xor_sync(kFull, sum, 2);
-    if (part == 0) {
-      delta_s[r] = sum;
-      if (row < p.Sq) p.stat_out[((long long)b * p.Sq + row) * p.H + h] = sum;
-    }
-    if (threadIdx.x < kT) {
-      const int row_l = q0 + threadIdx.x;
-      lse_s[threadIdx.x] =
-          row_l < p.Sq ? p.lse_in[((long long)b * p.Sq + row_l) * p.H + h] : 0.f;
-    }
+    const long long at = ((long long)b * p.Sq + row) * p.H + h;
+    delta[e] = sum;
+    lse[e] = valid ? p.lse_in[at] : 0.f;
+    if (valid && t == 0) p.stat_out[at] = sum;
   }
 
-  const int last_q = p.q_offset + min(q0 + kT - 1, p.Sq - 1);
-  const int n_kt = min(last_q / kT + 1, (p.Sk + kT - 1) / kT);
-  float acc[4][C::kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C::kCols; ++c) acc[i][c] = 0.f;
+  // This warp's first and last query positions.
+  const int q_first = p.q_offset + q0 + r0;
+  const int q_last = p.q_offset + min(q0 + r0 + 15, p.Sq - 1);
+  const int block_last = p.q_offset + min(q0 + C::kM, p.Sq) - 1;
+  const int n_kt = min(block_last / kN + 1, (p.Sk + kN - 1) / kN);
+  float dq[D / 8][4] = {};
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kT;
-    __syncthreads();  // the last step is done with Ks, Vs and Ps
-    load_tile<D>(Ks, k, p.k_ss, k0, p.Sk);
-    load_tile<D>(Vs, v, p.v_ss, k0, p.Sk);
-    __syncthreads();  // keys and values of step kt have landed
-    float s[4][4] = {}, dp[4][4] = {};
-    scores<D>(Qs, Ks, s);
-    scores<D>(DOs, Vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const int q_pos = p.q_offset + q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = k0 + tx + 16 * j;
-        const float pr = (q_pos >= k_pos && k_pos < p.Sk)
-                             ? expf(s[i][j] * p.scale - lse_s[r])
-                             : 0.f;
-        Ps[r * kLP + tx + 16 * j] = pr * (dp[i][j] - delta_s[r]) * p.scale;
-      }
+    const int st = kt & 1;
+    const float* Ks = ring + 2 * st * C::kStream;
+    const float* Vs = Ks + C::kStream;
+    const int k0 = kt * kN;
+    if (kt + 1 < n_kt) {
+      load_kv(st ^ 1, kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();  // dS is in shared memory
-    pv<D>(Ps, Ks, acc);
+    __syncthreads();  // keys and values of step kt have landed in stage st
+    // A warp whose rows lie past Sq, or all before this step's first key,
+    // has nothing to add.
+    if (q0 + r0 < p.Sq && k0 <= q_last) {
+      float s[kN / 8][4] = {}, dp[kN / 8][4] = {};
+      scores_tc<D, kN>(Qs, r0, Ks, s);
+      scores_tc<D, kN>(DOs, r0, Vs, dp);
+      // Mask only a step that crosses the warp's diagonal or the end of
+      // the keys.
+      const bool masked = k0 + kN - 1 > q_first || k0 + kN > p.Sk;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+          const int q_pos = q_first + g + 8 * (e >> 1);
+          float pr = expf(s[j][e] * p.scale - lse[e >> 1]);
+          if (masked && (k_pos > q_pos || k_pos >= p.Sk)) pr = 0.f;
+          s[j][e] = pr * (dp[j][e] - delta[e >> 1]) * p.scale;  // dS
+        }
+      }
+      pv_tc<D, kN>(s, Ks, dq);
+    }
+    __syncthreads();  // stage st is free for tile kt + 2
   }
 
+  const long long o_ss = (long long)p.H * D;
+  float* dqb = p.out0 + (long long)b * p.Sq * o_ss + (long long)h * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row < p.Sq)
-      store_cols<D>(p.out0 + out_row(p, b, p.Sq, row, h, D), tx, acc[i]);
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g + 8 * e;
+    if (row < p.Sq) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<float2*>(dqb + row * o_ss + 8 * i + 2 * t) =
+            make_float2(dq[i][2 * e], dq[i][2 * e + 1]);
+      }
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K3: the dK/dV pass. One block per (b, h) and 64-key tile, with its
-// values; the 64-query tiles from the first that reaches the tile's
-// diagonal, each with its dO, lse and delta. dV += P^T dO, dK += dS^T Q.
+// K3: the dK/dV pass. One block per (b, h) and 16 kW-key tile, with its
+// values; the kN-query tiles from the first that reaches the tile's
+// diagonal, each with its dO, lse and delta. S^T = K Q^T, dP^T = V dO^T,
+// P^T and dS^T in registers, dV += P^T dO, dK += dS^T Q.
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D, int kW, int kN>
+__global__ void __launch_bounds__(32 * kW, 1)
     flash_bwd_dkv_f32_kernel(const Params p) {
-  using C = Cfg<D>;
+  using C = BwdCfg<D, kW, kN>;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + C::kTile;
-  float* Qs = Vs + C::kTile;
-  float* DOs = Qs + C::kTile;
-  float* Pt = DOs + C::kTile;
-  float* St = Pt + kT * kLP;
-  float* lse_s = St + kT * kLP;
-  float* delta_s = lse_s + kT;
+  float* Vs = Ks + C::kResident;
+  float* ring = Vs + C::kResident;       // stage s: Q, then dO
+  float* stats = ring + 4 * C::kStream;  // stage s: lse[kN], then delta[kN]
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   // The first key tiles see the most queries, and run in the first wave.
-  const int k0 = blockIdx.y * kT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int k0 = blockIdx.y * C::kM;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = threadIdx.x / 32 * 16;  // this warp's first row
+  const int k_first = k0 + r0;           // and its first key
   const float* q = p.q + b * p.q_sb + h * p.q_sh;
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
   const float* v = p.v + b * p.v_sb + h * p.v_sh;
   const float* dout = p.dout + b * p.do_sb + h * p.do_sh;
-  load_tile<D>(Ks, k, p.k_ss, k0, p.Sk);
-  load_tile<D>(Vs, v, p.v_ss, k0, p.Sk);
+  const long long stat_b = (long long)b * p.Sq * p.H + h;
+  // Query tile qt's Q, dO, lse and delta into ring stage st.
+  auto load_stage = [&](int st, int qt) {
+    const int q0 = qt * kN;
+    float* Qs = ring + 2 * st * C::kStream;
+    load_tile_async<D, kN, C::kThreads>(Qs, q, p.q_ss, q0, p.Sq);
+    load_tile_async<D, kN, C::kThreads>(Qs + C::kStream, dout, p.do_ss, q0,
+                                        p.Sq);
+    const int i = threadIdx.x;
+    if (i < 2 * kN) {
+      const int r = i % kN;
+      const bool valid = q0 + r < p.Sq;
+      const float* src = i < kN ? p.lse_in : p.delta_in;
+      cp_async4(smem_u32(stats + 2 * st * kN + i),
+                valid ? src + stat_b + (long long)(q0 + r) * p.H : src, valid);
+    }
+  };
 
-  // The first query tile with a row at or past this tile's first key.
-  const int first_q = k0 - p.q_offset;
-  const int qt0 = first_q <= 0 ? 0 : first_q / kT;
-  const int n_qt = (p.Sq + kT - 1) / kT;
-  float acc_k[4][C::kCols], acc_v[4][C::kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C::kCols; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+  // The first query tile with a query at or past this tile's first key.
+  const int qt0 = max(0, k0 - p.q_offset) / kN;
+  const int n_qt = (p.Sq + kN - 1) / kN;
+  if (qt0 < n_qt) {
+    load_tile_async<D, C::kM, C::kThreads>(Ks, k, p.k_ss, k0, p.Sk);
+    load_tile_async<D, C::kM, C::kThreads>(Vs, v, p.v_ss, k0, p.Sk);
+    load_stage(0, qt0);
+    cp_async_commit();
+  }
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
 
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kT;
-    __syncthreads();  // the last step is done with Qs, DOs, Pt and St
-    load_tile<D>(Qs, q, p.q_ss, q0, p.Sq);
-    load_tile<D>(DOs, dout, p.do_ss, q0, p.Sq);
-    if (threadIdx.x < kT) {
-      const int row = q0 + threadIdx.x;
-      const long long at = ((long long)b * p.Sq + row) * p.H + h;
-      lse_s[threadIdx.x] = row < p.Sq ? p.lse_in[at] : 0.f;
-      delta_s[threadIdx.x] = row < p.Sq ? p.delta_in[at] : 0.f;
+    const int st = (qt - qt0) & 1;
+    const float* Qs = ring + 2 * st * C::kStream;
+    const float* DOs = Qs + C::kStream;
+    const float* lse = stats + 2 * st * kN;
+    const float* delta = lse + kN;
+    const int q0 = qt * kN;
+    if (qt + 1 < n_qt) {
+      load_stage(st ^ 1, qt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();  // query tile qt has landed
-    float st[4][4] = {}, dpt[4][4] = {};
-    scores<D>(Ks, Qs, st);
-    scores<D>(Vs, DOs, dpt);
+    __syncthreads();  // query tile qt has landed in stage st
+    // A warp whose keys lie past Sk, or all past this tile's last query,
+    // has nothing to add.
+    if (k_first < p.Sk && p.q_offset + q0 + kN - 1 >= k_first) {
+      // P^T is used by dV before dP^T is formed: with dK and dV in 128
+      // registers a thread (D = 128), P^T and dS^T live at once, and
+      // split, would spill.
+      float s[kN / 8][4] = {};
+      scores_tc<D, kN>(Ks, r0, Qs, s);  // S^T
+      // Mask only a tile that crosses the warp's diagonal or the end of
+      // the queries.
+      const bool masked = k_first + 15 > p.q_offset + q0 || q0 + kN > p.Sq;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const int k_pos = k0 + r;
+      for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool kept = q0 + c < p.Sq && p.q_offset + q0 + c >= k_pos;
-        const float pr = kept ? expf(st[i][j] * p.scale - lse_s[c]) : 0.f;
-        Pt[r * kLP + c] = pr;
-        St[r * kLP + c] = pr * (dpt[i][j] - delta_s[c]) * p.scale;
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);  // the query's tile row
+          const int k_pos = k_first + g + 8 * (e >> 1);
+          float pr = expf(s[j][e] * p.scale - lse[c]);
+          if (masked && (q0 + c >= p.Sq || p.q_offset + q0 + c < k_pos)) {
+            pr = 0.f;
+          }
+          s[j][e] = pr;  // P^T
+        }
       }
+      pv_tc<D, kN>(s, DOs, dv);
+      float dp[kN / 8][4] = {};
+      scores_tc<D, kN>(Vs, r0, DOs, dp);  // dP^T
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          dp[j][e] = s[j][e] * (dp[j][e] - delta[c]) * p.scale;  // dS^T
+        }
+      }
+      pv_tc<D, kN>(dp, Qs, dk);
     }
-    __syncthreads();  // P^T and dS^T are in shared memory
-    pv<D>(Pt, DOs, acc_v);
-    pv<D>(St, Qs, acc_k);
+    __syncthreads();  // stage st is free for tile qt + 2
   }
 
+  const long long o_ss = (long long)p.H * D;
+  const long long base = (long long)b * p.Sk * o_ss + (long long)h * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + 4 * ty + i;
+  for (int e = 0; e < 2; ++e) {
+    const int row = k0 + r0 + g + 8 * e;
     if (row < p.Sk) {
-      const long long at = out_row(p, b, p.Sk, row, h, D);
-      store_cols<D>(p.out0 + at, tx, acc_k[i]);
-      store_cols<D>(p.out1 + at, tx, acc_v[i]);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const long long at = base + row * o_ss + 8 * i + 2 * t;
+        *reinterpret_cast<float2*>(p.out0 + at) =
+            make_float2(dk[i][2 * e], dk[i][2 * e + 1]);
+        *reinterpret_cast<float2*>(p.out1 + at) =
+            make_float2(dv[i][2 * e], dv[i][2 * e + 1]);
+      }
     }
   }
 }
@@ -523,9 +827,13 @@ Params make_params(const long long* dims, float scale) {
   return p;
 }
 
-// A kernel instantiation with its dynamic shared memory.
+// A kernel instantiation with its launch shape: threads, rows of the
+// tiled sequence (queries for K1 and K2, keys for K3) a block owns, and
+// dynamic shared memory.
 struct Kernel {
   const void* fn;
+  int threads;
+  int rows;
   size_t smem;
 };
 
@@ -534,18 +842,20 @@ template <int D>
 Kernel pick(int which) {
   constexpr size_t tile = sizeof(float) * Cfg<D>::kTile;
   constexpr size_t scores_tile = sizeof(float) * kT * kLP;
-  constexpr size_t stats = sizeof(float) * 2 * kT;
+  using Dq = BwdCfg<D, kDqF32W, kDqF32N>;
+  using Dkv = BwdCfg<D, kDkvF32W, kDkvF32N>;
   switch (which) {
     case 0:
-      return {(const void*)flash_fwd_f32_kernel<D>, 3 * tile + scores_tile};
+      return {(const void*)flash_fwd_f32_kernel<D>, kThreads, kT,
+              3 * tile + scores_tile};
     case 1:
-      return {(const void*)flash_bwd_dq_f32_kernel<D>,
-              4 * tile + scores_tile + stats};
+      return {(const void*)flash_bwd_dq_f32_kernel<D, kDqF32W, kDqF32N>,
+              Dq::kThreads, Dq::kM, Dq::kSmemDq};
     case 2:
-      return {(const void*)flash_bwd_dkv_f32_kernel<D>,
-              4 * tile + 2 * scores_tile + stats};
+      return {(const void*)flash_bwd_dkv_f32_kernel<D, kDkvF32W, kDkvF32N>,
+              Dkv::kThreads, Dkv::kM, Dkv::kSmemDkv};
   }
-  return {nullptr, 0};
+  return {nullptr, 0, 0, 0};
 }
 
 // The codes rf_error_string (flash_attention.cu) names.
@@ -570,10 +880,10 @@ int launch(int which, const Params& p, long long head_dim, void* stream) {
   err = (int)cudaFuncSetAttribute(
       k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.smem);
   if (err) return err;
-  const int n_tiles = ((which == 2 ? p.Sk : p.Sq) + kT - 1) / kT;
+  const int n_tiles = ((which == 2 ? p.Sk : p.Sq) + k.rows - 1) / k.rows;
   const dim3 grid(p.B * p.H, n_tiles);
   void* args[] = {(void*)&p};
-  err = (int)cudaLaunchKernel(k.fn, grid, dim3(kThreads), args, k.smem,
+  err = (int)cudaLaunchKernel(k.fn, grid, dim3(k.threads), args, k.smem,
                               (cudaStream_t)stream);
   if (err) return err;
   return (int)cudaGetLastError();
@@ -642,11 +952,11 @@ int rf_kernel_resources_f32(int which, int head_dim, int* out) {
   if (err) return err;
   int blocks = 0;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, k.fn, kThreads, k.smem);
+      &blocks, k.fn, k.threads, k.smem);
   if (err) return err;
   out[0] = attr.numRegs;
   out[1] = (int)k.smem;
-  out[2] = kThreads;
+  out[2] = k.threads;
   out[3] = blocks;
   return 0;
 }

@@ -18,7 +18,9 @@ their plain PyTorch versions (port of ``rayfed_tpu/ops/flash_attention.py``).
 The three Pallas TPU kernels take bf16 or f32 inputs; each has two
 hand-written CUDA C++ counterparts for ``sm_90a``, one per dtype: the bf16
 ones on ``wgmma`` (``csrc/flash_attention.cu``), the f32 ones in exact f32
-on the CUDA cores (``csrc/flash_attention_f32.cu``):
+(``csrc/flash_attention_f32.cu``): the forward on the CUDA cores, the two
+backward passes on the tensor cores, each f32 product as three TF32
+``mma.sync`` products:
 
 - ``_flash_fwd_cuda`` launches ``flash_fwd_kernel`` or
   ``flash_fwd_f32_kernel``, which replace ``_flash_kernel`` (the forward);
@@ -38,7 +40,8 @@ does not take. There is no fallback between the two. ``LAUNCHES`` counts
 kernel launches, so a run can show that it went through the kernels.
 
 The kernels choose their own tiles (bf16: K1 128 queries x 128 keys, K2
-128 queries x 64 keys, K3 128 keys x 64 queries; f32: 64 x 64 throughout)
+128 queries x 64 keys, K3 128 keys x 64 queries; f32: K1 64 x 64, K2
+128 queries x 32 keys, K3 128 keys x 32 queries)
 and mask ragged edges, whatever ``block_q``/``block_k`` say; the block
 sizes drive the plain versions. Both dQ kernels also compute ``delta =
 rowsum(dO * O)``, which the reference left to XLA between its two backward

@@ -34,16 +34,24 @@ def _source(name):
         return f.read()
 
 
+def _kinds(name):
+    return [f[3] for f in fc.FAULTS[name]]
+
+
 def test_every_kernel_source_has_its_faults():
-    # One planted fault per kernel: K1-K3 in bf16 and in f32.
+    # One skipped tile per kernel: K1-K3 in bf16 and in f32; one split
+    # fault, in the f32 source, whose K2 and K3 split their products.
     assert sorted(fc.FAULTS) == ["flash_attention.cu",
                                  "flash_attention_f32.cu"]
-    assert all(len(faults) == 3 for faults in fc.FAULTS.values())
+    assert _kinds("flash_attention.cu") == ["skip"] * 3
+    assert _kinds("flash_attention_f32.cu") == ["skip"] * 3 + ["split"]
+    assert all(f[3] in fc.FAULT_KINDS
+               for faults in fc.FAULTS.values() for f in faults)
 
 
 @pytest.mark.parametrize("name,i", FAULTS)
 def test_fault_anchor_found_its_stated_number_of_times(name, i):
-    anchor, _, count = fc.FAULTS[name][i]
+    anchor, _, count, _ = fc.FAULTS[name][i]
     assert count >= 1
     assert _source(name).count(anchor) == count
 
@@ -52,16 +60,37 @@ def test_fault_anchor_found_its_stated_number_of_times(name, i):
 def test_planted_source_inserts_every_fault_after_its_anchor(name):
     text = _source(name)
     planted = fc.planted_source(name, text)
-    for anchor, line, count in fc.FAULTS[name]:
+    skips = [f for f in fc.FAULTS[name] if f[3] == "skip"]
+    for anchor, line, count, _ in skips:
         assert planted.count(anchor + line) == count
     assert len(planted) == len(text) + sum(
-        len(line) * count for _, line, count in fc.FAULTS[name])
+        len(line) * count for _, line, count, _ in skips)
     # The faults name the tiles the module documents.
-    joined = "".join(line for _, line, _ in fc.FAULTS[name])
+    joined = "".join(line for _, line, _, _ in skips)
     assert f"kt == {fc.SKIP_KT}" in joined
     assert f"/ 64 == {fc.SKIP_QT}" in joined
     # A source without faults of its own passes through unchanged.
     assert fc.planted_source("other.cu", text) == text
+
+
+def test_split_fault_makes_one_tf32_product_of_each_f32_product():
+    name = "flash_attention_f32.cu"
+    text = _source(name)
+    planted = fc.planted_source(name, text, "split")
+    (anchor, line, count, _), = [f for f in fc.FAULTS[name]
+                                 if f[3] == "split"]
+    # lo is zeroed right after the split computes it, and nothing else
+    # changes: no tile is skipped.
+    assert planted == text.replace(anchor, anchor + line)
+    assert "lo = 0u;" in line and "hi =" in text.split(anchor)[0][-200:]
+    assert fc.planted_source("flash_attention.cu",
+                             _source("flash_attention.cu"), "split") \
+        == _source("flash_attention.cu")
+    # Its readings are the exact-f32 ones of the kernels that split.
+    assert fc.SPLIT_CAUGHT_BY == ("K2 f32 dq exact", "K3 f32 dk exact",
+                                  "K3 f32 dv exact")
+    with pytest.raises(ValueError, match="no fault kind"):
+        fc.planted_source(name, text, "drop")
 
 
 @pytest.mark.parametrize("name", sorted(fc.FAULTS))

@@ -243,6 +243,27 @@ def test_sdpa_backend_reads_the_kernel_names():
     assert chip_smoke.sdpa_backend(["void at::native::softmax_warp"]) == "math"
 
 
+def test_parse_sass_counts_reads_each_kernels_instructions():
+    # The layout of ``cuobjdump -sass``: a "Function :" header per kernel
+    # instantiation, then one instruction a line.
+    sass = "\n".join([
+        "\t\tFunction : _ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi128ELi8E"
+        "Li32EEEvNS_6ParamsE",
+        "        /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        "        /*0110*/  HMMA.1688.F32.TF32 R4, R16, R12, R4 ;",
+        "        /*0120*/  FFMA R2, R3, R5, R2 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELi2ELi128E"
+        "EEvNS_6ParamsE",
+        "        /*0200*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "\t\tFunction : _Z9unrelatedv",
+        "        /*0300*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+    ])
+    assert chip_smoke.parse_sass_counts(sass) == {
+        "flash_bwd_dq_f32_kernel<128>": {"HMMA": 2, "HGMMA": 0, "FFMA": 1},
+        "flash_fwd_kernel<64>": {"HMMA": 0, "HGMMA": 1, "FFMA": 0},
+    }
+
+
 def test_kernel_split_groups_and_unions_device_time():
     kernels = [
         {"name": "flash_fwd_kernel<128>", "ts": 0.0, "dur": 100.0},

@@ -22,18 +22,18 @@ import pytest
 
 import chip_tile_sweep as sweep
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "rayfed_tpu_torch", "csrc", "flash_attention.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "rayfed_tpu_torch", "csrc")
 
 
-def _source():
-    with open(SOURCE) as f:
+def _source(name="flash_attention.cu"):
+    with open(os.path.join(CSRC, name)) as f:
         return f.read()
 
 
 @pytest.mark.parametrize("name", sweep.TILE_CONSTANTS)
 def test_tile_constant_is_rewritten_once(name):
-    text = _source()
+    text = _source(sweep.source_of(name))
     out = sweep.tiled_source(text, {name: 4096})
     assert f"constexpr int {name} = 4096;" in out
     assert f"constexpr int {name} = 4096;" not in text
@@ -48,6 +48,14 @@ def test_parse_setting():
         sweep.parse_setting("kTile=32")
     with pytest.raises(ValueError, match="not a tile setting"):
         sweep.parse_setting("kFwdN=big")
+
+
+def test_f32_constants_live_in_the_f32_source_only():
+    for name in sweep.F32_TILE_CONSTANTS:
+        assert sweep.source_of(name) == "flash_attention_f32.cu"
+        assert f"constexpr int {name} = " not in _source()
+    assert sweep.parse_setting("kDqF32W=4,kDqF32N=64") == {"kDqF32W": 4,
+                                                          "kDqF32N": 64}
 
 
 def test_tiled_source_refuses_a_constant_it_cannot_find():
