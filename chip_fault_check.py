@@ -30,10 +30,11 @@ dtypes, the f32 ones with the exact-f32 reading:
   keys). Every output (O, dq, dk, dv) of every kernel must be past its
   limit.
 - "split", one fault in the f32 split helper: ``lo`` is zeroed, so each
-  product of the f32 K2 and K3 is one TF32 product. Their exact-f32
-  readings (dq, dk, dv against a tenth of the TF32 plain version's
-  error) must be past their limits; the script also prints whether the
-  3e-4 limit alone would have caught it.
+  product of the f32 K1, K2 and K3 is one TF32 product. Their exact-f32
+  readings (O, lse, dq, dk, dv against a tenth of the TF32 plain
+  version's error) must be past their limits; the script also prints
+  whether the plain limits alone (2e-5 on O, 1e-4 on lse, 3e-4 on the
+  gradients) would have caught it.
 
 It exits 0 when every sound reading is within its limit and every
 faulted reading named above is past it. The last line is the readings as
@@ -54,14 +55,13 @@ COPY = os.path.join(REPO, "build", "fault_check")
 SKIP_KT = 16  # keys 1024..1087 at a 64-row tile
 SKIP_QT = 24  # queries 1536..1599 at a 64-row tile
 # {kernel source: [(anchor in it, line inserted after it, occurrences,
-# kind)]}. The kernels with a copy ring (bf16 K1-K3, f32 K2 and K3): the
-# skip goes after the barrier at which a tile has landed and keeps the
-# barrier that frees its stage, so the ring runs on. K1 and K2 skip the
-# key steps within SKIP_KT (bf16 K1 steps 128 keys, so keys 1024..1151;
-# bf16 K2 steps 64, exactly SKIP_KT; f32 K2 steps kN = 32, two steps); K3
-# the query steps within SKIP_QT. The f32 K1 steps 64 rows, and each step
-# begins at a barrier, so its skip is a ``continue`` once the tile has
-# landed. The split fault zeroes the low TF32 part of every split value.
+# kind)]}. Every kernel has a copy ring: the skip goes after the barrier
+# at which a tile has landed and keeps the barrier that frees its stage,
+# so the ring runs on. K1 and K2 skip the key steps within SKIP_KT (bf16
+# K1 steps 128 keys, so keys 1024..1151; bf16 K2 steps 64, exactly
+# SKIP_KT; f32 K1 and K2 step kN = 32, two steps); K3 the query steps
+# within SKIP_QT. The split fault zeroes the low TF32 part of every split
+# value, K1's Q too (split once, as it lands).
 FAULTS = {
     "flash_attention.cu": [
         # K1: the key-tile loop, once tile kt is in shared memory.
@@ -78,9 +78,10 @@ FAULTS = {
          1, "skip"),
     ],
     "flash_attention_f32.cu": [
-        # K1 f32: the key-tile loop.
-        ("    __syncthreads();  // key tile kt has landed\n",
-         f"    if (kt == {SKIP_KT}) continue;\n", 1, "skip"),
+        # K1 f32: the key-step loop, once step kt is in its ring stage.
+        ("    __syncthreads();  // key step kt has landed in stage st\n",
+         f"    if (k0 / 64 == {SKIP_KT}) {{ __syncthreads(); continue; }}\n",
+         1, "skip"),
         # K2 f32: the key-step loop, once step kt is in its ring stage.
         ("    __syncthreads();  // keys and values of step kt have landed in stage st\n",
          f"    if (k0 / 64 == {SKIP_KT}) {{ __syncthreads(); continue; }}\n",
@@ -89,14 +90,15 @@ FAULTS = {
         ("    __syncthreads();  // query tile qt has landed in stage st\n",
          f"    if (q0 / 64 == {SKIP_QT}) {{ __syncthreads(); continue; }}\n",
          1, "skip"),
-        # The split of K2 and K3 f32: one TF32 product per f32 product.
+        # The split of K1-K3 f32: one TF32 product per f32 product.
         ("  lo = __float_as_uint(x - __uint_as_float(hi));\n", "  lo = 0u;\n",
          1, "split"),
     ],
 }
 FAULT_KINDS = ("skip", "split")
 # The readings the split fault must push past their limits.
-SPLIT_CAUGHT_BY = ("K2 f32 dq exact", "K3 f32 dk exact", "K3 f32 dv exact")
+SPLIT_CAUGHT_BY = ("K1 f32 O exact", "K1 f32 lse exact", "K2 f32 dq exact",
+                   "K3 f32 dk exact", "K3 f32 dv exact")
 
 READ = """
 import json, chip_smoke as cs

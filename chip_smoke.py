@@ -28,8 +28,8 @@ Phases:
 3. kernels: each flash kernel against its plain PyTorch version on the
    card, the bf16 ones and the f32 ones, at the flagship attention shape
    and at small shapes (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every
-   head dim); at the flagship shape each f32 output (O, dq, dk, dv) is
-   also held to a tenth of the error of one TF32 product (the plain
+   head dim); at the flagship shape each f32 output (O, lse, dq, dk, dv)
+   is also held to a tenth of the error of one TF32 product (the plain
    version run again with ``allow_tf32``), which an f32 kernel computing
    in TF32 fails; times of kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick only; its backend named)
@@ -44,8 +44,9 @@ Phases:
    are counted apart).
 4b. f32: the same model in f32 (``compute_dtype=torch.float32``,
    ``attn="auto"``) at the same width and depth: a few AdamW steps, which
-   must launch every f32 kernel; then, at batch 1, one step's loss and
-   gradients against the dense attention's (``attn="xla"``).
+   must launch every f32 kernel, and one more profiled (device ms by
+   kind, idle share); then, at batch 1, one step's loss and gradients
+   against the dense attention's (``attn="xla"``).
 5. fed: the same FedAvg round through the port's own engine, at the same
    width and depth: ``alice`` and ``bob`` are spawned processes that
    ``fed.init`` over localhost TCP; a party-pinned ``LocalTrainer`` actor
@@ -135,8 +136,8 @@ F32_GRAD_TOL = 3e-4
 F32_KERNEL_STAT_TOL = 1e-4
 # Exact f32: at the main path's shape each f32 output's error is held to
 # this fraction of the error of one TF32 product per f32 product (the
-# plain version with ``allow_tf32``, on the same inputs). The f32 K2 and
-# K3 multiply on the tensor cores as three TF32 products each; a kernel
+# plain version with ``allow_tf32``, on the same inputs). The f32 K1-K3
+# multiply on the tensor cores as three TF32 products each; a kernel
 # that issued one fails this limit whatever the size of its error against
 # the limits above (at the main path's shape it also fails 3e-4, on small
 # inputs it can pass it).
@@ -452,7 +453,7 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
         require(dtype == "float32", "the exact-f32 reading is for f32")
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
-            o_tf = fa._flash_fwd_plain(q, k, v, bq, bk, q_offset)[0]
+            o_tf, lse_tf = fa._flash_fwd_plain(q, k, v, bq, bk, q_offset)
             dq_tf = fa._flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do, bq,
                                            bk, q_offset)[0]
             dk_tf, dv_tf = fa._flash_bwd_dkv_plain(q, k, v, do, lse_ref,
@@ -462,6 +463,7 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
         for name, got, tf, want in (("K1 f32 O", o, o_tf, o_ref),
+                                    ("K1 f32 lse", lse, lse_tf, lse_ref),
                                     ("K2 f32 dq", dq, dq_tf, dq_ref),
                                     ("K3 f32 dk", dk, dk_tf, dk_ref),
                                     ("K3 f32 dv", dv, dv_tf, dv_ref)):
@@ -548,7 +550,8 @@ def phase_kernels(device, batch, seq, heads, head_dim, smi):
         for shape in [(2, 96, 160, 3, 32, 64), (1, 192, 320, 4, 64, 128),
                       (2, 128, 128, 2, 16, 0), (1, 200, 200, 2, 128, 0),
                       (1, 256, 512, 4, 128, 256), (1, 136, 328, 3, 128, 150),
-                      (2, 64, 64, 2, 128, 0), (1, 72, 200, 3, 128, 128)]:
+                      (2, 64, 64, 2, 128, 0), (1, 72, 200, 3, 128, 128),
+                      (1, 100, 90, 2, 64, 20)]:
             check_kernels(device, *shape, seed=1, dtype=dtype)
         results.update(time_kernels(device, batch, seq, heads, head_dim,
                                     dtype, smi))
@@ -811,16 +814,21 @@ def phase_slice(device, cfg, *, batch, seq, rounds=3, local_steps=2,
           f"{summary['max_memory_allocated']}, wall {wall:.1f}s")
     print(f"[slice] {label} launches: train steps {launches}, "
           f"evaluations {eval_launches}")
+    print_breakdown("[slice]", label, breakdown)
+    return summary
+
+
+def print_breakdown(tag, label, breakdown):
+    """Print :func:`device_breakdown`'s split of one profiled step."""
     if breakdown is None:
-        print(f"[slice] {label} device breakdown: not measured (no device "
+        print(f"{tag} {label} device breakdown: not measured (no device "
               "kernels in the profile)")
     else:
-        print(f"[slice] {label} one profiled step, device ms: "
+        print(f"{tag} {label} one profiled step, device ms: "
               + ", ".join(f"{k} {v:.2f}" for k, v in breakdown.items()
                           if k not in ("idle_share", "n_kernels"))
               + f"; idle share {breakdown['idle_share']:.3f}, "
               f"{breakdown['n_kernels']} kernels")
-    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -837,8 +845,9 @@ def phase_f32(device, cfg, *, batch, seq, steps=F32_STEPS, lr=1e-3,
     kernels on a card: ``steps`` + 1 AdamW steps at ``batch``, then one
     batch-1 step's loss and gradients (the train step's loss function,
     ``lm_loss_pair``) with the flash kernels against the same with the
-    dense attention (``attn="xla"``). Returns a summary with the kernel
-    launches of the steps."""
+    dense attention (``attn="xla"``). One more step at ``batch``, after
+    the launches are taken, is profiled by :func:`device_breakdown`.
+    Returns a summary with the kernel launches of the steps."""
     import dataclasses
     import gc
 
@@ -872,6 +881,9 @@ def phase_f32(device, cfg, *, batch, seq, steps=F32_STEPS, lr=1e-3,
     require(len(losses) == steps + 1 and
             all(x == x and abs(x) < 1e30 for x in losses),
             f"f32 steps: losses {losses}")
+    # One more step, profiled: how the step's device time divides.
+    breakdown = device_breakdown(
+        lambda: step_fn(params, opt, blk[:, :-1], blk[:, 1:]))
     del params, opt
     gc.collect()
     if on_cuda:
@@ -898,11 +910,12 @@ def phase_f32(device, cfg, *, batch, seq, steps=F32_STEPS, lr=1e-3,
         step_ms=statistics.median(timed),
         tokens_per_s=len(timed) * batch * seq / sum(timed) * 1e3,
         losses=losses, launches=launches, max_memory_allocated=peak,
-        loss_rel=loss_rel, grad_rel=grad_rel)
+        loss_rel=loss_rel, grad_rel=grad_rel, breakdown=breakdown)
     print(f"[f32] {label} {len(timed)} steps after the first: step median "
           f"{summary['step_ms']:.1f} ms, {summary['tokens_per_s']:.1f} "
           f"tokens/s, max_memory_allocated {peak}; losses {losses}")
     print(f"[f32] {label} launches {launches}")
+    print_breakdown("[f32]", label, breakdown)
     print(f"[f32] {label} batch 1, flash vs attn='xla': loss "
           f"{got['flash'][0]:.6f} vs {got['xla'][0]:.6f} (rel {loss_rel:.3g} "
           f"<= {F32_LOSS_RTOL}), largest gradient leaf rel err "

@@ -18,11 +18,12 @@ other, on one card:
 
     python3 chip_tile_sweep.py base kFwdN=64 kDqWG=1 kDkvWG=1,kDkvM=32 base
     python3 chip_tile_sweep.py base kDqF32W=4,kDqF32N=64 base
+    python3 chip_tile_sweep.py base kFwdF32N=64 kFwdF32W=4,kFwdF32N=64 base
 
 Each argument sets tile constants (``TILE_CONSTANTS``; comma-separated
 ``name=value``) of ``rayfed_tpu_torch/csrc/flash_attention.cu`` (bf16)
-or, for the f32 K2 and K3 (``F32_TILE_CONSTANTS``: warps a block and
-rows a ring stage), ``flash_attention_f32.cu``; or is ``base``, the
+or, for the f32 K1-K3 (``F32_TILE_CONSTANTS``: warps a block and rows a
+ring stage), ``flash_attention_f32.cu``; or is ``base``, the
 sources as committed. Per argument, in that order, it copies the port
 into ``build/tile_sweep/<i>/``, sets the constants, and in a fresh
 process builds the copy, prints each kernel's resources at the flagship
@@ -44,7 +45,8 @@ import sys
 import chip_fault_check as fc
 
 ROOT = os.path.join(fc.REPO, "build", "tile_sweep")
-F32_TILE_CONSTANTS = ("kDqF32W", "kDqF32N", "kDkvF32W", "kDkvF32N")
+F32_TILE_CONSTANTS = ("kFwdF32W", "kFwdF32N", "kDqF32W", "kDqF32N",
+                      "kDkvF32W", "kDkvF32N")
 TILE_CONSTANTS = ("kFwdWG", "kFwdN", "kDqWG", "kDqN", "kDkvWG",
                   "kDkvM") + F32_TILE_CONSTANTS
 

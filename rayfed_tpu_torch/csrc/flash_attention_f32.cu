@@ -41,18 +41,7 @@
 // reaches device memory, and there are no atomics: dQ and dK/dV are two
 // passes, so the gradients are deterministic as in the reference.
 //
-// K1 takes the first route, in the simple first design: a block of 256
-// threads owns 64 query rows of one (batch, head), keeps them in shared
-// memory, and streams the keys in 64-row tiles through shared memory,
-// stopping at the causal diagonal. Thread (ty, tx) of the 16 x 16 holds
-// the scores of rows 4 ty .. 4 ty + 3 against columns tx + 16 j (j < 4),
-// reads both operands as float4 along D from tiles padded to a row stride
-// of D + 4 floats (conflict-free), and keeps the softmax of its rows in
-// registers, reduced over the 16 lanes that share them. P goes through
-// one 64 x 68 shared tile into the second product, where the same thread
-// owns the same rows and D / 16 columns of the output.
-//
-// K2 and K3 take the second route. FFMA caps a kernel at 67 TFLOP/s,
+// All three take the second route. FFMA caps a kernel at 67 TFLOP/s,
 // and an FFMA loop fed from shared memory gets 2-3 FMAs per word it
 // reads, far less. Here each operand value x is split as hi = x rounded
 // to TF32 (to nearest) and lo = x - hi (exact in f32, read by the tensor
@@ -60,45 +49,56 @@
 // hi(a) hi(b), the two corrections issued into the f32 accumulator before
 // the large one (as CUTLASS's OpMultiplyAddFastF32 does); the dropped
 // lo(a) lo(b) term is below 2^-22 of the product, so the sums keep f32's
-// digits where one TF32 product keeps three. Every product is split: S
-// and dP, then dQ += dS K (K2); S^T and dP^T, then dV += P^T dO and
-// dK += dS^T Q (K3), the register operands P and dS too. The tensor
-// core's f32 accumulation does not round to nearest, so each step's
-// products go into a fresh accumulator and join dQ, dK and dV by an f32
-// add. delta stays an FFMA row sum in K2's prologue.
+// digits where one TF32 product keeps three. Every product is split: S,
+// then acc += P V (K1); S and dP, then dQ += dS K (K2); S^T and dP^T,
+// then dV += P^T dO and dK += dS^T Q (K3), the register operands P and dS
+// too. The tensor core's f32 accumulation does not round to nearest, so
+// each step's products go into a fresh accumulator and join O's
+// accumulator, dQ, dK and dV by an f32 add (in K1, acc = acc alpha +
+// part, the reference's own expression). delta stays an FFMA row sum in
+// K2's prologue.
 //
 // The products are mma.sync m16n8k8 (tf32 in, f32 accumulate), not wgmma.
 // tf32 wgmma reads a shared-memory operand only K-major (its transpose
 // flags exist for 16-bit types only), and each operand would have to be
-// stored twice, as a hi tile and a lo tile: K3 would hold K and V as hi/lo
-// plus Q and dO as hi/lo in both layouts (row-major for S^T = K Q^T and
-// dP^T = V dO^T, transposed for P^T dO and dS^T Q), 393,216 B at 64 x 128
-// tiles, and K2 K in both layouts, 327,680 B, where a block has 232,448 B.
-// mma.sync takes its fragments from registers: each thread reads its
-// fragment elements from one raw f32 tile in shared memory, in whichever
-// order the product needs (a transpose is addressing), and splits them in
-// registers. Shared memory holds raw tiles only.
+// stored twice, as a hi tile and a lo tile. K1's S = Q K^T would fit (K's
+// tile is K-major for it), but its P V does not: V's tile has D
+// contiguous, which makes it MN-major for that product, and a transposed
+// V copy as hi and lo tiles does not fit beside the ring. K3 would hold K
+// and V as hi/lo plus Q and dO as hi/lo in both layouts (row-major for
+// S^T = K Q^T and dP^T = V dO^T, transposed for P^T dO and dS^T Q),
+// 393,216 B at 64 x 128 tiles, and K2 K in both layouts, 327,680 B, where
+// a block has 232,448 B. mma.sync takes its fragments from registers:
+// each thread reads its fragment elements from an f32 tile in shared
+// memory, in whichever order the product needs (a transpose is
+// addressing), and splits them in registers.
 //
 // A block of kW warps owns 16 kW resident rows, 16 a warp (the m16 of its
-// products): queries with their dO, lse and delta in K2, keys with their
-// values in K3. The other side streams through a two-stage cp.async ring
-// of kN-row tiles (K2: K and V; K3: Q, dO, lse and delta), 16-byte copies
-// that zero-fill ragged rows, so the copy of step i+1 runs under the
-// products of step i, with one barrier when a stage lands and one when it
-// is free. S and dP come out of the mma in registers; P and dS are formed
-// there and go straight back as the A operand of the second product. The
-// m16n8 accumulator gives a thread columns 2t and 2t+1 of each n8 tile
-// (t = lane % 4, g = lane / 4), where the tf32 A fragment wants columns t
-// and t+4 of a k8 slice: instead of shuffling, the k order is relabelled
-// (A's column t is key 2t, t+4 is key 2t+1) and the B fragment reads its
-// rows in that same order, since a sum over k does not care. No score, P
-// or dS tile goes through shared memory. Every tile has a row stride of
-// D + 4 floats: the row-wise fragment reads hit banks 4 g + t and, in the
-// relabelled order, the column-wise ones (rows 2t, 2t+1, column g) banks
-// 8 t + g, so both orders are free of bank conflicts with no swizzle. K2
-// runs the last query tiles first, K3 the first key tiles first (they see
-// the most keys or queries), and a warp skips a step that lies wholly on
-// the masked side of its diagonal.
+// products): queries in K1; queries with their dO, lse and delta in K2;
+// keys with their values in K3. Every tile is raw f32, split at every
+// read (K1's Q split once, as it lands, into {hi, lo} pairs, was slower:
+// PERF.md). The other side streams through a two-stage cp.async ring of
+// kN-row tiles (K1 and K2: K and V; K3: Q, dO, lse and delta), 16-byte
+// copies that zero-fill ragged rows, so the copy of step i+1 runs under
+// the products of step i, with one barrier when a stage lands and one
+// when it is free. S and dP come out
+// of the mma in registers; the online softmax (K1: the running max and
+// sum of a row over the 4 lanes of a quad, two shuffles each), P and dS
+// are formed there and go straight back as the A operand of the second
+// product. The m16n8 accumulator gives a thread columns 2t and 2t+1 of
+// each n8 tile (t = lane % 4, g = lane / 4), where the tf32 A fragment
+// wants columns t and t+4 of a k8 slice: instead of shuffling, the k
+// order is relabelled (A's column t is key 2t, t+4 is key 2t+1) and the B
+// fragment reads its rows in that same order, since a sum over k does not
+// care. No score, P or dS tile goes through shared memory. Every tile has
+// a row stride of D + 4 floats: the row-wise fragment reads hit banks
+// 4 g + t and, in the relabelled order, the column-wise ones (rows 2t,
+// 2t+1, column g) banks 8 t + g, so both orders are free of bank
+// conflicts with no swizzle. K1 and K2 run the last query tiles first, K3
+// the first key tiles first (they see the most keys or queries), and a
+// warp skips a step that lies wholly on the masked side of its diagonal;
+// K1 and K2 mask only a step that crosses the warp's diagonal or the end
+// of the keys.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,18 +108,11 @@
 namespace {
 
 constexpr float kNegBig = -1e30f;
-// K1's geometry.
-constexpr int kT = 64;         // rows of every tile, the block's and streamed
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kLP = kT + 4;    // row stride (floats) of a 64 x 64 score tile
 constexpr unsigned kFull = 0xffffffffu;
 
 template <int D>
 struct Cfg {
-  static constexpr int kLD = D + 4;        // row stride of a D-wide tile
-  static constexpr int kTile = kT * kLD;   // floats of one 64 x D tile
-  static constexpr int kVec = D >= 64 ? 4 : D / 16;  // output columns per load
-  static constexpr int kCols = D / 16;     // output columns per thread
+  static constexpr int kLD = D + 4;  // row stride of a D-wide tile
 };
 
 struct Params {
@@ -142,263 +135,33 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float comp(const float4& x, int u) {
-  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
-}
-
-// Rows row0 .. row0 + 63 of one (b, h) slice (`src` at its row 0, rows
-// `row_stride` elements apart) into a 64 x D tile; rows at or past
-// `n_rows` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long row_stride, int row0,
-                                          int n_rows) {
-  constexpr int kV = D / 4;
-  for (int i = threadIdx.x; i < kT * kV; i += kThreads) {
-    const int r = i / kV, c = (i % kV) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) {
-      x = *reinterpret_cast<const float4*>(
-          src + (long long)(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<float4*>(dst + r * Cfg<D>::kLD + c) = x;
-  }
-}
-
-// s[i][j] += A[4 ty + i] . B[tx + 16 j] over D (both 64 x D tiles).
-template <int D>
-__device__ __forceinline__ void scores(const float* A, const float* B,
-                                       float (&s)[4][4]) {
-  constexpr int kLD = Cfg<D>::kLD;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (4 * ty + i) * kLD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * kLD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j];
-        x = fmaf(a[i].x, b[j].x, x);
-        x = fmaf(a[i].y, b[j].y, x);
-        x = fmaf(a[i].z, b[j].z, x);
-        x = fmaf(a[i].w, b[j].w, x);
-        s[i][j] = x;
-      }
-    }
-  }
-}
-
-// Column c (< D / 16) of this thread's share of a D-wide row: whole
-// vectors of kVec columns, 16 kVec columns apart.
-template <int D>
-__device__ __forceinline__ int out_col(int c, int tx) {
-  constexpr int kVec = Cfg<D>::kVec;
-  return (c / kVec) * 16 * kVec + tx * kVec + c % kVec;
-}
-
-// This thread's D / 16 columns of row `row` (a pointer to its element 0).
-template <int D>
-__device__ __forceinline__ void load_cols(const float* row, int tx,
-                                          float (&m)[Cfg<D>::kCols]) {
-  constexpr int kVec = Cfg<D>::kVec;
-#pragma unroll
-  for (int g = 0; g < Cfg<D>::kCols / kVec; ++g) {
-    const float* at = row + g * 16 * kVec + tx * kVec;
-    if constexpr (kVec == 4) {
-      const float4 x = *reinterpret_cast<const float4*>(at);
-      m[4 * g] = x.x; m[4 * g + 1] = x.y; m[4 * g + 2] = x.z; m[4 * g + 3] = x.w;
-    } else if constexpr (kVec == 2) {
-      const float2 x = *reinterpret_cast<const float2*>(at);
-      m[2 * g] = x.x; m[2 * g + 1] = x.y;
-    } else {
-      m[g] = *at;
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_cols(float* row, int tx,
-                                           const float (&m)[Cfg<D>::kCols]) {
-  constexpr int kVec = Cfg<D>::kVec;
-#pragma unroll
-  for (int g = 0; g < Cfg<D>::kCols / kVec; ++g) {
-    float* at = row + g * 16 * kVec + tx * kVec;
-    if constexpr (kVec == 4) {
-      *reinterpret_cast<float4*>(at) =
-          make_float4(m[4 * g], m[4 * g + 1], m[4 * g + 2], m[4 * g + 3]);
-    } else if constexpr (kVec == 2) {
-      *reinterpret_cast<float2*>(at) = make_float2(m[2 * g], m[2 * g + 1]);
-    } else {
-      *at = m[g];
-    }
-  }
-}
-
-// acc[i][c] += sum over kk < 64 of P[4 ty + i][kk] * M[kk][out_col(c)]
-// (P a 64 x 64 score tile, M a 64 x D tile).
-template <int D>
-__device__ __forceinline__ void pv(const float* P, const float* M,
-                                   float (&acc)[4][Cfg<D>::kCols]) {
-  constexpr int kLD = Cfg<D>::kLD, kCols = Cfg<D>::kCols;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 2
-  for (int kk = 0; kk < kT; kk += 4) {
-    float4 pr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pr[i] = *reinterpret_cast<const float4*>(P + (4 * ty + i) * kLP + kk);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float m[kCols];
-      load_cols<D>(M + (kk + u) * kLD, tx, m);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x = comp(pr[i], u);
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(x, m[c], acc[i][c]);
-      }
-    }
-  }
-}
-
-// Max and sum over the 16 lanes that hold one row's scores.
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-
-// Index of element 0 of (b, row, h) in a contiguous (B, S, H, D) output.
-__device__ __forceinline__ long long out_row(const Params& p, int b, int S,
-                                             int row, int h, int D) {
-  return (((long long)b * S + row) * p.H + h) * D;
-}
-
 // ---------------------------------------------------------------------------
-// K1: the forward. One block per (b, h) and 64-query tile; online softmax
-// over the 64-key tiles up to the tile's last query position.
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_f32_kernel(const Params p) {
-  using C = Cfg<D>;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + C::kTile;
-  float* Vs = Ks + C::kTile;
-  float* Ps = Vs + C::kTile;
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  // The last query tiles see the most keys: they go in the first wave.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* q = p.q + b * p.q_sb + h * p.q_sh;
-  const float* k = p.k + b * p.k_sb + h * p.k_sh;
-  const float* v = p.v + b * p.v_sb + h * p.v_sh;
-  load_tile<D>(Qs, q, p.q_ss, q0, p.Sq);
-
-  const int last_q = p.q_offset + min(q0 + kT - 1, p.Sq - 1);
-  const int n_kt = min(last_q / kT + 1, (p.Sk + kT - 1) / kT);
-  float m[4], l[4], acc[4][C::kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegBig;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C::kCols; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kT;
-    __syncthreads();  // the last step is done with Ks, Vs and Ps
-    load_tile<D>(Ks, k, p.k_ss, k0, p.Sk);
-    load_tile<D>(Vs, v, p.v_ss, k0, p.Sk);
-    __syncthreads();  // key tile kt has landed
-    float s[4][4] = {};
-    scores<D>(Qs, Ks, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = p.q_offset + q0 + 4 * ty + i;
-      float mx = kNegBig;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = k0 + tx + 16 * j;
-        float x = s[i][j] * p.scale;
-        if (!(q_pos >= k_pos && k_pos < p.Sk)) x = kNegBig;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-#pragma unroll
-      for (int c = 0; c < C::kCols; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(4 * ty + i) * kLP + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();  // P is in shared memory
-    pv<D>(Ps, Vs, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row < p.Sq) {
-      const float l_safe = fmaxf(l[i], 1e-30f);
-      float out[C::kCols];
-#pragma unroll
-      for (int c = 0; c < C::kCols; ++c) out[c] = acc[i][c] / l_safe;
-      store_cols<D>(p.out0 + out_row(p, b, p.Sq, row, h, D), tx, out);
-      if (tx == 0)
-        p.stat_out[((long long)b * p.Sq + row) * p.H + h] = m[i] + logf(l_safe);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2 and K3: each f32 product as three TF32 mma.sync products
+// Each f32 product as three TF32 mma.sync products
 // ---------------------------------------------------------------------------
 
 // kW warps, 16 resident rows each, against kN-row ring stages; every tile
 // has a row stride of D + 4 floats.
 template <int D, int kW, int kN_>
-struct BwdCfg {
+struct TcCfg {
   static constexpr int kM = 16 * kW;          // resident rows per block
   static constexpr int kN = kN_;              // streamed rows per stage
   static constexpr int kThreads = 32 * kW;
   static constexpr int kResident = kM * Cfg<D>::kLD;  // floats, resident tile
   static constexpr int kStream = kN * Cfg<D>::kLD;    // floats, streamed tile
-  // Two resident tiles and a two-stage ring of two streamed tiles; K3's
-  // ring also carries kN lse and kN delta values a stage.
-  static constexpr size_t kSmemDq =
-      sizeof(float) * (2 * kResident + 4 * kStream);
+  // A two-stage ring of two streamed tiles, and the resident tiles: K1 Q;
+  // K2 Q and dO; K3 K and V, and kN lse and kN delta values a ring stage.
+  static constexpr size_t kRing = sizeof(float) * 4 * kStream;
+  static constexpr size_t kSmemFwd = sizeof(float) * kResident + kRing;
+  static constexpr size_t kSmemDq = sizeof(float) * 2 * kResident + kRing;
   static constexpr size_t kSmemDkv = kSmemDq + sizeof(float) * 4 * kN;
   static_assert(kN % 8 == 0 && 2 * kN <= kThreads, "ring stage rows");
 };
 // 8 warps (128 resident rows) against 32-row stages: two warps a scheduler
-// and ~203 KB of shared memory, one block per SM. chip_tile_sweep.py times
-// other settings (4 warps against 64-row stages is the other candidate).
+// and ~135 KB (K1) or ~203 KB (K2, K3) of shared memory, one block per SM.
+// chip_tile_sweep.py times other settings (4 warps against 64-row stages,
+// or 64-row stages alone, are the other candidates).
+constexpr int kFwdF32W = 8;
+constexpr int kFwdF32N = 32;
 constexpr int kDqF32W = 8;
 constexpr int kDqF32N = 32;
 constexpr int kDkvF32W = 8;
@@ -560,6 +323,140 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
   }
 }
 
+// Key step kt's K and V tiles into stage st of a two-stage ring of kN-row
+// tiles (stage st: K, then V), T threads.
+template <int D, int kN, int T>
+__device__ __forceinline__ void load_kv(float* ring, int st, int kt,
+                                        const Params& p, const float* k,
+                                        const float* v) {
+  constexpr int kStream = kN * Cfg<D>::kLD;
+  float* Ks = ring + 2 * st * kStream;
+  load_tile_async<D, kN, T>(Ks, k, p.k_ss, kt * kN, p.Sk);
+  load_tile_async<D, kN, T>(Ks + kStream, v, p.v_ss, kt * kN, p.Sk);
+}
+
+// ---------------------------------------------------------------------------
+// K1: the forward. One block per (b, h) and 16 kW-query tile; per kN-key
+// step S = Q K^T, the online softmax in registers (running max m, l = l
+// alpha + rowsum P), acc = acc alpha + P V; then O = acc / max(l, 1e-30)
+// and lse = m + log(max(l, 1e-30)).
+// ---------------------------------------------------------------------------
+
+template <int D, int kW, int kN>
+__global__ void __launch_bounds__(32 * kW, 1)
+    flash_fwd_f32_kernel(const Params p) {
+  using C = TcCfg<D, kW, kN>;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* ring = Qs + C::kResident;  // stage s: K, then V
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  // The last query tiles see the most keys: they go in the first wave.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kM;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = threadIdx.x / 32 * 16;  // this warp's first row
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + h * p.k_sh;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  load_tile_async<D, C::kM, C::kThreads>(Qs, q, p.q_ss, q0, p.Sq);
+  load_kv<D, kN, C::kThreads>(ring, 0, 0, p, k, v);
+  cp_async_commit();
+
+  // This warp's first and last query positions.
+  const int q_first = p.q_offset + q0 + r0;
+  const int q_last = p.q_offset + min(q0 + r0 + 15, p.Sq - 1);
+  const int block_last = p.q_offset + min(q0 + C::kM, p.Sq) - 1;
+  const int n_kt = min(block_last / kN + 1, (p.Sk + kN - 1) / kN);
+  // Rows r0 + g (index 0) and r0 + g + 8 (index 1) of this thread.
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4] = {};
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    const float* Ks = ring + 2 * st * C::kStream;
+    const float* Vs = Ks + C::kStream;
+    const int k0 = kt * kN;
+    if (kt + 1 < n_kt) {
+      load_kv<D, kN, C::kThreads>(ring, st ^ 1, kt + 1, p, k, v);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // key step kt has landed in stage st
+    // A warp whose rows lie past Sq, or all before this step's first key,
+    // has nothing to add: its scores there are all masked, which leaves m,
+    // l and acc as they are.
+    if (q0 + r0 < p.Sq && k0 <= q_last) {
+      float s[kN / 8][4] = {};
+      scores_tc<D, kN>(Qs, r0, Ks, s);
+      const bool masked = k0 + kN - 1 > q_first || k0 + kN > p.Sk;
+      float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+          const int q_pos = q_first + g + 8 * (e >> 1);
+          float x = s[j][e] * p.scale;
+          if (masked && (k_pos > q_pos || k_pos >= p.Sk)) x = kNegBig;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // A row's scores lie in the 4 lanes of a quad.
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);  // P
+          rs[e >> 1] += s[j][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(kFull, rs[r], 1);
+        rs[r] += __shfl_xor_sync(kFull, rs[r], 2);
+        l[r] = l[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[i][x] *= alpha[x >> 1];
+      }
+      pv_tc<D, kN>(s, Vs, acc);
+    }
+    __syncthreads();  // stage st is free for step kt + 2
+  }
+
+  const long long o_ss = (long long)p.H * D;
+  float* ob = p.out0 + (long long)b * p.Sq * o_ss + (long long)h * D;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g + 8 * e;
+    if (row < p.Sq) {
+      const float l_safe = fmaxf(l[e], 1e-30f);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<float2*>(ob + row * o_ss + 8 * i + 2 * t) =
+            make_float2(acc[i][2 * e] / l_safe, acc[i][2 * e + 1] / l_safe);
+      }
+      if (t == 0) {
+        p.stat_out[((long long)b * p.Sq + row) * p.H + h] =
+            m[e] + logf(l_safe);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K2: the dQ pass. One block per (b, h) and 16 kW-query tile, with its dO,
 // lse and delta; per kN-key step S = Q K^T and dP = dO V^T, P = exp(S
@@ -569,7 +466,7 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
 template <int D, int kW, int kN>
 __global__ void __launch_bounds__(32 * kW, 1)
     flash_bwd_dq_f32_kernel(const Params p) {
-  using C = BwdCfg<D, kW, kN>;
+  using C = TcCfg<D, kW, kN>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* DOs = Qs + C::kResident;
@@ -583,15 +480,9 @@ __global__ void __launch_bounds__(32 * kW, 1)
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
   const float* v = p.v + b * p.v_sb + h * p.v_sh;
   const float* dout = p.dout + b * p.do_sb + h * p.do_sh;
-  auto load_kv = [&](int st, int kt) {
-    float* Ks = ring + 2 * st * C::kStream;
-    load_tile_async<D, kN, C::kThreads>(Ks, k, p.k_ss, kt * kN, p.Sk);
-    load_tile_async<D, kN, C::kThreads>(Ks + C::kStream, v, p.v_ss, kt * kN,
-                                        p.Sk);
-  };
   load_tile_async<D, C::kM, C::kThreads>(Qs, q, p.q_ss, q0, p.Sq);
   load_tile_async<D, C::kM, C::kThreads>(DOs, dout, p.do_ss, q0, p.Sq);
-  load_kv(0, 0);
+  load_kv<D, kN, C::kThreads>(ring, 0, 0, p, k, v);
   cp_async_commit();
 
   // lse and delta = rowsum(dO * O) (f32 FFMA) of this thread's rows
@@ -634,7 +525,7 @@ __global__ void __launch_bounds__(32 * kW, 1)
     const float* Vs = Ks + C::kStream;
     const int k0 = kt * kN;
     if (kt + 1 < n_kt) {
-      load_kv(st ^ 1, kt + 1);
+      load_kv<D, kN, C::kThreads>(ring, st ^ 1, kt + 1, p, k, v);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -691,7 +582,7 @@ __global__ void __launch_bounds__(32 * kW, 1)
 template <int D, int kW, int kN>
 __global__ void __launch_bounds__(32 * kW, 1)
     flash_bwd_dkv_f32_kernel(const Params p) {
-  using C = BwdCfg<D, kW, kN>;
+  using C = TcCfg<D, kW, kN>;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + C::kResident;
@@ -840,14 +731,13 @@ struct Kernel {
 // which: 0 = K1, 1 = K2, 2 = K3.
 template <int D>
 Kernel pick(int which) {
-  constexpr size_t tile = sizeof(float) * Cfg<D>::kTile;
-  constexpr size_t scores_tile = sizeof(float) * kT * kLP;
-  using Dq = BwdCfg<D, kDqF32W, kDqF32N>;
-  using Dkv = BwdCfg<D, kDkvF32W, kDkvF32N>;
+  using Fwd = TcCfg<D, kFwdF32W, kFwdF32N>;
+  using Dq = TcCfg<D, kDqF32W, kDqF32N>;
+  using Dkv = TcCfg<D, kDkvF32W, kDkvF32N>;
   switch (which) {
     case 0:
-      return {(const void*)flash_fwd_f32_kernel<D>, kThreads, kT,
-              3 * tile + scores_tile};
+      return {(const void*)flash_fwd_f32_kernel<D, kFwdF32W, kFwdF32N>,
+              Fwd::kThreads, Fwd::kM, Fwd::kSmemFwd};
     case 1:
       return {(const void*)flash_bwd_dq_f32_kernel<D, kDqF32W, kDqF32N>,
               Dq::kThreads, Dq::kM, Dq::kSmemDq};

@@ -50,8 +50,8 @@ SHAPES = [
     (2, 256, 256, 2, 64, 0),
     (1, 512, 512, 4, 128, 0),
     # bf16: K1 tiles 128 queries x 128 keys, K2 128 queries x 64 keys, K3
-    # 128 keys x 64 queries; f32: K1 64 x 64, K2 128 queries x 32 keys,
-    # K3 128 keys x 32 queries:
+    # 128 keys x 64 queries; f32: K1 and K2 128 queries x 32 keys, K3 128
+    # keys x 32 queries:
     (2, 200, 200, 2, 128, 0),      # S not a multiple of 128 (nor of 64)
     (1, 136, 328, 3, 128, 192),    # Sq < Sk, q_offset on a tile boundary
     (1, 136, 328, 3, 128, 150),    # Sq < Sk, q_offset off it
@@ -60,6 +60,8 @@ SHAPES = [
     (2, 64, 64, 2, 128, 0),        # a 128-row block's second warpgroup
                                    # holds no valid row
     (1, 72, 200, 3, 128, 128),     # Sq = 72 < Sk, q_offset 128
+    (1, 100, 90, 2, 64, 20),       # queries past the last key: Sk ends
+                                   # mid-stage before their diagonal
 ]
 
 
@@ -114,7 +116,7 @@ def test_kernels_match_plain_on_card(cuda_device, b, sq, sk, h, d, q_offset,
 
 # Exact f32: each f32 kernel's error is at most a tenth of the error of
 # one TF32 product per f32 product (the plain version with allow_tf32) on
-# the same inputs; the f32 K2 and K3 multiply as three TF32 products. A
+# the same inputs; the f32 K1-K3 multiply as three TF32 products. A
 # clean shape, a ragged one and one with q_offset off a tile boundary.
 EXACT_SHAPES = [SHAPES[3], SHAPES[4], SHAPES[6]]
 
@@ -129,8 +131,9 @@ def test_f32_kernels_are_exact_f32_on_card(cuda_device, b, sq, sk, h, d,
                              dtype="float32", exact_f32=True)[0]
     assert not torch.backends.cuda.matmul.allow_tf32
     exact = {n: rl for n, rl in readings.items() if n.endswith(" exact")}
-    assert sorted(exact) == ["K1 f32 O exact", "K2 f32 dq exact",
-                             "K3 f32 dk exact", "K3 f32 dv exact"]
+    assert sorted(exact) == ["K1 f32 O exact", "K1 f32 lse exact",
+                             "K2 f32 dq exact", "K3 f32 dk exact",
+                             "K3 f32 dv exact"]
     for name, (err, limit) in exact.items():
         assert err <= limit, (name, err, limit / EXACT_F32_FRACTION)
 

@@ -40,7 +40,7 @@ def _kinds(name):
 
 def test_every_kernel_source_has_its_faults():
     # One skipped tile per kernel: K1-K3 in bf16 and in f32; one split
-    # fault, in the f32 source, whose K2 and K3 split their products.
+    # fault, in the f32 source, whose K1-K3 split their products.
     assert sorted(fc.FAULTS) == ["flash_attention.cu",
                                  "flash_attention_f32.cu"]
     assert _kinds("flash_attention.cu") == ["skip"] * 3
@@ -65,10 +65,15 @@ def test_planted_source_inserts_every_fault_after_its_anchor(name):
         assert planted.count(anchor + line) == count
     assert len(planted) == len(text) + sum(
         len(line) * count for _, line, count, _ in skips)
-    # The faults name the tiles the module documents.
-    joined = "".join(line for _, line, _, _ in skips)
-    assert f"kt == {fc.SKIP_KT}" in joined
-    assert f"/ 64 == {fc.SKIP_QT}" in joined
+    # The faults name the tiles the module documents: K1 and K2 a key
+    # tile (by step index or first key), K3 a query tile.
+    k1, k2, k3 = (line for _, line, _, _ in skips)
+    for line in (k1, k2):
+        assert (f"kt == {fc.SKIP_KT} " in line
+                or f"k0 / 64 == {fc.SKIP_KT})" in line)
+    assert f"q0 / 64 == {fc.SKIP_QT})" in k3
+    # Each keeps the barrier that frees its ring stage.
+    assert all("__syncthreads(); continue;" in line for line in (k1, k2, k3))
     # A source without faults of its own passes through unchanged.
     assert fc.planted_source("other.cu", text) == text
 
@@ -87,7 +92,8 @@ def test_split_fault_makes_one_tf32_product_of_each_f32_product():
                              _source("flash_attention.cu"), "split") \
         == _source("flash_attention.cu")
     # Its readings are the exact-f32 ones of the kernels that split.
-    assert fc.SPLIT_CAUGHT_BY == ("K2 f32 dq exact", "K3 f32 dk exact",
+    assert fc.SPLIT_CAUGHT_BY == ("K1 f32 O exact", "K1 f32 lse exact",
+                                  "K2 f32 dq exact", "K3 f32 dk exact",
                                   "K3 f32 dv exact")
     with pytest.raises(ValueError, match="no fault kind"):
         fc.planted_source(name, text, "drop")

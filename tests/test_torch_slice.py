@@ -178,6 +178,8 @@ def test_chip_smoke_f32_phase_on_cpu_at_tiny_size():
     assert summary["loss_rel"] <= chip_smoke.F32_LOSS_RTOL
     assert summary["grad_rel"] <= chip_smoke.F32_GRAD_RTOL
     assert all(n == 0 for n in summary["launches"].values())
+    # The profiled extra step found no device kernel on the CPU.
+    assert summary["breakdown"] is None
 
 
 def test_kernel_work_counts_the_causal_pairs():

@@ -58,6 +58,22 @@ def test_f32_constants_live_in_the_f32_source_only():
                                                           "kDqF32N": 64}
 
 
+def test_f32_forward_geometry_is_swept_in_the_f32_source():
+    # K1 f32's warps a block and rows a ring stage: defined once, in the
+    # f32 source, and set by a sweep argument.
+    f32 = _source("flash_attention_f32.cu")
+    for name in ("kFwdF32W", "kFwdF32N"):
+        assert name in sweep.F32_TILE_CONSTANTS
+        assert f32.count(f"constexpr int {name} = ") == 1
+        assert f"constexpr int {name} = " not in _source()
+    assert sweep.parse_setting("kFwdF32W=4,kFwdF32N=64") == {"kFwdF32W": 4,
+                                                            "kFwdF32N": 64}
+    out = sweep.tiled_source(f32, {"kFwdF32W": 4, "kFwdF32N": 64})
+    assert "constexpr int kFwdF32W = 4;" in out
+    assert "constexpr int kFwdF32N = 64;" in out
+    assert "constexpr int kDqF32N = 32;" in out  # K2's stays
+
+
 def test_tiled_source_refuses_a_constant_it_cannot_find():
     with pytest.raises(ValueError, match="defined 0 times"):
         sweep.tiled_source("int x;", {"kFwdN": 64})
