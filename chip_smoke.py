@@ -16,6 +16,7 @@
 """Smoke run of the PyTorch/CUDA port (``rayfed_tpu_torch``) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serving-only   # phases 1 and 7 alone
 
 Phases:
 
@@ -78,6 +79,33 @@ Phases:
    Prints each push's ms, GB/s and split (host staging, send, decode and
    the placement inside it), each round's wall and each party's peak
    memory.
+
+7. serve: the serving plane (``rayfed_tpu_torch.serving``) at the
+   flagship width and full depth (bf16 compute, f32 params from a seed,
+   bf16 KV): an ``InferenceServer`` under ``SERVE_CFG`` (paged KV in
+   16-position blocks, 8 slots), warmed on every program shape, answers
+   32 greedy requests from 8 client threads, prompts of 16-512 tokens
+   from a seed, a second version published after a third of the
+   completions; the same traffic again in ``mode="sequential"``. Checks: (a) every response equals the same
+   request served alone (``mode="sequential"``, same shape) on its
+   pinned version, (b) the slab layout gives the paged layout's tokens on
+   the same traffic without the swap, (c) a rerun gives the same tokens,
+   (d) at f32 compute and 2 layers, the engine's prefill logits (whole
+   and chunked) and first decode step within 1e-4 of a full forward's
+   norm, (e) no request fails and the swap is counted. Prints the host's
+   state (load, threads, a launch probe), TTFT p50 and p99, decode
+   tokens/s, the median decode step and prefill chunk (CUDA events in
+   both windows) and the live rows per step, the sequential window and
+   the speedup, the publish's ms and zero-copy adoptions, the pool's
+   bytes and peak memory, what the layouts' shared prefill shapes cost
+   against the JAX package's, and one profiled paged decode iteration
+   at a state the traffic reaches (device ms by kind, idle share). Then the two-process
+   run at 4 layers: ``fed.serve("alice", ...)`` in two spawned parties,
+   8 requests through the handle, a ``fed_aggregate(publish_to=handle)``
+   mid-load; every response names its version and equals alice's
+   reference for it. The serving path launches none of the flash
+   kernels: cached decode runs the plain attention, as the JAX package's
+   does.
 
 It needs a CUDA card and exits non-zero without one. The last two lines
 are the kernel table and ``{"ok": true, "device": {...}}`` as JSON.
@@ -1657,10 +1685,774 @@ def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
                 cnn_wall_s=cnn_wall)
 
 
-def main():
+# ---------------------------------------------------------------------------
+# Phase 7: the serving plane on the card
+# ---------------------------------------------------------------------------
+
+# The served configuration: ServingConfig's defaults (paged KV in 16-position
+# blocks, prefill chunks of 32 under a 64-token budget, prefix reuse on)
+# but for these.
+SERVE_CFG = dict(max_slots=8, max_len=1024, max_new_tokens=64,
+                 max_pending=64)
+# The traffic. From bench.py's serving cell (``_serve_bench_entry``): as
+# many client threads as the pool has slots, 4 requests each, submitted
+# one after another, 32 in all, served again in ``mode="sequential"``.
+# Assumed, from no source: the lengths. bench.py's cell serves prompts of
+# 4-12 tokens and 48 new tokens at max_len 64; here prompt lengths are
+# drawn uniformly in 16-512 from a seed and 64 tokens are generated, at
+# max_len 1024. One swap, after a third of the completions (bench.py
+# swaps twice).
+SERVE_REQUESTS = 32
+SERVE_CLIENTS = SERVE_CFG["max_slots"]
+SERVE_PROMPT_LEN = (16, 512)
+SERVE_SEED = 7
+# Check (d): f32 compute at this depth; each logits vector within this
+# fraction of the full forward's norm.
+SERVE_F32_LAYERS = 2
+SERVE_LOGIT_TOL = 1e-4
+# The two-process run: its depth, requests and join timeout.
+SERVE_FED_LAYERS = 4
+SERVE_FED_REQUESTS = 8
+SERVE_FED_TIMEOUT_S = 300
+
+
+def serve_prompts(n, lo, hi, vocab, seed=SERVE_SEED):
+    """``n`` prompts (lists of token ids), lengths uniform in [lo, hi]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    return [[int(t) for t in rng.integers(1, vocab, int(m))] for m in lens]
+
+
+def drive_server(srv, prompts, clients, swap=None):
+    """Serve ``prompts`` from ``clients`` threads (client c submits
+    requests c, c+clients, ... one after another); with ``swap``
+    (params), the client whose completion makes a third of them publishes
+    it. Returns the responses in request order, the window from the first
+    submit to the last completion in seconds, and the publish's ms. Any
+    failed request raises."""
+    import threading
+
+    import torch
+
+    n = len(prompts)
+    out = [None] * n
+    errors = []
+    lock = threading.Lock()
+    done = [0]
+    publish_ms = [None]
+    on_cuda = srv.device.type == "cuda"
+
+    def client(c):
+        try:
+            for i in range(c, n, clients):
+                out[i] = srv.submit_and_wait(prompts[i])
+                with lock:
+                    done[0] += 1
+                    fire = swap is not None and done[0] == max(1, n // 3)
+                if fire:
+                    t = time.perf_counter()
+                    srv.publish(swap)
+                    if on_cuda:
+                        torch.cuda.synchronize()
+                    publish_ms[0] = 1e3 * (time.perf_counter() - t)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    window = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads),
+            "(e) the serving clients did not finish within 600 s")
+    require(not errors, f"(e) a request failed: {errors[:1]!r}")
+    return out, window, publish_ms[0]
+
+
+def warm_server(srv):
+    """Serve, one at a time and 2 new tokens each, discarded requests
+    that run every program shape a timed window can reach: each whole
+    prefill bucket up to the prefill chunk, a ragged first chunk of each
+    chunk bucket before a full chunk, and the decode step (as bench.py
+    warms every prompt bucket, so that the window measures the
+    scheduler). Returns how many were served."""
+    chunk = srv.scfg.prefill_chunk
+    lens = sorted({b for b in srv._buckets if b <= chunk}
+                  | {chunk + b for b in srv._chunk_buckets})
+    lens = [n for n in lens if n + 2 <= srv.scfg.max_len]
+    for n in lens:
+        srv.submit_and_wait(list(range(1, n + 1)), max_new_tokens=2)
+    return len(lens)
+
+
+class _ProgramTimer:
+    """Wraps one of the engine's device programs. On the card, a CUDA
+    event pair around each call, read after the window, so the engine
+    never waits for them and a timed window runs the code an untimed one
+    does; on the CPU the host clock. With ``junk`` (the pool's sacrificial
+    position) it also counts each decode step's live rows."""
+
+    def __init__(self, fn, on_cuda, junk=None):
+        self.fn, self.on_cuda, self.junk = fn, on_cuda, junk
+        self.calls, self.live = [], []
+
+    def __call__(self, *args, **kwargs):
+        import numpy as np
+        import torch
+
+        if self.junk is not None:
+            positions = args[5] if len(args) > 5 else kwargs["positions"]
+            self.live.append(int(np.count_nonzero(
+                np.asarray(positions) != self.junk)))
+        if not self.on_cuda:
+            t = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            self.calls.append(1e3 * (time.perf_counter() - t))
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kwargs)
+        end.record()
+        self.calls.append((start, end))
+        return out
+
+    def reset(self):
+        self.calls, self.live = [], []
+
+    def ms(self):
+        if not self.on_cuda:
+            return list(self.calls)
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.calls]
+
+
+class _TimedPrograms:
+    """Patches the server module's device programs with
+    :class:`_ProgramTimer` for the ``with`` block."""
+
+    NAMES = ("decode_step", "chunk_row", "prefill_row")
+
+    def __init__(self, srv_mod, on_cuda, junk):
+        self.mod = srv_mod
+        self.t = {n: _ProgramTimer(getattr(srv_mod, n), on_cuda,
+                                   junk if n == "decode_step" else None)
+                  for n in self.NAMES}
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.mod, n) for n in self.NAMES}
+        for n, t in self.t.items():
+            setattr(self.mod, n, t)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.mod, n, f)
+
+    def reset(self):
+        for t in self.t.values():
+            t.reset()
+
+
+def host_state(device):
+    """What shares this process's host at a window's start: the load
+    average, live threads, child processes, objects the garbage collector
+    tracks, and a launch probe (the host's microseconds per launch of a
+    one-element add on ``device``, 2000 launches, synchronized once)."""
+    import gc
+    import multiprocessing
+    import threading
+
+    import torch
+
+    x = torch.zeros(1, device=device)
+    on_cuda = x.device.type == "cuda"
+    for _ in range(100):
+        x.add_(1)
+    if on_cuda:
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1)
+    if on_cuda:
+        torch.cuda.synchronize()
+    launch_us = 1e6 * (time.perf_counter() - t) / 2000
+    return dict(loadavg_1m=os.getloadavg()[0],
+                threads=threading.active_count(),
+                children=len(multiprocessing.active_children()),
+                gc_objects=len(gc.get_objects()), launch_us=launch_us)
+
+
+def _tokens(resps):
+    return [r["tokens"] for r in resps]
+
+
+def _near(got, want, what):
+    """Check (d): ``got``'s distance to ``want`` within SERVE_LOGIT_TOL of
+    ``want``'s norm; returns the ratio."""
+    import torch
+
+    ratio = float(torch.linalg.vector_norm(got.float() - want.float())
+                  / torch.linalg.vector_norm(want.float()))
+    require(ratio <= SERVE_LOGIT_TOL,
+            f"(d) {what}: error {ratio:.3g} of the reference's norm > "
+            f"{SERVE_LOGIT_TOL}")
+    return ratio
+
+
+def serving_logits_check(device, cfg, prompt_short, prompt_long, scfg_kw):
+    """Check (d): at f32 compute, the engine's prefill logits (a short
+    prompt whole, a long one in its chunks) and its first decode step
+    against a full forward of the prompt and of prompt + token."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.serving import server as srv_mod
+    from rayfed_tpu_torch.serving.kv_pool import KVPool
+
+    cfg32 = dataclasses.replace(cfg, n_layers=SERVE_F32_LAYERS,
+                                compute_dtype=torch.float32)
+    scfg = srv_mod.ServingConfig(**scfg_kw)
+    params = tfm.init_params(SERVE_SEED + 10, cfg32, device=device)
+    pool = KVPool(cfg32, 3, scfg.max_len, device=device)
+    chunk_buckets = sorted({min(b, scfg.prefill_chunk) for b in
+                            srv_mod._default_buckets(scfg.prefill_chunk)})
+    buckets = srv_mod._default_buckets(scfg.max_len)
+    ratios = {}
+    firsts = []
+    with torch.no_grad():
+        for row, prompt in ((1, prompt_short), (2, prompt_long)):
+            p = np.asarray(prompt, np.int64)
+            k, v = pool.row(row)
+            if p.size <= scfg.prefill_chunk:
+                last = srv_mod.prefill_row(
+                    params, cfg32, k, v, p,
+                    next(b for b in buckets if b >= p.size))
+            else:
+                for off, real, clen in srv_mod.chunk_plan(
+                        p.size, scfg.prefill_chunk, chunk_buckets):
+                    toks = np.zeros(clen, np.int64)
+                    toks[:real] = p[off:off + real]
+                    logits = srv_mod.chunk_row(params, cfg32, k, v, toks, off)
+                last = logits[real - 1]
+            full = tfm.forward(params, torch.tensor([prompt], device=device),
+                               cfg32)[0, -1]
+            ratios[f"prefill_{p.size}"] = _near(last, full,
+                                                f"prefill of {p.size}")
+            firsts.append(int(torch.argmax(last)))
+        kk, vv = pool.kv
+        step = srv_mod.decode_step(
+            params, cfg32, kk, vv, np.array([0] + firsts),
+            np.array([pool.junk_pos, len(prompt_short), len(prompt_long)]))
+        for row, prompt in ((1, prompt_short), (2, prompt_long)):
+            ext = tfm.forward(params, torch.tensor(
+                [prompt + [firsts[row - 1]]], device=device), cfg32)[0, -1]
+            ratios[f"step_{len(prompt)}"] = _near(
+                step[row], ext, f"first step after {len(prompt)}")
+    return ratios
+
+
+def profile_decode_step(device, cfg, params, scfg_kw, positions):
+    """One paged decode iteration as the engine runs it (params cast to
+    the compute dtype once, as the engine holds them; gather the rows'
+    blocks, the batched step, scatter the written positions) with pool
+    row r live at ``positions[r]``, under ``torch.profiler``: device ms
+    by kind, busy and wall ms, idle share."""
+    import numpy as np
+
+    from rayfed_tpu_torch.models import decode
+    from rayfed_tpu_torch.serving import server as srv_mod
+    from rayfed_tpu_torch.serving.kv_pool import PagedKVPool
+
+    scfg = srv_mod.ServingConfig(**scfg_kw)
+    pool = PagedKVPool(cfg, scfg.max_slots, scfg.max_len, device=device,
+                       block_size=scfg.kv_block_size)
+    r = scfg.max_slots
+    positions = np.asarray(positions, np.int64)
+    for s in range(r):
+        require(pool.acquire() is not None, "profile pool has no slot")
+        require(pool.ensure_blocks(s, int(positions[s])) == "ok",
+                "profile pool full")
+    tables = np.stack([pool.table(s) for s in range(r)])
+    targets = [pool.write_target(s, int(positions[s])) for s in range(r)]
+    wb = np.array([t[0] for t in targets], np.int64)
+    wo = np.array([t[1] for t in targets], np.int64)
+    tokens = np.arange(1, r + 1, dtype=np.int64)
+    params = decode.cast_params(params, cfg)
+
+    def step():
+        import torch
+
+        with torch.no_grad():
+            k, v = pool.gather(tables)
+            logits = srv_mod.decode_step(params, cfg, k, v, tokens, positions)
+            pool.scatter_step(k, v, positions, wb, wo)
+            return srv_mod._to_host(logits)
+
+    step()  # warm the allocator
+    # A process's first profiler session sets CUPTI up and reads heavier.
+    device_breakdown(step)
+    return device_breakdown(step)
+
+
+def prefill_costs(device, cfg, params, prompts, scfg_kw, reps=3):
+    """What holding the two KV layouts to the same bits costs in prefill,
+    on ``prompts`` (the traffic's): (1) the slab layout prefills a prompt
+    longer than the chunk in the paged layout's chunks, where the JAX
+    package's slab layout runs it whole: both, per prompt; (2) the paged
+    layout prefills each short prompt as a batch-1 forward, where the JAX
+    package runs one (max_slots, bucket) forward for every short prompt
+    admitted in a round: one of each at the chunk's length, median of
+    ``reps``. The forwards only (params cast once, as the engine holds
+    them; a fresh cache row each, no scatter), the device synchronized
+    around each. Returns ms."""
+    import statistics as stats_mod
+
+    import numpy as np
+    import torch
+
+    from rayfed_tpu_torch.models import decode
+    from rayfed_tpu_torch.serving import server as srv_mod
+
+    scfg = srv_mod.ServingConfig(**scfg_kw)
+    chunk, T, R = scfg.prefill_chunk, scfg.max_len + 1, scfg.max_slots
+    buckets = srv_mod._default_buckets(scfg.max_len)
+    chunk_buckets = sorted({min(b, chunk) for b in
+                            srv_mod._default_buckets(chunk)})
+    params = decode.cast_params(params, cfg)
+    on_cuda = torch.device(device).type == "cuda"
+
+    def timed(fn):
+        if on_cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        if on_cuda:
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    def row():
+        c = decode.init_cache(cfg, 1, T, device=device)
+        return c["k"], c["v"]
+
+    def chunked(p):
+        k, v = row()
+        for off, real, clen in srv_mod.chunk_plan(p.size, chunk,
+                                                  chunk_buckets):
+            toks = np.zeros(clen, np.int64)
+            toks[:real] = p[off:off + real]
+            srv_mod.chunk_row(params, cfg, k, v, toks, off)
+
+    def whole(p):
+        k, v = row()
+        srv_mod.prefill_row(params, cfg, k, v, p,
+                            next(b for b in buckets if b >= p.size))
+
+    def batched():
+        c = decode.init_cache(cfg, R, T, device=device)
+        toks = torch.ones((R, chunk), dtype=torch.int64, device=c["k"].device)
+        decode.forward_with_cache(params, toks, c, 0, cfg)
+
+    short = np.arange(1, chunk + 1, dtype=np.int64)
+    out = dict(chunked_ms=[], whole_ms=[], n_short=0)
+    with torch.no_grad():
+        whole(short)  # warm
+        for prompt in prompts:
+            p = np.asarray(prompt, np.int64)
+            if p.size <= chunk:
+                out["n_short"] += 1
+                continue
+            out["chunked_ms"].append(timed(lambda: chunked(p)))
+            out["whole_ms"].append(timed(lambda: whole(p)))
+        batched()  # warm
+        out["batch1_ms"] = stats_mod.median(
+            timed(lambda: whole(short)) for _ in range(reps))
+        out["batched_ms"] = stats_mod.median(
+            timed(batched) for _ in range(reps))
+    return out
+
+
+def phase_serving(device, cfg, *, scfg_kw=None, n_requests=SERVE_REQUESTS,
+                  clients=SERVE_CLIENTS, prompt_len=SERVE_PROMPT_LEN,
+                  label=""):
+    """Phase 7, the single-process run: ``cfg`` (bf16 compute, f32 params
+    from a seed, bf16 KV) served by the port's ``InferenceServer`` on
+    ``device`` under SERVE_CFG, with the traffic of :func:`drive_server`
+    after :func:`warm_server`. Checks: (a) every response equals the same
+    request served alone (``mode="sequential"``, same shape) on its
+    pinned version; (b) the slab layout gives the paged layout's tokens
+    on the same traffic without the swap; (c) a rerun gives the same
+    tokens; (d) :func:`serving_logits_check`; (e) no request fails and
+    the swap is counted. Prints the host's state, TTFT, decode tokens/s,
+    the decode step's and a prefill chunk's ms and the live rows per step
+    (CUDA events, in both windows), the sequential window and the
+    speedup, the publish's ms and zero-copy adoptions, the pool's bytes
+    and peak memory, :func:`prefill_costs`, and one profiled decode step
+    at a state the traffic reaches."""
+    import statistics as stats_mod
+
+    import numpy as np
+    import torch
+
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.serving import server as srv_mod
+
+    scfg_kw = dict(SERVE_CFG if scfg_kw is None else scfg_kw)
+    on_cuda = torch.device(device).type == "cuda"
+    params_a = tfm.init_params(SERVE_SEED, cfg, device=device)
+    params_b = tfm.init_params(SERVE_SEED + 1, cfg, device=device)
+    hi = min(prompt_len[1], scfg_kw["max_len"] - scfg_kw["max_new_tokens"])
+    prompts = serve_prompts(n_requests, prompt_len[0], hi, cfg.vocab)
+
+    def server(**kw):
+        return srv_mod.InferenceServer(
+            cfg, srv_mod.ServingConfig(**dict(scfg_kw, **kw)),
+            params=params_a, device=device)
+
+    walls = {}  # each run's wall, spawn of its server to its stop
+    t_run = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_run
+        now = time.perf_counter()
+        walls[name] = now - t_run
+        t_run = now
+
+    def timed_window(mode):
+        """A warmed server in ``mode`` serves the traffic with the swap,
+        its programs timed; returns the responses, window, publish ms,
+        stats, pool bytes and the timers."""
+        with _TimedPrograms(srv_mod, on_cuda, scfg_kw["max_len"]) as tp:
+            srv = server(mode=mode)
+            try:
+                n_warm = warm_server(srv)
+                tp.reset()
+                resps, window, publish_ms = drive_server(
+                    srv, prompts, clients, swap=params_b)
+                st = srv.stats()
+                pool_bytes = srv.pool.nbytes
+            finally:
+                srv.stop()
+        require(st["swaps"] == 2 and st["completed"] == n_requests + n_warm,
+                f"(e) the {mode} run counted {st['swaps']} swaps and "
+                f"{st['completed']} completions ({n_warm} warming): {st}")
+        return resps, window, publish_ms, st, pool_bytes, tp.t
+
+    host = host_state(device)
+    # The main run: continuous batching over the paged pool, the swap
+    # after a third; then the naive baseline on the same traffic, one
+    # request at a time. Both warmed, both timed alike.
+    fa.reset_launch_counts()
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    main, window, publish_ms, st, pool_bytes, timers = timed_window(
+        "continuous")
+    peak = torch.cuda.max_memory_allocated() if on_cuda else None
+    serve_launches = dict(fa.LAUNCHES)
+    versions = [r["version"] for r in main]
+    require(set(versions) <= {1, 2}, f"(e) versions {versions}")
+    lap("main")
+    seq_resps, seq_window, _, _, _, seq_timers = timed_window("sequential")
+    lap("sequential")
+
+    # (a): each response against the request served alone on its
+    # version; the sequential run served each alone on the version it
+    # pinned, the rest run alone here.
+    alone = {(i, r["version"]): r["tokens"] for i, r in enumerate(seq_resps)}
+    for v, params in ((1, params_a), (2, params_b)):
+        todo = [i for i, r in enumerate(main) if r["version"] == v
+                and (i, v) not in alone]
+        if not todo:
+            continue
+        srv = srv_mod.InferenceServer(
+            cfg, srv_mod.ServingConfig(**dict(scfg_kw, mode="sequential")),
+            params=params, device=device)
+        try:
+            for i in todo:
+                alone[(i, v)] = srv.submit_and_wait(prompts[i])["tokens"]
+        finally:
+            srv.stop()
+    mixed = [i for i, r in enumerate(main)
+             if r["tokens"] != alone[(i, r["version"])]]
+    require(not mixed, f"(a) responses {mixed} differ from the same request "
+                       "served alone on its version")
+    lap("alone")
+
+    # (b), (c): paged, slab, paged again, all without the swap.
+    runs = {}
+    for name, layout in (("paged", "paged"), ("slab", "slab"),
+                         ("paged_again", "paged")):
+        srv = server(kv_layout=layout)
+        try:
+            runs[name] = _tokens(drive_server(srv, prompts, clients)[0])
+        finally:
+            srv.stop()
+        lap(name)
+    differ = [i for i, (a, b) in enumerate(zip(runs["paged"], runs["slab"]))
+              if a != b]
+    require(not differ, f"(b) the slab layout's tokens differ from the "
+                        f"paged layout's for requests {differ}")
+    require(runs["paged_again"] == runs["paged"],
+            "(c) a fixed-seed rerun gave different tokens")
+
+    # (d) at f32.
+    by_len = sorted(prompts, key=len)
+    ratios = serving_logits_check(
+        device, cfg, by_len[0][:scfg_kw.get("prefill_chunk", 32)],
+        by_len[-1], scfg_kw)
+    lap("f32_check")
+    costs = prefill_costs(device, cfg, params_a, prompts, scfg_kw)
+    lap("prefill_costs")
+    # The profiled iteration: every row live, as the traffic's first
+    # max_slots requests are together, each halfway through its tokens.
+    r = scfg_kw["max_slots"]
+    prof_pos = [len(p) + scfg_kw["max_new_tokens"] // 2 for p in prompts[:r]]
+    prof_pos += [prof_pos[-1]] * (r - len(prof_pos))
+    breakdown = profile_decode_step(device, cfg, params_a, scfg_kw, prof_pos)
+    lap("profile")
+
+    ttft = [1e3 * (r["timing"]["first_token"] - r["timing"]["enqueue"])
+            for r in main]
+    n_tokens = sum(len(r["tokens"]) for r in main)
+    step_ms, chunk_ms, prefill_ms = (timers[n].ms() for n in (
+        "decode_step", "chunk_row", "prefill_row"))
+    seq_step_ms = seq_timers["decode_step"].ms()
+    live = timers["decode_step"].live
+
+    def med(xs):
+        return stats_mod.median(xs) if xs else None
+
+    summary = dict(
+        window_s=window, seq_window_s=seq_window,
+        speedup=seq_window / window, tokens=n_tokens,
+        tokens_per_s=n_tokens / window,
+        ttft_p50_ms=float(np.percentile(ttft, 50)),
+        ttft_p99_ms=float(np.percentile(ttft, 99)),
+        step_ms=med(step_ms), steps=len(step_ms), chunk_ms=med(chunk_ms),
+        chunks=len(chunk_ms), prefills=len(prefill_ms),
+        prefill_ms=med(prefill_ms), seq_step_ms=med(seq_step_ms),
+        live_rows_mean=float(np.mean(live)) if live else None,
+        live_rows_full=(sum(n == r for n in live) / len(live)
+                        if live else None),
+        publish_ms=publish_ms, zerocopy=st["publish_zerocopy"],
+        pool_bytes=pool_bytes, max_memory_allocated=peak,
+        versions={v: versions.count(v) for v in (1, 2)},
+        logit_ratios=ratios, breakdown=breakdown, prefill_costs=costs,
+        profiled_positions=prof_pos, host=host,
+        flash_launches=serve_launches, prefix_hits=st["prefix_hits"],
+        prefill_chunks=st["prefill_chunks"], stats_steps=st["steps"],
+        walls=walls,
+    )
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.2f} ms"
+
+    print(f"[serve] {label} host at the start: "
+          + ", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in host.items()))
+    print(f"[serve] {label} {n_requests} requests from {clients} clients, "
+          f"prompts {prompt_len[0]}-{hi} tokens, {scfg_kw}: window "
+          f"{window:.3f} s, {n_tokens} tokens, {summary['tokens_per_s']:.1f} "
+          f"decode tokens/s; versions {summary['versions']}")
+    print(f"[serve] {label} TTFT p50 {summary['ttft_p50_ms']:.1f} ms, p99 "
+          f"{summary['ttft_p99_ms']:.1f} ms; decode step median "
+          f"{ms(summary['step_ms'])} over {len(step_ms)} steps, live rows "
+          f"per step mean {summary['live_rows_mean']:.2f}, all {r} live in "
+          f"{summary['live_rows_full']:.3f} of them; prefill chunk median "
+          f"{ms(summary['chunk_ms'])} over {len(chunk_ms)} chunks, whole "
+          f"prefill median {ms(summary['prefill_ms'])} over "
+          f"{len(prefill_ms)}")
+    print(f"[serve] {label} mode=sequential on the same traffic: window "
+          f"{seq_window:.3f} s, decode step median "
+          f"{ms(summary['seq_step_ms'])}; continuous batching speedup "
+          f"{summary['speedup']:.2f}x")
+    print(f"[serve] {label} publish of a {_tree_nbytes(params_b)} B tree: "
+          + ("not measured" if publish_ms is None else f"{publish_ms:.1f} ms")
+          + f"; zero-copy adoptions {summary['zerocopy']} (the bank on "
+          f"{device} copies a leaf it cannot adopt, and the card's always)")
+    print(f"[serve] {label} KV pool {pool_bytes} B; max_memory_allocated "
+          f"{peak}; flash kernel launches while serving {serve_launches}")
+    ch, wh = costs["chunked_ms"], costs["whole_ms"]
+    print(f"[serve] {label} prefill costs: {len(ch)} prompts over the chunk, "
+          f"in chunks {sum(ch):.1f} ms (median {ms(med(ch))}) vs whole "
+          f"{sum(wh):.1f} ms (median {ms(med(wh))}); {costs['n_short']} "
+          f"short prompts; one batch-1 prefill of {scfg_kw.get('prefill_chunk', 32)}"
+          f" tokens {ms(costs['batch1_ms'])} vs one {r}-row batched "
+          f"{ms(costs['batched_ms'])}")
+    print(f"[serve] {label} checks: (a) {n_requests} responses equal the "
+          f"request alone on its version, (b) slab == paged, (c) rerun "
+          f"equal, (d) f32 logits vs full forward "
+          + ", ".join(f"{k} {v:.2e}" for k, v in ratios.items())
+          + f", (e) no failure, {st['swaps']} swaps")
+    print(f"[serve] {label} walls, s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    print_breakdown("[serve]", f"{label} paged decode iteration "
+                    f"({r} rows live at positions {prof_pos}):", breakdown)
+    return summary
+
+
+def _serve_program(party, addresses, device, cfg_kw, scfg_kw, n_requests,
+                   prompt_len):
+    """Phase 7's two-process run, one party: ``fed.serve("alice", ...)``;
+    the requests go through the handle (their responses cross to bob over
+    TCP); mid-load a ``fed_aggregate(..., publish_to=handle)`` of both
+    parties' trees hot-publishes version 2. Alice then serves every
+    request alone on its version (``mode="sequential"``) and reports the
+    mismatches."""
+    import torch
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import mesh
+    from rayfed_tpu_torch.federated import fed_aggregate
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.serving import server as srv_mod
+
+    cfg = tfm.TransformerConfig(**cfg_kw)
+    on_cuda = torch.device(device).type == "cuda"
+    root, other = (n for n, _ in PARTIES)
+    fed.init(addresses=addresses, party=party, logging_level="warning",
+             transport="cuda" if on_cuda else "tcp",
+             config={"cross_silo_comm": FED_COMM, "serving": scfg_kw})
+    dev = mesh.get_party_device() if on_cuda else torch.device("cpu")
+    seeds = dict(PARTIES)
+
+    @fed.remote
+    def party_tree(seed):
+        return tfm.init_params(SERVE_SEED + 100 + seed, cfg, device=dev)
+
+    params1 = (tfm.init_params(SERVE_SEED + 100, cfg, device=dev)
+               if party == root else None)
+    handle = fed.serve(root, cfg, params=params1,
+                       device=None if on_cuda else "cpu")
+    trees = {n: party_tree.party(n).remote(s) for n, s in seeds.items()}
+    prompts = serve_prompts(n_requests, prompt_len[0], prompt_len[1],
+                            cfg.vocab, seed=SERVE_SEED + 1)
+    half = n_requests // 2
+    t0 = time.perf_counter()
+    futs = [handle.submit(p) for p in prompts[:half]]
+    fed_aggregate(trees, op="mean", publish_to=handle)
+    if party == root:
+        bank = srv_mod.get_server().bank
+        deadline = time.monotonic() + 120
+        while bank.current_version() < 2 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        in_flight = srv_mod.get_server().stats()["active"]
+    futs += [handle.submit(p) for p in prompts[half:]]
+    resps = [fed.get(f) for f in futs]
+    wall = time.perf_counter() - t0
+    stats = fed.get(handle.stats())
+    out = dict(versions=[r["version"] for r in resps],
+               tokens=[r["tokens"] for r in resps], wall_s=wall,
+               swaps=stats["swaps"], party_device=str(dev))
+    if party == root:
+        srv = srv_mod.get_server()
+        refs = {1: params1, 2: srv.bank.get(2)}
+        alone = {}
+        for v, params in refs.items():
+            ref = srv_mod.InferenceServer(
+                cfg, srv_mod.ServingConfig(**dict(scfg_kw, mode="sequential")),
+                params=params, device=dev, name=f"ref{v}")
+            try:
+                for i, r in enumerate(resps):
+                    if r["version"] == v:
+                        alone[i] = ref.submit_and_wait(prompts[i])["tokens"]
+            finally:
+                ref.stop()
+        out.update(mismatched=[i for i, r in enumerate(resps)
+                               if r["tokens"] != alone[i]],
+                   in_flight_at_publish=in_flight,
+                   max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                         if on_cuda else None))
+    fed.get(handle.shutdown())
+    fed.shutdown()
+    return out
+
+
+def phase_serve_fed(device, cfg, *, scfg_kw=None,
+                    n_requests=SERVE_FED_REQUESTS,
+                    prompt_len=SERVE_PROMPT_LEN, label="",
+                    timeout_s=SERVE_FED_TIMEOUT_S):
+    """Phase 7's two-process run (:func:`_serve_program`): every response
+    names its version, both parties got the same responses, and each
+    equals alice's local reference for its version; both versions
+    served."""
+    import dataclasses
+
+    scfg_kw = dict(SERVE_CFG if scfg_kw is None else scfg_kw)
+    hi = min(prompt_len[1], scfg_kw["max_len"] - scfg_kw["max_new_tokens"])
+    results, wall = spawn_parties(
+        _serve_program, (device, dataclasses.asdict(cfg), scfg_kw,
+                         n_requests, (prompt_len[0], hi)), timeout_s)
+    root, other = (n for n, _ in PARTIES)
+    res = results[root]
+    require(results[other]["tokens"] == res["tokens"]
+            and results[other]["versions"] == res["versions"],
+            "the parties got different responses")
+    require(set(res["versions"]) == {1, 2},
+            f"the hot publish did not serve: versions {res['versions']}")
+    require(not res["mismatched"],
+            f"responses {res['mismatched']} differ from alice's reference "
+            "for their version")
+    require(res["swaps"] == 2, f"swaps {res['swaps']}")
+    print(f"[serve-fed] {label} fed.serve on {root} ({res['party_device']}), "
+          f"{n_requests} requests through the handle, fed_aggregate("
+          f"publish_to=) mid-load ({res['in_flight_at_publish']} requests in "
+          f"flight when version 2 landed): versions {res['versions']}, all "
+          f"equal to {root}'s reference; {res['wall_s']:.2f} s from the "
+          f"first submit to the last response, {wall:.1f} s from spawn to "
+          f"exit; {root} max_memory_allocated {res['max_memory_allocated']}")
+    return dict(results=results, wall_s=wall)
+
+
+def phase_serving_all(serve_cfg, smi):
+    """Phase 7: the serving plane, at full depth in this process, then at
+    SERVE_FED_LAYERS in two party processes."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    t7 = time.perf_counter()
+    phase_serving("cuda", serve_cfg, label=f"on {smi}:")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[serve-fed] reduced " + json.dumps(
+        {"n_layers": [FLAGSHIP["n_layers"], SERVE_FED_LAYERS]}))
+    phase_serve_fed("cuda", dataclasses.replace(
+        serve_cfg, n_layers=SERVE_FED_LAYERS), label=f"on {smi}:")
+    print(f"[serve] phase 7 took {time.perf_counter() - t7:.1f} s on {smi}")
+
+
+def main(argv):
     import torch
 
     name, smi = phase_device()
+    if argv == ["--serving-only"]:
+        # Phase 7 alone, in a fresh process (no kernel line).
+        from rayfed_tpu_torch.models import transformer as tfm
+
+        phase_serving_all(tfm.TransformerConfig(
+            vocab=FLAGSHIP["vocab"], d_model=FLAGSHIP["d_model"],
+            n_heads=FLAGSHIP["n_heads"], n_layers=FLAGSHIP["n_layers"],
+            d_ff=FLAGSHIP["d_ff"]), smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
+    require(not argv, f"unknown arguments {argv}; the only option is "
+                      "--serving-only")
     phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
 
     from rayfed_tpu_torch.models import transformer as tfm
@@ -1711,6 +2503,13 @@ def main():
     phase_programs("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                    label=f"on {smi}:")
 
+    import dataclasses
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serving_all(dataclasses.replace(cfg, n_layers=FLAGSHIP["n_layers"]),
+                      smi)
+
     line = []
     for k in KERNELS:
         r = kern[k["name"]]
@@ -1726,7 +2525,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        main()
+        main(sys.argv[1:])
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

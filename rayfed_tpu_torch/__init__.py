@@ -24,7 +24,10 @@ card; FedAvg over planned topologies (federated.py: ``fed_aggregate``,
 JAX package's module paths (models/transformer.py, models/mlp.py,
 models/cnn.py, ops/flash_attention.py, ops/aggregate.py,
 parallel/train.py, data.py), with the JAX package's example programs in
-examples/.
+examples/; and the serving plane (``serve``, ``submit_request``,
+``ServeHandle``; serving/, models/decode.py, models/speculative.py):
+continuous-batching inference over a slab or paged KV pool with hot model
+swap, fed by ``fed_aggregate(publish_to=)``.
 It never imports jax or rayfed_tpu. Entry points run on CUDA unless the
 caller passes device="cpu"; the attention kernels are hand-written for
 Hopper (csrc/) and built at first use. Planes not ported yet are absent,
@@ -49,6 +52,11 @@ from rayfed_tpu_torch.resilience import (  # noqa: F401
     liveness_view,
     party_state,
 )
+from rayfed_tpu_torch.serving import (  # noqa: F401
+    ServeHandle,
+    serve,
+    submit_request,
+)
 
 __version__ = "0.1.0"
 
@@ -67,5 +75,8 @@ __all__ = [
     "fault_trace",
     "liveness_view",
     "party_state",
+    "serve",
+    "submit_request",
+    "ServeHandle",
     "__version__",
 ]

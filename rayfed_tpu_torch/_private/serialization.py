@@ -419,6 +419,37 @@ def _as_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
     return t.view(carried[1]) if carried is not None else t
 
 
+def shm_buf_type():
+    """The native wire's ``ShmBuf`` type (a view of one adopted shm-ring
+    chunk), or None while the native module is not loaded."""
+    import sys
+
+    fw = sys.modules.get("rayfed_tpu_torch._fastwire")
+    return getattr(fw, "ShmBuf", None)
+
+
+_SHM_ATTR = "_fed_shm_chunk"
+
+
+def shm_chunk(t: torch.Tensor):
+    """The ``ShmBuf`` a decoded tensor views zero-copy, or None. The
+    serving plane's publish adopts such leaves instead of copying them
+    (``serving/publish.py``); a tensor made from one (a copy, a cast, a
+    move to the card) carries no tag."""
+    return getattr(t, _SHM_ATTR, None)
+
+
+def _shm_owner(payload):
+    """The ``ShmBuf`` a received payload is a view of, or None."""
+    shm_buf = shm_buf_type()
+    if shm_buf is None:
+        return None
+    if isinstance(payload, shm_buf):
+        return payload
+    obj = getattr(payload, "obj", None)
+    return obj if isinstance(obj, shm_buf) else None
+
+
 def _tensor_to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """Stage one tensor leaf for the wire: (C-contiguous host array, wire
     dtype name). A CUDA tensor is copied to host; dtypes numpy lacks are
@@ -689,6 +720,7 @@ def decode_tree(meta: dict, payload, sharded_fn=None) -> Any:
     arrays) are assembled into one dense tensor unless ``sharded_fn(desc,
     payload)`` places them."""
     spec = _spec_from_wire(meta["spec"])
+    shm = _shm_owner(payload)
     leaves = []
     for d in meta["leaves"]:
         if d["t"] == "arr":
@@ -710,6 +742,10 @@ def decode_tree(meta: dict, payload, sharded_fn=None) -> Any:
                 # consumer sees the type it sent (values carry the
                 # wire dtype's rounding).
                 t = t.to(_torch_dtype(odt))
+            elif shm is not None and arr.flags.writeable:
+                # Zero-copy over the chunk (``_as_tensor`` copies only a
+                # read-only buffer): record the chunk on the tensor.
+                setattr(t, _SHM_ATTR, shm)
             leaves.append(t)
         elif d["t"] == "sharr":
             if sharded_fn is not None:

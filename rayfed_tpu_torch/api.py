@@ -75,7 +75,6 @@ _UNPORTED_BLOCKS = {
         "ROADMAP Queue 1 item 17"
     ),
     "collective": "the cross-party collective lane is ROADMAP Queue 1 item 12",
-    "serving": "the serving plane is ROADMAP Queue 1 item 9",
     "membership": "elastic membership is ROADMAP Queue 1 item 10",
     "checkpoint": "job checkpoints are ROADMAP Queue 1 item 10",
     "privacy": "the privacy plane is ROADMAP Queue 1 item 11",
@@ -156,9 +155,11 @@ def init(
             reachable), ``resilience`` (fault schedule, liveness),
             ``tenancy``, ``kv_store``, ``aggregation`` (``topology``,
             ``group_size``: the job's ``fed_aggregate`` default),
-            ``party_mesh`` (``device_ids``: the party's one card). The
+            ``party_mesh`` (``device_ids``: the party's one card),
+            ``serving`` (:class:`~rayfed_tpu_torch.config.ServingConfig`
+            keys: the job default of ``fed.serve``). The
             blocks of planes not ported yet (``jax_distributed``,
-            ``collective``, ``serving``, ``membership``, ``checkpoint``,
+            ``collective``, ``membership``, ``checkpoint``,
             ``privacy``, ``telemetry``), the ``aggregation.async_*``
             keys and a ``party_mesh`` over more than one device are
             refused.
@@ -186,6 +187,11 @@ def init(
     config = config or {}
     transport = transport or config.get("transport", "tcp")
     _refuse_unported(config, transport)
+    # Validated before any state is built, so a bad serving key rejects
+    # init here rather than at the first fed.serve.
+    serving_dict = config.get("serving")
+    if serving_dict is not None:
+        fed_config.ServingConfig.from_dict(serving_dict)
     # The party's card: bound when the job places on it (transport
     # 'cuda') or names it (party_mesh); resolved here so a multi-device
     # mesh, or no card at all, is refused before any state is built.
@@ -348,6 +354,14 @@ def init(
             group_size=aggregation_dict.get("group_size"),
         )
 
+    # Serving-plane job defaults (docs/serving.md): stored like the
+    # aggregation topology default — every driver reads the same dict, so
+    # a later fed.serve() builds the identical engine on every party.
+    if serving_dict is not None:
+        from rayfed_tpu_torch.serving import client as _serving_client
+
+        _serving_client.set_default_serving_config(serving_dict)
+
     # Resilience wiring (docs/resilience.md). The fault injector wraps
     # the just-started sender proxy BEFORE the readiness barrier so a
     # schedule can exercise init-time faults too; the liveness monitor
@@ -458,6 +472,15 @@ def _shutdown_impl(intended: bool = True):
     _inject.uninstall()
     internal_kv.kv_reset()
     clear_global_context(wait_for_sending=wait_for_sending)
+    # Serving engines hold a live thread and the pool's device memory;
+    # stop them before the proxies so a submit task in flight fails
+    # loudly instead of wedging teardown.
+    _serving_server = sys.modules.get("rayfed_tpu_torch.serving.server")
+    if _serving_server is not None:
+        _serving_server.stop_all_servers()
+    _serving_client = sys.modules.get("rayfed_tpu_torch.serving.client")
+    if _serving_client is not None:
+        _serving_client.set_default_serving_config(None)
     barriers.stop_proxies(job_name=ctx.get_job_name())
     fed_config.reset_config_cache()
     # FedSanitizer probe state is per-job: a new job's seq ids start over,

@@ -31,8 +31,9 @@ The tasks are the JAX package's, in the same order, so a job whose
 parties run different packages lays out one DAG; and their arithmetic is
 the JAX package's bit for bit (``ops/aggregate.tree_scale`` /
 ``tree_divide``: scalars rounded to the leaf dtype, a true division).
-Async rounds, secure aggregation, publishing to a serving handle and the
-same-mesh fast path are not ported yet and raise.
+``publish_to=`` hot-publishes the aggregate into a serving engine
+(``fed.serve``'s handle) as its next version. Async rounds, secure
+aggregation and the same-mesh fast path are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -113,10 +114,14 @@ def fed_aggregate(
         the survivor count).
     plan: a pre-computed :class:`~rayfed_tpu_torch.topology.TopologyPlan`
         — overrides ``topology``/``liveness``.
-    mode, buffer_k, staleness_fn, round_tag, secure, publish_to: the JAX
-        package's async rounds, secure aggregation and serving hookup,
-        not ported yet: anything but their defaults raises
-        ``NotImplementedError`` naming the ROADMAP item that brings it.
+    publish_to: a :class:`~rayfed_tpu_torch.serving.ServeHandle`; the
+        aggregate is published to it as the served model's next version
+        (an owner-push of the tree when the root is not the serving
+        party).
+    mode, buffer_k, staleness_fn, round_tag, secure: the JAX package's
+        async rounds and secure aggregation, not ported yet: anything
+        but their defaults raises ``NotImplementedError`` naming the
+        ROADMAP item that brings it.
     """
     if not objs:
         raise ValueError("fed_aggregate needs at least one party's object")
@@ -129,11 +134,6 @@ def fed_aggregate(
         raise NotImplementedError(
             "fed_aggregate(mode='async'): buffered async rounds are ROADMAP "
             "Queue 1 item 10, not ported to rayfed_tpu_torch yet"
-        )
-    if publish_to is not None:
-        raise NotImplementedError(
-            "fed_aggregate(publish_to=...): the serving plane is ROADMAP "
-            "Queue 1 item 9, not ported to rayfed_tpu_torch yet"
         )
     if mode != "sync":
         raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
@@ -197,6 +197,8 @@ def fed_aggregate(
         root = _scale.party(root_owner).remote(root, float(len(plan.parties)))
     elif op == "wmean":
         root = _scale_weighted.party(root_owner).remote(root)
+    if publish_to is not None:
+        publish_to.publish(root)
     return root
 
 

@@ -183,12 +183,19 @@ def causal_attention(q, k, v, q_offset=None):
     """Standard causal attention on (B, S, H, Dh); softmax in f32.
 
     ``q_offset`` shifts query positions (used by sequence-parallel callers
-    where this shard's queries start at a global offset).
+    where this shard's queries start at a global offset). A ``(B,)``
+    tensor gives each batch row its own offset (the serving pool's cached
+    decode, where every row sits at its own position); the mask is then
+    (B, 1, Sq, Sk).
     """
     sq, sk, dh = q.shape[1], k.shape[1], q.shape[-1]
     scale = dh**-0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    q_pos = torch.arange(sq, device=q.device)[:, None] + (q_offset or 0)
+    if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
+        q_pos = (q_offset[:, None, None, None]
+                 + torch.arange(sq, device=q.device)[:, None])
+    else:
+        q_pos = torch.arange(sq, device=q.device)[:, None] + (q_offset or 0)
     mask = q_pos >= torch.arange(sk, device=q.device)[None, :]
     scores = torch.where(mask, scores, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)

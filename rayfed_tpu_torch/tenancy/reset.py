@@ -151,6 +151,18 @@ def _hook_qos() -> None:
         get_ledger().clear_job(job)
 
 
+def _hook_serving_client() -> None:
+    from rayfed_tpu_torch.serving.client import set_default_serving_config
+
+    set_default_serving_config(None)
+
+
+def _hook_serving_server() -> None:
+    from rayfed_tpu_torch.serving.server import stop_all_servers
+
+    stop_all_servers()
+
+
 def _hook_qos_global() -> None:
     from rayfed_tpu_torch.tenancy.qos import reset_qos
 
@@ -171,6 +183,8 @@ RESET_HOOKS: Dict[str, List[Tuple[Callable[[], None], str]]] = {
     "rayfed_tpu_torch.resilience.liveness": [(_hook_liveness, JOB)],
     "rayfed_tpu_torch.resilience.inject": [(_hook_inject, JOB)],
     "rayfed_tpu_torch.resilience.linkhealth": [(_hook_linkhealth, JOB)],
+    "rayfed_tpu_torch.serving.server": [(_hook_serving_server, JOB)],
+    "rayfed_tpu_torch.serving.client": [(_hook_serving_client, JOB)],
     "rayfed_tpu_torch.topology": [(_hook_topology, JOB)],
     "rayfed_tpu_torch.proxy.barriers": [(_hook_barriers, JOB)],
     "rayfed_tpu_torch.proxy.rendezvous": [(_hook_rendezvous, JOB)],

@@ -467,7 +467,6 @@ _REFUSED = [
     ({"party_mesh": {"device_ids": [0, 1]}}, "item 8"),
     ({"collective": {"coordinator": "127.0.0.1:1"}}, "item 12"),
     ({"aggregation": {"async_buffer_k": 2}}, "item 10"),
-    ({"serving": {}}, "item 9"),
     ({"membership": {}}, "item 10"),
     ({"checkpoint": {"dir": "x"}}, "item 10"),
     ({"privacy": {"quantize": "int8"}}, "item 11"),

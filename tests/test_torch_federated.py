@@ -244,7 +244,6 @@ def test_fedavg_trainer_converges():
 _REFUSED_CALLS = [
     (dict(mode="async"), "item 10"),
     (dict(secure=True), "item 11"),
-    (dict(publish_to=object()), "item 9"),
 ]
 
 

@@ -357,6 +357,46 @@ def test_chip_smoke_programs_phase_at_tiny_size_on_cpu():
         [("bob", "alice"), ("alice", "bob")] * chip_smoke.PROGRAM_ROUNDS
 
 
+TINY_SERVE = dict(max_slots=4, max_len=96, max_new_tokens=8, max_pending=64)
+
+
+def test_chip_smoke_serving_phase_on_cpu_at_tiny_size():
+    # Phase 7's single-process run at tiny size: the phase itself fails on
+    # any of its checks (a)-(e); prompts span the prefill chunk (32).
+    cfg = tfm.tiny_config(vocab=512)
+    out = chip_smoke.phase_serving("cpu", cfg, scfg_kw=TINY_SERVE,
+                                   n_requests=12, clients=4,
+                                   prompt_len=(16, 80), label="tiny")
+    assert sum(out["versions"].values()) == 12 and out["versions"][2] > 0
+    assert out["steps"] > 0 and out["chunks"] > 0 and out["prefills"] > 0
+    assert out["tokens"] == 12 * TINY_SERVE["max_new_tokens"]
+    assert all(r <= chip_smoke.SERVE_LOGIT_TOL
+               for r in out["logit_ratios"].values())
+    assert len(out["logit_ratios"]) == 4
+    # A CPU run: no device numbers, no kernel launches.
+    assert out["breakdown"] is None and out["max_memory_allocated"] is None
+    assert all(n == 0 for n in out["flash_launches"].values())
+
+
+def test_chip_smoke_serve_fed_phase_on_cpu_at_tiny_size():
+    # Phase 7's two-process run at tiny size: fed.serve in two spawned
+    # parties, fed_aggregate(publish_to=) mid-load; the phase fails unless
+    # both versions served and every response matches alice's reference.
+    out = chip_smoke.phase_serve_fed("cpu", tfm.tiny_config(vocab=512),
+                                     scfg_kw=TINY_SERVE, n_requests=6,
+                                     prompt_len=(16, 60), timeout_s=120)
+    res = out["results"]["alice"]
+    assert res["mismatched"] == [] and set(res["versions"]) == {1, 2}
+
+
+def test_serve_prompts_are_seeded_and_in_range():
+    a = chip_smoke.serve_prompts(20, 16, 512, 32768)
+    assert a == chip_smoke.serve_prompts(20, 16, 512, 32768)
+    assert all(16 <= len(p) <= 512 for p in a)
+    assert all(1 <= t < 32768 for p in a for t in p)
+    assert a != chip_smoke.serve_prompts(20, 16, 512, 32768, seed=8)
+
+
 def test_port_reset_hooks_run_clean_and_cover_its_singletons():
     from rayfed_tpu_torch.tenancy import reset
 
