@@ -17,6 +17,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --serving-only   # phases 1 and 7 alone
+    python3 chip_smoke.py --async-only     # phases 1, 2 and 8 alone
 
 Phases:
 
@@ -29,7 +30,7 @@ Phases:
 3. kernels: each flash kernel against its plain PyTorch version on the
    card, the bf16 ones and the f32 ones, at the flagship attention shape
    and at small shapes (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every
-   head dim); at the flagship shape each f32 output (O, lse, dq, dk, dv)
+   head dim, D = 80 zero-padded to 128, B*H = 65536); at the flagship shape each f32 output (O, lse, dq, dk, dv)
    is also held to a tenth of the error of one TF32 product (the plain
    version run again with ``allow_tf32``), which an f32 kernel computing
    in TF32 fails; times of kernel, plain version and
@@ -107,7 +108,35 @@ Phases:
    kernels: cached decode runs the plain attention, as the JAX package's
    does.
 
-It needs a CUDA card and exits non-zero without one. The last two lines
+8. async: FedBuff rounds, elastic membership and job checkpoints
+   (``rayfed_tpu_torch.async_rounds``, ``membership``, ``checkpoint``) at
+   the same width and depth, three spawned party processes on the card
+   with ``transport="cuda"``: alice is the async root (``async_buffer_k``
+   2, the JAX package's other defaults), the membership coordinator and
+   a serving engine each version publishes into; bob trains every round
+   (two AdamW steps through the bf16 K1-K3), slowed by a seeded
+   straggler schedule; carol starts outside the roster, ``fed.join``s once
+   version 1 is out (her bootstrap is the bank's newest version), offers
+   once and ``fed.leave``s. After version 2 alice cuts
+   ``save_job_state`` (her model, the aggregator's buffer and round
+   tags, the membership snapshot, the bank) and bob his model and AdamW
+   state; an aggregator rebuilt from alice's ``restore_job_state`` takes
+   the same next offers as the live one. Checks: (a) every version
+   equals a CPU fold (``reduce_by_plan`` + ``tree_mix``) of the recorded
+   offers in their arrival order, bitwise, (b) the rebuilt aggregator's
+   next version equals the live one's bitwise, (c) every party saw the
+   same view at each sync, the join and the leave landed as epoch bumps,
+   carol's bootstrap is the bits of the version it names, (d) some
+   contribution arrived stale, (e) the loss fell, (f) both cuts restore
+   bitwise, (g) every version reached the bank, (h) the trainers
+   launched every bf16 kernel; every party exits 0. Prints per version
+   k, each contribution's staleness and weight, the fold's and the
+   publish's ms (CUDA events), each offer's push, the join and leave
+   ms, each cut's bytes and save and restore ms, each party's peak
+   memory.
+
+Every phase prints its wall seconds. It needs a CUDA card and exits
+non-zero without one. The last two lines
 are the kernel table and ``{"ok": true, "device": {...}}`` as JSON.
 """
 
@@ -579,7 +608,11 @@ def phase_kernels(device, batch, seq, heads, head_dim, smi):
                       (2, 128, 128, 2, 16, 0), (1, 200, 200, 2, 128, 0),
                       (1, 256, 512, 4, 128, 256), (1, 136, 328, 3, 128, 150),
                       (2, 64, 64, 2, 128, 0), (1, 72, 200, 3, 128, 128),
-                      (1, 100, 90, 2, 64, 20)]:
+                      (1, 100, 90, 2, 64, 20),
+                      # D = 80 runs zero-padded on the D = 128 kernels.
+                      (1, 200, 200, 2, 80, 0), (2, 96, 160, 3, 80, 64),
+                      # B*H = 65536 blocks on the grid's x dimension.
+                      (4096, 64, 64, 16, 64, 0)]:
             check_kernels(device, *shape, seed=1, dtype=dtype)
         results.update(time_kernels(device, batch, seq, heads, head_dim,
                                     dtype, smi))
@@ -1228,6 +1261,8 @@ def fed_party(program, party, addresses, out_path, *args):
         result = dict(ok=True, **program(party, addresses, *args))
     except BaseException:  # noqa: BLE001 - reported to the parent
         result = dict(ok=False, error=traceback.format_exc())
+        print(f"party {party} failed:\n{result['error']}", file=sys.stderr,
+              flush=True)
     with open(out_path, "w") as f:
         json.dump(result, f)
     sys.exit(0 if result["ok"] else 1)
@@ -1268,20 +1303,22 @@ def phase_fed(device, cfg, *, batch, seq, rounds=FED_ROUNDS, local_steps=2,
     return check_fed(results, device, wall, label, io_path)
 
 
-def spawn_parties(program, args, timeout_s):
+def spawn_parties(program, args, timeout_s, names=None):
     """Run ``program(party, addresses, *args)`` in one spawned process per
-    party over localhost TCP; returns each party's result and the wall
-    time from spawn to exit. Fails on a party's error, a missing result
-    or the join timeout (every process is stopped first)."""
+    party (``names``, by default ``PARTIES``') over localhost TCP; returns
+    each party's result and the wall time from spawn to exit. Fails on a
+    party's error, a missing result or the join timeout (every process is
+    stopped first)."""
     import multiprocessing
 
     mp = multiprocessing.get_context("spawn")
-    addresses = {n: f"127.0.0.1:{_free_port()}" for n, _ in PARTIES}
+    names = names or [n for n, _ in PARTIES]
+    addresses = {n: f"127.0.0.1:{_free_port()}" for n in names}
     with tempfile.TemporaryDirectory() as tmp:
-        outs = {n: os.path.join(tmp, f"{n}.json") for n, _ in PARTIES}
+        outs = {n: os.path.join(tmp, f"{n}.json") for n in names}
         procs = {n: mp.Process(target=fed_party, name=f"party-{n}", args=(
             program, n, addresses, outs[n]) + tuple(args))
-            for n, _ in PARTIES}
+            for n in names}
         t0 = time.perf_counter()
         for p in procs.values():
             p.start()
@@ -2435,10 +2472,613 @@ def phase_serving_all(serve_cfg, smi):
     print(f"[serve] phase 7 took {time.perf_counter() - t7:.1f} s on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: async rounds, elastic membership and a job checkpoint
+# ---------------------------------------------------------------------------
+
+# The async job: alice is the root (the FedBuff aggregator, the membership
+# coordinator, and the serving engine its versions publish into); bob
+# trains every round; carol starts outside the roster, joins once version
+# 1 is out, offers in round ASYNC_CAROL_ROUND and leaves.
+ASYNC_PARTIES = ("alice", "bob", "carol")
+ASYNC_ROUNDS = 5
+ASYNC_K = 2
+ASYNC_JOIN_ROUND = 2
+ASYNC_CAROL_ROUND = 3
+ASYNC_CUT_VERSION = 2
+ASYNC_LOCAL_STEPS = 2
+ASYNC_TOKEN = "chip-smoke-async"
+ASYNC_TIMEOUT_S = 600
+# bob's seeded straggler schedule: a delay drawn from the seed before each
+# of his local trainings, plus a stall in the round before carol's offer
+# that also lasts until her offer (a newer round tag) has landed, so that
+# his arrives stale.
+ASYNC_STRAGGLER = dict(seed=8, jitter_s=0.5, stall_round=ASYNC_CAROL_ROUND - 1,
+                       stall_s=8.0)
+
+
+def _async_trainers(r):
+    """The parties that train and offer in round ``r``."""
+    return ["bob"] + (["carol"] if r == ASYNC_CAROL_ROUND else [])
+
+
+def straggler_delays(rounds, seed, jitter_s, stall_round, stall_s):
+    """bob's delay before each round's local training, in seconds."""
+    import random
+
+    rng = random.Random(seed)
+    return [rng.uniform(0.0, jitter_s) + (stall_s if r == stall_round else 0.0)
+            for r in range(rounds)]
+
+
+class _DeviceTimer:
+    """Milliseconds between marks: CUDA events on a card (read after a
+    synchronize), the host clock on the CPU."""
+
+    def __init__(self, on_cuda):
+        self.on_cuda = on_cuda
+
+    def mark(self):
+        import torch
+
+        if not self.on_cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def ms(self, a, b):
+        import torch
+
+        if not self.on_cuda:
+            return 1e3 * (b - a)
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+
+def _host_tree(tree):
+    from rayfed_tpu_torch import tree_util
+
+    return tree_util.tree_map(lambda x: x.detach().cpu(), tree)
+
+
+def _bitwise_equal(a, b):
+    """Whether two trees hold the same bits, leaf by leaf, dicts matched
+    by key."""
+    import torch
+
+    from rayfed_tpu_torch import tree_util
+
+    xs, spec = tree_util.tree_flatten(_host_tree(a))
+    ys = tree_util.leaves_like(_host_tree(b), spec)
+    return len(xs) == len(ys) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(_int_view(x), _int_view(y)) for x, y in zip(xs, ys))
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def cpu_async_fold(offers, k, server_lr):
+    """The versions an async session publishes from ``offers`` (the
+    accepted ones in arrival order: ``party``, host ``tree``, effective
+    ``weight``), folded on the CPU as ``BufferedAggregator`` folds them:
+    ``reduce_by_plan`` over the arrival slots, then ``tree_mix``."""
+    from rayfed_tpu_torch import topology
+    from rayfed_tpu_torch.ops.aggregate import reduce_by_plan, tree_mix
+
+    versions, current, buf = [], None, []
+    for i, off in enumerate(offers):
+        buf.append((f"{off['party']}#{i}", off))
+        if len(buf) == k:
+            plan = topology.plan_buffer([s for s, _ in buf])
+            mean = reduce_by_plan(plan, {s: o["tree"] for s, o in buf},
+                                  weights={s: o["weight"] for s, o in buf})
+            current = tree_mix(current, mean, server_lr)
+            versions.append(current)
+            buf = []
+    return versions
+
+
+def _wait_for(pred, what, timeout_s):
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            raise SmokeError(f"timed out after {timeout_s} s waiting for {what}")
+        time.sleep(0.02)
+
+
+def _async_program(party, addresses, device, cfg_kw, batch, seq, workdir,
+                   straggler):
+    """Phase 8's driver, the same program in every party from the round
+    it enters: a membership sync at the top of each round (the one place
+    the roster changes), the root's current model fetched, the round's
+    trainers each train from it, and ``async_round`` offers their params
+    to alice's buffer, which publishes every ``ASYNC_K`` into the serving
+    engine alice hosts. alice records each offer, times each fold and
+    publish, cuts ``save_job_state`` once version ``ASYNC_CUT_VERSION`` is
+    out, and feeds the offers after the cut to a second aggregator
+    rebuilt from ``restore_job_state``."""
+    import threading
+
+    import torch
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import async_rounds, checkpoint, mesh, tracing
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.config import AsyncAggregationConfig
+    from rayfed_tpu_torch.data import make_batch_iterator, synthetic_lm_dataset
+    from rayfed_tpu_torch.membership.manager import get_membership_manager
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+    from rayfed_tpu_torch.resilience.liveness import liveness_view
+
+    cfg = tfm.TransformerConfig(**cfg_kw)
+    on_cuda = torch.device(device).type == "cuda"
+    transport = "cuda" if on_cuda else "tcp"
+    root = ASYNC_PARTIES[0]
+    timer = _DeviceTimer(on_cuda)
+    config = {
+        "cross_silo_comm": FED_COMM,
+        "membership": {"coordinator": root, "auth_token": ASYNC_TOKEN,
+                       "sync_timeout_s": ASYNC_TIMEOUT_S / 2,
+                       "join_timeout_s": ASYNC_TIMEOUT_S / 2},
+        "aggregation": {"async_buffer_k": ASYNC_K},
+        "serving": {"max_slots": 1, "max_len": 64, "max_new_tokens": 4},
+    }
+    tracing.enable()
+    out = dict(party=party, views=[])
+    if party == "carol":
+        _wait_for(lambda: os.path.exists(os.path.join(workdir, "v1")),
+                  "version 1", ASYNC_TIMEOUT_S / 2)
+        t = time.perf_counter()
+        bootstrap = fed.join(address=addresses["carol"], party="carol",
+                             coordinator=root,
+                             coordinator_address=addresses[root],
+                             config=config, logging_level="warning",
+                             transport=transport,
+                             timeout=ASYNC_TIMEOUT_S / 2)
+        out["join_ms"] = 1e3 * (time.perf_counter() - t)
+        # The coordinator attaches its serving bank's newest version.
+        require(bootstrap is not None and bootstrap["kind"] == "model_bank",
+                f"carol's bootstrap is {bootstrap and bootstrap['kind']!r}, "
+                f"not the root's model bank")
+        out["bootstrap"] = dict(version=bootstrap["version"],
+                                digest=_tree_digest(bootstrap["params"]))
+        entry = get_membership_manager().sync_index() - 1
+    else:
+        fed.init(addresses={p: addresses[p] for p in ASYNC_PARTIES[:2]},
+                 party=party, logging_level="warning", transport=transport,
+                 config=dict(config, barrier_on_initializing=True))
+        entry = 0
+    dev = mesh.get_party_device() if on_cuda else torch.device("cpu")
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    seeds = {p: i + 1 for i, p in enumerate(ASYNC_PARTIES)}
+    delays = straggler_delays(ASYNC_ROUNDS, **straggler)
+    serving = fed.serve(root, cfg, device=None if on_cuda else "cpu")
+    state = {}
+    if party != root:
+        init_fn, step_fn = make_fed_train_step(cfg, dev, lr=1e-3)
+        state["params"], state["opt"] = init_fn(0)
+        data = synthetic_lm_dataset(cfg.vocab, batch * ASYNC_LOCAL_STEPS
+                                    * (seq + 1), seq, seed=seeds[party])
+        state["batches"] = make_batch_iterator(data, batch, dev)
+    if party == "carol":
+        # The joiner starts from the version it was admitted with.
+        leaves, spec = tree_util.tree_flatten(state["params"])
+        with torch.no_grad():
+            for p, g in zip(leaves, tree_util.leaves_like(
+                    bootstrap["params"], spec)):
+                p.copy_(g)
+        del bootstrap
+
+    @fed.remote
+    def current():
+        return async_rounds.get_session().current()
+
+    # A party's trainings run in round order, one at a time: each is a
+    # pool task, and a later round's model may arrive first.
+    turn = threading.Condition()
+    mine = [q for q in range(ASYNC_ROUNDS) if party in _async_trainers(q)]
+    state["trained"] = 0
+
+    @fed.remote
+    def train(model, r):
+        """The party's local steps from the root's current model, after
+        its earlier rounds' steps; bob sleeps by his straggler schedule
+        first."""
+        with turn:
+            turn.wait_for(lambda: state["trained"] == mine.index(r))
+        try:
+            return _train(model, r)
+        finally:
+            with turn:
+                state["trained"] += 1
+                turn.notify_all()
+
+    def _train(model, r):
+        if party == "bob":
+            time.sleep(delays[r])
+            if r == straggler["stall_round"]:
+                # However long carol's first training takes, bob's stalled
+                # round lands after her offer, and so arrives stale.
+                _wait_for(lambda: os.path.exists(
+                    os.path.join(workdir, "carol-offered")),
+                    "carol's offer", ASYNC_TIMEOUT_S / 4)
+        if model["params"] is not None:
+            leaves, spec = tree_util.tree_flatten(state["params"])
+            with torch.no_grad():
+                for p, g in zip(leaves, tree_util.leaves_like(
+                        model["params"], spec)):
+                    p.copy_(g)
+        for _ in range(ASYNC_LOCAL_STEPS):
+            inputs, targets = next(state["batches"])
+            state["params"], state["opt"], loss = step_fn(
+                state["params"], state["opt"], inputs, targets)
+        state.setdefault("losses", []).append(float(loss))
+        return state["params"]
+
+    @fed.remote
+    def cut(_after_training, step):
+        """bob's cut at the same boundary: his model and AdamW state,
+        saved, restored onto templates on his device, compared bitwise."""
+        base = os.path.join(workdir, party)
+        t = time.perf_counter()
+        path = checkpoint.save_job_state(base, step=step,
+                                         model=state["params"],
+                                         opt_state=state["opt"])
+        save_ms = 1e3 * (time.perf_counter() - t)
+        group = state["opt"].param_groups[0]
+        fresh = torch.optim.AdamW(
+            [torch.zeros_like(p) for p in group["params"]], lr=group["lr"])
+        t = time.perf_counter()
+        got = checkpoint.restore_job_state(
+            base, step=step, install=False,
+            template={"model": state["params"], "opt_state": fresh})
+        restore_ms = 1e3 * (time.perf_counter() - t)
+        want_opt = state["opt"].state_dict()["state"]
+        got_opt = got["opt_state"].state_dict()["state"]
+        return dict(
+            save_ms=save_ms, restore_ms=restore_ms, nbytes=_dir_bytes(path),
+            model_bitwise=_bitwise_equal(got["model"], state["params"]),
+            opt_bitwise=sorted(want_opt) == sorted(got_opt) and all(
+                _bitwise_equal(got_opt[i], want_opt[i]) for i in want_opt),
+            on_device=sorted({str(x.device) for x in
+                              tree_util.tree_flatten(got["model"])[0]}))
+
+    def own_report():
+        return dict(
+            launches=dict(fa.LAUNCHES), losses=state.get("losses", []),
+            max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                  if on_cuda else None),
+            spans=_push_spans())
+
+    report = fed.remote(own_report)
+
+    rec = dict(offers=[], versions={}, folds={}, rebuilt=None,
+               rebuilt_versions={})
+    rec_lock = threading.Lock()
+    if party == root:
+        agg = async_rounds._get_or_create_session(
+            "default", AsyncAggregationConfig(buffer_k=ASYNC_K).as_dict(),
+            serving.name)
+        live_offer, live_fold = agg.offer, agg._fold_and_publish_locked
+        live_publish = agg._publish_cb
+
+        def fold(t0):
+            rec["fold_start"] = timer.mark()
+            return live_fold(t0)
+
+        def publish(version, params):
+            p0, h0 = timer.mark(), time.perf_counter()
+            live_publish(version, params)
+            rec["folds"][version] = dict(
+                marks=(rec["fold_start"], p0, timer.mark()),
+                publish_host_ms=1e3 * (time.perf_counter() - h0))
+            rec["versions"][version] = params
+
+        def offer(p, tree, *, round_tag, weight=1.0, epoch=None):
+            with rec_lock:
+                status = live_offer(p, tree, round_tag=round_tag,
+                                    weight=weight, epoch=epoch)
+                rec["offers"].append(dict(party=p, round_tag=round_tag,
+                                          status=status,
+                                          tree=_host_tree(tree)))
+                if p == "carol":
+                    open(os.path.join(workdir, "carol-offered"), "w").close()
+                if rec["rebuilt"] is not None:
+                    got = rec["rebuilt"].offer(p, tree, round_tag=round_tag,
+                                               weight=weight, epoch=epoch)
+                    if "published" in got:
+                        rec["rebuilt_versions"][got["published"]] = \
+                            rec["rebuilt"].current()["params"]
+            return status
+
+        agg.offer, agg._fold_and_publish_locked = offer, fold
+        agg._publish_cb = publish
+
+    def version():
+        return async_rounds.get_session().current()["version"]
+
+    def job_cut():
+        """alice's cut of the job once version ASYNC_CUT_VERSION is out,
+        and the aggregator rebuilt from it, under the offer lock so that
+        no offer falls between the two."""
+        base = os.path.join(workdir, root)
+        with rec_lock:
+            t = time.perf_counter()
+            path = checkpoint.save_job_state(base, step=ASYNC_CUT_VERSION,
+                                             model=agg.current()["params"])
+            save_ms = 1e3 * (time.perf_counter() - t)
+            t = time.perf_counter()
+            got = checkpoint.restore_job_state(base, step=ASYNC_CUT_VERSION,
+                                               install=False)
+            restore_ms = 1e3 * (time.perf_counter() - t)
+            saved = got["control"]["async_sessions"]["default"]
+            rebuilt = async_rounds.BufferedAggregator(
+                AsyncAggregationConfig(**saved["cfg"]),
+                liveness_fn=liveness_view, session="rebuilt")
+            rebuilt.adopt_state(saved)
+            rec["rebuilt"] = rebuilt
+        snap = got["control"]["membership"]
+        return dict(nbytes=_dir_bytes(path), save_ms=save_ms,
+                    restore_ms=restore_ms, buffered=len(saved["buffer"]),
+                    round_tags=got["control"]["round_tags"],
+                    membership_epoch=snap["view"]["epoch"],
+                    roster=snap["view"]["roster"], version=saved["version"],
+                    model_bitwise=_bitwise_equal(got["model"],
+                                                 agg.current()["params"]))
+
+    t_rounds = time.perf_counter()
+    # carol leaves after her offer's round.
+    last = ASYNC_CAROL_ROUND + 1 if party == "carol" else ASYNC_ROUNDS
+    for r in range(entry, last):
+        if party == root and r == ASYNC_JOIN_ROUND:
+            _wait_for(lambda: version() >= 1, "version 1", ASYNC_TIMEOUT_S / 4)
+            open(os.path.join(workdir, "v1"), "w").close()
+            coord = get_membership_manager().get_coordinator_state()
+            _wait_for(lambda: "carol" in coord.pending()["joins"],
+                      "carol's join", ASYNC_TIMEOUT_S / 4)
+        if party == root and r == ASYNC_CAROL_ROUND + 1:
+            _wait_for(lambda: version() >= ASYNC_CUT_VERSION,
+                      f"version {ASYNC_CUT_VERSION}", ASYNC_TIMEOUT_S / 4)
+            out["cut"] = job_cut()
+            coord = get_membership_manager().get_coordinator_state()
+            _wait_for(lambda: "carol" in coord.pending()["leaves"],
+                      "carol's leave", ASYNC_TIMEOUT_S / 4)
+        if party == "carol" and r == entry:
+            # The joiner holds the view of the sync that admitted it.
+            view = fed.membership_view()
+        else:
+            view = fed.membership_sync(timeout=ASYNC_TIMEOUT_S / 2)
+        out["views"].append([get_membership_manager().sync_index(),
+                             view.epoch, list(view.roster)])
+        trainers = _async_trainers(r)
+        require(set(trainers) <= set(view.roster),
+                f"round {r}: trainers {trainers} outside {view.roster}")
+        model = current.party(root).remote()
+        contribs = {p: train.party(p).remote(model, r) for p in trainers}
+        handle = async_rounds.async_round(contribs, root=root, round_tag=r,
+                                          publish_to=serving,
+                                          fetch_model=False)
+        if r == ASYNC_CAROL_ROUND:
+            bob_cut = cut.party("bob").remote(contribs["bob"], r)
+            out["carol_offer"], out["bob_cut"] = fed.get(
+                [handle.offers["carol"], bob_cut])
+    out["rounds_s"] = time.perf_counter() - t_rounds
+    if party == "carol":
+        out["report"] = own_report()
+        t = time.perf_counter()
+        fed.leave(timeout=ASYNC_TIMEOUT_S / 4)
+        out["leave_ms"] = 1e3 * (time.perf_counter() - t)
+        return out
+    out["last_offer"] = fed.get(handle.offers["bob"])
+    out["reports"] = dict(zip(ASYNC_PARTIES[:2], fed.get(
+        [report.party(p).remote() for p in ASYNC_PARTIES[:2]])))
+    if party == root:
+        n_versions = (ASYNC_ROUNDS + 1) // ASYNC_K
+        _wait_for(lambda: version() >= n_versions, f"version {n_versions}",
+                  ASYNC_TIMEOUT_S / 4)
+        out.update(_async_root_checks(rec, agg, cfg, dev, seq, timer, seeds))
+        fed.get(serving.shutdown())
+    else:
+        fed.get(serving.shutdown())
+    fed.shutdown()
+    return out
+
+
+def _async_root_checks(rec, agg, cfg, dev, seq, timer, seeds):
+    """alice's checks at the end: every version against the CPU fold of
+    the recorded offers, the rebuilt aggregator's versions against the
+    live ones, the last version's loss against the initial params', and
+    what the parent prints."""
+    import numpy as np
+    import torch
+
+    from rayfed_tpu_torch.data import synthetic_lm_dataset
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.serving import server as srv_mod
+
+    accepted = [dict(party=o["party"], tree=o["tree"],
+                     weight=o["status"]["weight"])
+                for o in rec["offers"] if o["status"]["accepted"]]
+    want = cpu_async_fold(accepted, ASYNC_K, agg.cfg.server_lr)
+    live = [rec["versions"][v] for v in sorted(rec["versions"])]
+    versions = []
+    for v in sorted(rec["folds"]):
+        marks = rec["folds"][v]["marks"]
+        members = rec["offers"][(v - 1) * ASYNC_K:v * ASYNC_K]
+        versions.append(dict(
+            version=v, k=len(members),
+            contributions=[dict(party=o["party"], round_tag=o["round_tag"],
+                                staleness=o["status"]["staleness"],
+                                weight=o["status"]["weight"])
+                           for o in members],
+            fold_ms=timer.ms(marks[0], marks[1]),
+            publish_ms=timer.ms(marks[1], marks[2]),
+            publish_host_ms=rec["folds"][v]["publish_host_ms"]))
+
+    blk = torch.as_tensor(np.stack([next(synthetic_lm_dataset(
+        cfg.vocab, 2 * (seq + 1), seq, seed=seeds[p]).batches(1, epoch=0))[0]
+        for p in ASYNC_PARTIES[1:]]), device=dev).long()
+
+    def loss(params):
+        with torch.no_grad():
+            return float(tfm.lm_loss_pair(params, blk[:, :-1], blk[:, 1:],
+                                          cfg, fa.make_flash_attn_fn(),
+                                          loss_chunk=512))
+
+    return dict(
+        versions=versions, n_offers=len(rec["offers"]),
+        cpu_fold_bitwise=[_bitwise_equal(a, b) for a, b in zip(live, want)],
+        n_cpu_versions=len(want),
+        rebuilt_bitwise={v: _bitwise_equal(t, rec["versions"][v])
+                         for v, t in rec["rebuilt_versions"].items()},
+        losses=[loss(tfm.init_params(0, cfg, dev)), loss(live[-1])],
+        publishes=agg.snapshot_stats()["publishes"],
+        version_digests={v: _tree_digest(t)
+                         for v, t in rec["versions"].items()},
+        bank_version=srv_mod.get_server().bank.current_version())
+
+
+def phase_async(device, cfg, *, batch, seq, label="",
+                straggler=ASYNC_STRAGGLER, timeout_s=ASYNC_TIMEOUT_S):
+    """Phase 8: :func:`_async_program` in three spawned party processes
+    (carol joins mid-job), checked: (a) every version alice published
+    equals the CPU fold of the recorded offers bitwise, (b) the aggregator
+    rebuilt from alice's job cut publishes the live session's next
+    version bitwise, (c) every party saw the same view at each sync,
+    carol's join and leave landed as epoch bumps, and her join's bootstrap
+    is the bits of the bank's version it names, (d) a contribution
+    arrived stale, (e) the last version's loss is below the initial
+    params', (f) the cuts restore bitwise (bob's model and AdamW state on
+    his device), (g) every version reached the serving bank, (h) each
+    trainer launched every bf16 kernel on a card; every party exits 0
+    (``spawn_parties``). Returns the parties' results."""
+    import dataclasses
+
+    import torch
+
+    t8 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        results, wall = spawn_parties(
+            _async_program, (device, dataclasses.asdict(cfg), batch, seq,
+                             workdir, dict(straggler)),
+            timeout_s, names=ASYNC_PARTIES)
+    res = results["alice"]
+    require(len(res["cpu_fold_bitwise"]) == res["n_cpu_versions"] >= 3
+            and all(res["cpu_fold_bitwise"]),
+            f"(a) the published versions against the CPU fold: "
+            f"{res['cpu_fold_bitwise']} ({res['n_cpu_versions']} folded)")
+    require(res["rebuilt_bitwise"] and all(res["rebuilt_bitwise"].values()),
+            f"(b) the rebuilt aggregator's versions: {res['rebuilt_bitwise']}")
+    views = {}
+    for p, r in results.items():
+        for idx, epoch, roster in r["views"]:
+            views.setdefault(idx, {})[p] = (epoch, tuple(roster))
+    for idx, seen in sorted(views.items()):
+        require(len(set(seen.values())) == 1,
+                f"(c) the parties saw different views at sync {idx}: {seen}")
+    rosters = [next(iter(seen.values())) for _, seen in sorted(views.items())]
+    require(rosters[0][1] == ("alice", "bob")
+            and ("alice", "bob", "carol") in [ro for _, ro in rosters]
+            and rosters[-1][1] == ("alice", "bob") and rosters[-1][0] >= 2,
+            f"(c) carol's join and leave as epoch bumps: {rosters}")
+    stale = [c for v in res["versions"] for c in v["contributions"]
+             if c["staleness"] >= 1]
+    boot = results["carol"]["bootstrap"]
+    require(boot["digest"] == res["version_digests"][str(boot["version"])],
+            f"(c) carol's bootstrap is not version {boot['version']}'s bits")
+    require(stale, f"(d) no stale contribution: {res['versions']}")
+    require(res["losses"][1] < res["losses"][0],
+            f"(e) the loss did not fall: {res['losses']}")
+    bob_cut = results["bob"]["bob_cut"]
+    require(bob_cut["model_bitwise"] and bob_cut["opt_bitwise"]
+            and res["cut"]["model_bitwise"],
+            f"(f) the cuts' round trips: bob {bob_cut}, alice {res['cut']}")
+    require(res["bank_version"] == res["publishes"] == len(res["versions"]),
+            f"(g) bank at version {res['bank_version']} after "
+            f"{res['publishes']} publishes")
+    reports = dict(res["reports"], carol=results["carol"]["report"])
+    if torch.device(device).type == "cuda":
+        for p in ASYNC_PARTIES[1:]:
+            for k in BF16_KERNELS:
+                require(reports[p]["launches"][k] > 0,
+                        f"(h) {p} did not launch {k}: "
+                        f"{reports[p]['launches']}")
+    for v in res["versions"]:
+        print(f"[async] {label} version {v['version']}: k={v['k']}, "
+              + ", ".join(f"{c['party']} tag {c['round_tag']} staleness "
+                          f"{c['staleness']} weight {c['weight']:.6f}"
+                          for c in v["contributions"])
+              + f"; fold {v['fold_ms']:.3f} ms, publish "
+              f"{v['publish_ms']:.3f} ms ({v['publish_host_ms']:.3f} ms on "
+              f"the host)")
+    for p in pushes(reports):
+        if p["dst"] == "alice" and p["src"] != "alice":
+            print(f"[async] {label} offer push {p['src']} -> alice "
+                  f"{p['nbytes']} B: {p['total_ms']:.1f} ms (" + ", ".join(
+                      f"{k} " + ("-" if p[f"{k}_ms"] is None
+                                 else f"{p[f'{k}_ms']:.1f}")
+                      for k in PUSH_KINDS) + ")")
+    cut = res["cut"]
+    print(f"[async] {label} carol: join {results['carol']['join_ms']:.1f} ms"
+          f" (bootstrap: the bank's version {boot['version']}),"
+          f" leave {results['carol']['leave_ms']:.1f} ms; (epoch, roster) "
+          f"at each sync {rosters}")
+    print(f"[async] {label} alice's cut: {cut['nbytes']} B, save "
+          f"{cut['save_ms']:.1f} ms, restore {cut['restore_ms']:.1f} ms "
+          f"({cut['buffered']} buffered, round tags {cut['round_tags']}, "
+          f"membership epoch {cut['membership_epoch']}); bob's cut (model + "
+          f"AdamW): {bob_cut['nbytes']} B, save {bob_cut['save_ms']:.1f} ms,"
+          f" restore {bob_cut['restore_ms']:.1f} ms onto "
+          f"{bob_cut['on_device']}")
+    print(f"[async] {label} loss {res['losses'][0]:.4f} -> "
+          f"{res['losses'][1]:.4f}; {res['n_offers']} offers, "
+          f"{res['publishes']} publishes; peak memory "
+          + ", ".join(f"{p} {rep['max_memory_allocated']}"
+                      for p, rep in reports.items())
+          + f"; phase 8 {time.perf_counter() - t8:.1f} s ({wall:.1f} s from "
+          f"spawn to exit)")
+    return results
+
+
+def _phase_wall(n, t0, smi):
+    print(f"[phase {n}] {time.perf_counter() - t0:.1f} s on {smi}")
+
+
 def main(argv):
     import torch
 
+    t0 = time.perf_counter()
     name, smi = phase_device()
+    _phase_wall(1, t0, smi)
+    if argv == ["--async-only"]:
+        # Phases 2 and 8 alone, in a fresh process (no kernel line).
+        from rayfed_tpu_torch.models import transformer as tfm
+
+        t = time.perf_counter()
+        phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+        _phase_wall(2, t, smi)
+        t = time.perf_counter()
+        print("[async] reduced " + json.dumps(
+            {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
+        phase_async("cuda", tfm.TransformerConfig(
+            vocab=FLAGSHIP["vocab"], d_model=FLAGSHIP["d_model"],
+            n_heads=FLAGSHIP["n_heads"], n_layers=SMOKE_LAYERS,
+            d_ff=FLAGSHIP["d_ff"]), batch=FLAGSHIP["batch"],
+            seq=FLAGSHIP["seq"], label=f"on {smi}:")
+        _phase_wall(8, t, smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if argv == ["--serving-only"]:
         # Phase 7 alone, in a fresh process (no kernel line).
         from rayfed_tpu_torch.models import transformer as tfm
@@ -2451,15 +3091,19 @@ def main(argv):
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
         return
-    require(not argv, f"unknown arguments {argv}; the only option is "
-                      "--serving-only")
+    require(not argv, f"unknown arguments {argv}; the options are "
+                      "--serving-only and --async-only")
+    t = time.perf_counter()
     phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+    _phase_wall(2, t, smi)
 
     from rayfed_tpu_torch.models import transformer as tfm
 
+    t = time.perf_counter()
     kern = phase_kernels("cuda", FLAGSHIP["batch"], FLAGSHIP["seq"],
                          FLAGSHIP["n_heads"],
                          FLAGSHIP["d_model"] // FLAGSHIP["n_heads"], smi)
+    _phase_wall(3, t, smi)
 
     cfg = tfm.TransformerConfig(
         vocab=FLAGSHIP["vocab"], d_model=FLAGSHIP["d_model"],
@@ -2468,8 +3112,10 @@ def main(argv):
     )
     reduced = {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}
     print("[slice] reduced " + json.dumps(reduced))
+    t = time.perf_counter()
     summary = phase_slice("cuda", cfg, batch=FLAGSHIP["batch"],
                           seq=FLAGSHIP["seq"], label=f"on {smi}:")
+    _phase_wall(4, t, smi)
     for kern_name in BF16_KERNELS:
         require(summary["launches"][kern_name] > 0,
                 f"{kern_name} was not launched by the train steps: "
@@ -2483,8 +3129,10 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     print("[f32] reduced " + json.dumps(reduced))
+    t = time.perf_counter()
     f32 = phase_f32("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                     label=f"on {smi}:")
+    _phase_wall("4b", t, smi)
     for kern_name in F32_KERNELS:
         require(f32["launches"][kern_name] > 0,
                 f"{kern_name} was not launched by the f32 steps: "
@@ -2494,21 +3142,35 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     print("[fed] reduced " + json.dumps(reduced))
+    t = time.perf_counter()
     fed = {io: phase_fed("cuda", cfg, batch=FLAGSHIP["batch"],
                          seq=FLAGSHIP["seq"], label=f"on {smi} ({io} IO):",
                          io_path=io)
            for io in ("native", "python")}
     compare_io_paths(fed)
+    _phase_wall(5, t, smi)
     print("[programs] reduced " + json.dumps(reduced))
+    t = time.perf_counter()
     phase_programs("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                    label=f"on {smi}:")
+    _phase_wall(6, t, smi)
 
     import dataclasses
 
     gc.collect()
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     phase_serving_all(dataclasses.replace(cfg, n_layers=FLAGSHIP["n_layers"]),
                       smi)
+    _phase_wall(7, t, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[async] reduced " + json.dumps(reduced))
+    t = time.perf_counter()
+    phase_async("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+                label=f"on {smi}:")
+    _phase_wall(8, t, smi)
+    print(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
 
     line = []
     for k in KERNELS:

@@ -27,7 +27,10 @@ parallel/train.py, data.py), with the JAX package's example programs in
 examples/; and the serving plane (``serve``, ``submit_request``,
 ``ServeHandle``; serving/, models/decode.py, models/speculative.py):
 continuous-batching inference over a slab or paged KV pool with hot model
-swap, fed by ``fed_aggregate(publish_to=)``.
+swap, fed by ``fed_aggregate(publish_to=)``; FedBuff-style async rounds
+(``async_round``, ``fed_aggregate(mode="async")``), elastic membership
+with coordinator failover (``join``, ``leave``, ``membership_sync``) and
+job checkpoints (``save_job_state``, ``restore_job_state``).
 It never imports jax or rayfed_tpu. Entry points run on CUDA unless the
 caller passes device="cpu"; the attention kernels are hand-written for
 Hopper (csrc/) and built at first use. Planes not ported yet are absent,
@@ -39,11 +42,19 @@ from rayfed_tpu_torch.api import (  # noqa: F401
     get,
     init,
     is_party_leader,
+    join,
     kill,
+    leave,
+    membership_stats,
+    membership_sync,
+    membership_view,
     remote,
     shutdown,
 )
-from rayfed_tpu_torch.exceptions import FedRemoteError  # noqa: F401
+from rayfed_tpu_torch.exceptions import (  # noqa: F401
+    FedRemoteError,
+    StaleCoordinatorError,
+)
 from rayfed_tpu_torch.fed_object import FedObject  # noqa: F401
 from rayfed_tpu_torch.proxy.barriers import recv, send  # noqa: F401
 from rayfed_tpu_torch.resilience import (  # noqa: F401
@@ -56,6 +67,16 @@ from rayfed_tpu_torch.serving import (  # noqa: F401
     ServeHandle,
     serve,
     submit_request,
+)
+from rayfed_tpu_torch.async_rounds import (  # noqa: F401  (after api import)
+    AsyncRoundHandle,
+    async_handoff,
+    async_rebuild,
+    async_round,
+)
+from rayfed_tpu_torch.checkpoint import (  # noqa: F401
+    restore_job_state,
+    save_job_state,
 )
 
 __version__ = "0.1.0"
@@ -75,8 +96,20 @@ __all__ = [
     "fault_trace",
     "liveness_view",
     "party_state",
+    "join",
+    "leave",
+    "membership_stats",
+    "membership_sync",
+    "membership_view",
+    "StaleCoordinatorError",
     "serve",
     "submit_request",
     "ServeHandle",
+    "async_round",
+    "async_handoff",
+    "async_rebuild",
+    "AsyncRoundHandle",
+    "save_job_state",
+    "restore_job_state",
     "__version__",
 ]

@@ -75,8 +75,6 @@ _UNPORTED_BLOCKS = {
         "ROADMAP Queue 1 item 17"
     ),
     "collective": "the cross-party collective lane is ROADMAP Queue 1 item 12",
-    "membership": "elastic membership is ROADMAP Queue 1 item 10",
-    "checkpoint": "job checkpoints are ROADMAP Queue 1 item 10",
     "privacy": "the privacy plane is ROADMAP Queue 1 item 11",
     "telemetry": (
         "the telemetry agent and collector are ROADMAP Queue 1 item 18"
@@ -93,14 +91,6 @@ def _refuse_unported(config: Dict, transport: str) -> None:
                 f"config[{key!r}] is not supported by rayfed_tpu_torch yet: "
                 f"{why}"
             )
-    async_keys = sorted(k for k in (config.get("aggregation") or {})
-                        if k.startswith("async_"))
-    if async_keys:
-        raise NotImplementedError(
-            f"config['aggregation'] keys {async_keys}: buffered async rounds "
-            "are ROADMAP Queue 1 item 10, not ported to rayfed_tpu_torch yet "
-            "(the sync keys topology and group_size are)"
-        )
     if transport != "tcp":
         # The proxy table raises the item-naming ImportError for 'tpu'
         # and 'grpc' (ValueError for unknown names).
@@ -157,12 +147,14 @@ def init(
             ``group_size``: the job's ``fed_aggregate`` default),
             ``party_mesh`` (``device_ids``: the party's one card),
             ``serving`` (:class:`~rayfed_tpu_torch.config.ServingConfig`
-            keys: the job default of ``fed.serve``). The
-            blocks of planes not ported yet (``jax_distributed``,
-            ``collective``, ``membership``, ``checkpoint``,
-            ``privacy``, ``telemetry``), the ``aggregation.async_*``
-            keys and a ``party_mesh`` over more than one device are
-            refused.
+            keys: the job default of ``fed.serve``), ``membership``
+            (:class:`~rayfed_tpu_torch.membership.MembershipConfig`),
+            ``checkpoint`` (:class:`~rayfed_tpu_torch.checkpoint.CheckpointConfig`)
+            and the ``aggregation.async_*`` keys; each is validated
+            strictly before any state is built. The blocks of planes not
+            ported yet (``jax_distributed``, ``collective``,
+            ``privacy``, ``telemetry``) and a ``party_mesh`` over more
+            than one device are refused.
         tls_config: ``{ca_cert, cert, key}`` file paths for mutual TLS.
         logging_level: root logging level.
         sender_proxy_cls / receiver_proxy_cls: custom transport classes
@@ -188,10 +180,29 @@ def init(
     transport = transport or config.get("transport", "tcp")
     _refuse_unported(config, transport)
     # Validated before any state is built, so a bad serving key rejects
-    # init here rather than at the first fed.serve.
+    # init here rather than at the first fed.serve — and the same for the
+    # job-checkpoint section (a typo'd retention key must not surface at
+    # the round-N save_job_state that was to make the job restartable),
+    # the membership section and the aggregation.async_* keys.
     serving_dict = config.get("serving")
     if serving_dict is not None:
         fed_config.ServingConfig.from_dict(serving_dict)
+    checkpoint_dict = config.get("checkpoint")
+    if checkpoint_dict is not None:
+        from rayfed_tpu_torch.checkpoint import CheckpointConfig
+
+        CheckpointConfig.from_dict(checkpoint_dict)
+    membership_dict = config.get("membership")
+    membership_cfg = None
+    if membership_dict is not None:
+        from rayfed_tpu_torch.membership import MembershipConfig
+
+        membership_cfg = MembershipConfig.from_dict(membership_dict)
+    aggregation_dict = config.get("aggregation") or {}
+    if aggregation_dict:
+        from rayfed_tpu_torch import async_rounds as _async_rounds
+
+        _async_rounds.validate_async_config(aggregation_dict)
     # The party's card: bound when the job places on it (transport
     # 'cuda') or names it (party_mesh); resolved here so a multi-device
     # mesh, or no card at all, is refused before any state is built.
@@ -345,7 +356,6 @@ def init(
     # Aggregation topology default (rayfed_tpu_torch/topology.py): every
     # driver reads the same config, so every party plans the identical
     # reduction DAG (multi-controller contract).
-    aggregation_dict = config.get("aggregation") or {}
     if aggregation_dict:
         from rayfed_tpu_torch import topology as _topology
 
@@ -353,6 +363,9 @@ def init(
             aggregation_dict.get("topology", "auto"),
             group_size=aggregation_dict.get("group_size"),
         )
+        # Async-mode job defaults (aggregation.async_* keys,
+        # docs/async_rounds.md), validated above.
+        _async_rounds.set_default_async_config(aggregation_dict)
 
     # Serving-plane job defaults (docs/serving.md): stored like the
     # aggregation topology default — every driver reads the same dict, so
@@ -395,6 +408,39 @@ def init(
                     return barriers.cancel_peer_inflight(*args, **kwargs)
 
             monitor.add_on_dead(_reclaim_dead_peer)
+
+    # Elastic membership (docs/membership.md): every founding party builds
+    # the same epoch-0 view from the init addresses and installs the
+    # manager's engine hooks (seq-id epoch stamp, rendezvous roster,
+    # coordinator control handler + liveness DEAD escalation). AFTER the
+    # resilience block — the coordinator's manager wires itself onto the
+    # just-started monitor.
+    if membership_cfg is not None:
+        from rayfed_tpu_torch.membership import (
+            MembershipManager,
+            MembershipView,
+            set_membership_manager,
+        )
+
+        membership_manager = MembershipManager(
+            job_name,
+            party,
+            MembershipView(
+                epoch=0,
+                roster=tuple(sorted(addresses)),
+                addresses=dict(addresses),
+            ),
+            membership_cfg,
+        )
+        membership_manager.install()
+        set_membership_manager(membership_manager)
+
+    # Job-checkpoint defaults (docs/ha.md): already validated before any
+    # state was built; installing them cannot fail at this point.
+    if checkpoint_dict is not None:
+        from rayfed_tpu_torch import checkpoint as _checkpoint
+
+        _checkpoint.set_default_checkpoint_config(checkpoint_dict)
 
     if config.get("barrier_on_initializing", False):
         barriers.ping_others(addresses=addresses, self_party=party, max_retries=3600)
@@ -470,8 +516,31 @@ def _shutdown_impl(intended: bool = True):
 
     _liveness.stop_monitor()
     _inject.uninstall()
+    # Membership hooks next (seq-id epoch stamp, rendezvous control
+    # handler/roster): the drain below must run against the bare engine.
+    # An in-flight coordinator takeover finishes (bounded) against live
+    # proxies first — tearing the plane down mid-broadcast would strand
+    # survivors parked on a sync that will never come (docs/ha.md).
+    _membership = sys.modules.get("rayfed_tpu_torch.membership.manager")
+    if _membership is not None:
+        _mbr_mgr = _membership.get_membership_manager()
+        if _mbr_mgr is not None:
+            try:
+                _mbr_mgr.drain_takeover(2.0)
+            except Exception:  # noqa: BLE001 - must not block teardown
+                logger.warning("membership drain failed", exc_info=True)
+        _membership.clear_membership_manager()
     internal_kv.kv_reset()
     clear_global_context(wait_for_sending=wait_for_sending)
+    # Async aggregation sessions hold buffered contribution trees; the
+    # reset sweep below drops them (a new job must not fold into them),
+    # after any mid-adopt aggregator handoff has finished (docs/ha.md).
+    _async_rounds = sys.modules.get("rayfed_tpu_torch.async_rounds")
+    if _async_rounds is not None:
+        try:
+            _async_rounds.drain_handoffs(2.0)
+        except Exception:  # noqa: BLE001 - must not block teardown
+            logger.warning("async handoff drain failed", exc_info=True)
     # Serving engines hold a live thread and the pool's device memory;
     # stop them before the proxies so a submit task in flight fails
     # loudly instead of wedging teardown.
@@ -596,6 +665,144 @@ class FedRemoteClass:
         )
         fed_call_holder.internal_remote(*cls_args, **cls_kwargs)
         return fed_actor_handle
+
+
+def join(
+    address: str,
+    party: str,
+    coordinator: str,
+    coordinator_address: str,
+    config: Optional[Dict] = None,
+    tls_config: Optional[Dict] = None,
+    logging_level: str = "info",
+    job_name: Optional[str] = None,
+    transport: Optional[str] = None,
+    timeout: Optional[float] = None,
+) -> Any:
+    """Join a RUNNING membership-enabled job mid-training.
+
+    Boots a minimal two-party runtime ({this party, the coordinator}),
+    then runs the join handshake: authenticate with the coordinator
+    (``config['membership']['auth_token']`` must match the job's), park
+    on the JoinAccept the coordinator emits at its next
+    ``fed.membership_sync()``, install the received view (full roster,
+    addresses, ghost tables, sync index), re-key the seq-id space to the
+    admitting epoch, and warm-dial every peer.
+
+    Returns the bootstrap state the coordinator attached to the accept —
+    ``{"kind": "provider"|"checkpoint"|"model_bank", ...}`` or None —
+    which the driver uses to enter the training loop at the current
+    round. The joiner already holds the view of the sync that admitted
+    it, so its driver SKIPS the membership_sync of its entry round and
+    resumes the per-round sync with everyone else from the next round on.
+
+    Args:
+        address: this party's listen address ("host:port").
+        party: this party's name (must not collide with a roster member).
+        coordinator: the coordinator party's name.
+        coordinator_address: the coordinator's listen address.
+        config: job config dict, as in :func:`init`. The
+            ``membership`` sub-dict configures the handshake
+            (``auth_token``, ``join_timeout_s``); ``barrier_on_initializing``
+            is ignored (the handshake is the readiness barrier).
+        timeout: handshake deadline in seconds; defaults to
+            ``membership.join_timeout_s``.
+    """
+    from rayfed_tpu_torch.membership import MembershipConfig
+    from rayfed_tpu_torch.membership import manager as _mbr_manager
+
+    config = dict(config or {})
+    membership_config = MembershipConfig.from_dict(
+        config.pop("membership", None) or {}
+    )
+    if membership_config.coordinator is None:
+        membership_config.coordinator = coordinator
+    # The handshake below IS the readiness barrier (the request's ack
+    # proves the coordinator is up); the ping barrier would deadlock on
+    # roster members that are past init.
+    config.pop("barrier_on_initializing", None)
+    init(
+        addresses={party: address, coordinator: coordinator_address},
+        party=party,
+        config=config,
+        tls_config=tls_config,
+        logging_level=logging_level,
+        job_name=job_name,
+        transport=transport,
+    )
+    job = get_global_context().get_job_name()
+    _, bootstrap = _mbr_manager.join_handshake(
+        job, party, address, coordinator, membership_config, timeout=timeout
+    )
+    return bootstrap
+
+
+def leave(timeout: Optional[float] = None) -> None:
+    """Gracefully depart a membership-enabled job: notify the coordinator
+    (it removes this party from the roster at its next sync), then run
+    the ordinary intended shutdown — which drains in-flight sends and
+    releases this party's rendezvous entries with the proxies. Peers drop
+    the departed party at the eviction bump instead of waiting out a
+    liveness DEAD verdict."""
+    from rayfed_tpu_torch.membership import manager as _mbr_manager
+
+    manager = _mbr_manager.get_membership_manager()
+    if manager is None:
+        raise RuntimeError(
+            "fed.leave() needs a membership-enabled job: pass "
+            "config={'membership': {...}} to fed.init, or enter via "
+            "fed.join"
+        )
+    manager.leave(timeout=timeout)
+    shutdown()
+
+
+def membership_sync(timeout: Optional[float] = None):
+    """One membership sync point — call at the SAME program point (a
+    round boundary) on every roster party. The coordinator folds pending
+    joins/leaves/evictions into the next view and broadcasts it; everyone
+    else receives and applies it. Returns the (possibly unchanged)
+    :class:`~rayfed_tpu_torch.membership.MembershipView` now in force.
+    Consumes no data seq ids."""
+    from rayfed_tpu_torch.membership import manager as _mbr_manager
+
+    manager = _mbr_manager.get_membership_manager()
+    if manager is None:
+        raise RuntimeError(
+            "fed.membership_sync() needs a membership-enabled job: pass "
+            "config={'membership': {...}} to fed.init, or enter via "
+            "fed.join"
+        )
+    return manager.membership_sync(timeout=timeout)
+
+
+def membership_view():
+    """This party's current membership view, or None on membership-free
+    jobs."""
+    from rayfed_tpu_torch.membership import manager as _mbr_manager
+
+    manager = _mbr_manager.get_membership_manager()
+    return None if manager is None else manager.view()
+
+
+def membership_stats() -> Dict[str, int]:
+    """This party's membership HA counters (the ``get_stats()`` mirror
+    of the ``fed_membership_*`` telemetry series, docs/ha.md): adopted
+    ``term``, ``failovers`` (depositions adopted), ``takeovers`` (times
+    THIS party won the election), ``stale_syncs_rejected``, plus —
+    on the coordinator — the fold counters (``epoch_bumps``,
+    ``joins_accepted``, ...). Empty on membership-free jobs."""
+    from rayfed_tpu_torch.membership import manager as _mbr_manager
+
+    manager = _mbr_manager.get_membership_manager()
+    if manager is None:
+        return {}
+    out = manager.ha_stats()
+    out["term"] = manager.term()
+    coordinator = manager.get_coordinator_state()
+    if coordinator is not None:
+        out.update(coordinator.stats)
+    return out
 
 
 def remote(*args, **kwargs):

@@ -13,7 +13,7 @@
 # limitations under the License.
 
 """High-level federated learning API over the execution engine (port of
-``rayfed_tpu/federated.py``, sync mode).
+``rayfed_tpu/federated.py``).
 
 Every helper builds an ordinary fed DAG, so the owner-push perimeter,
 seq-id determinism and error envelopes all apply unchanged.
@@ -32,8 +32,10 @@ parties run different packages lays out one DAG; and their arithmetic is
 the JAX package's bit for bit (``ops/aggregate.tree_scale`` /
 ``tree_divide``: scalars rounded to the leaf dtype, a true division).
 ``publish_to=`` hot-publishes the aggregate into a serving engine
-(``fed.serve``'s handle) as its next version. Async rounds, secure
-aggregation and the same-mesh fast path are not ported yet and raise.
+(``fed.serve``'s handle) as its next version. ``mode="async"`` offers
+each contribution to the FedBuff aggregator at the root
+(``async_rounds.py``). Secure aggregation and the same-mesh fast path are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -118,26 +120,52 @@ def fed_aggregate(
         aggregate is published to it as the served model's next version
         (an owner-push of the tree when the root is not the serving
         party).
-    mode, buffer_k, staleness_fn, round_tag, secure: the JAX package's
-        async rounds and secure aggregation, not ported yet: anything
-        but their defaults raises ``NotImplementedError`` naming the
-        ROADMAP item that brings it.
+    mode: "sync" (default — the lock-step reduction below) or "async"
+        (FedBuff-style buffered aggregation, docs/async_rounds.md): each
+        contribution is OFFERED to a buffered aggregator at the root and
+        the call returns an :class:`~rayfed_tpu_torch.async_rounds.AsyncRoundHandle`
+        immediately — ``handle.model`` is a FedObject of the newest
+        published ``{"version", "params"}`` at the root. ``buffer_k``,
+        ``staleness_fn`` ("poly" | "constant" | "exp") and ``round_tag``
+        apply only to async mode, which supports op "mean"/"wmean";
+        ``topology``/``plan`` are sync-only.
+    secure: secure aggregation is ROADMAP Queue 1 item 11: True raises
+        ``NotImplementedError`` naming it, in either mode.
     """
     if not objs:
         raise ValueError("fed_aggregate needs at least one party's object")
     if secure:
         raise NotImplementedError(
-            "fed_aggregate(secure=True): secure aggregation is ROADMAP "
-            "Queue 1 item 11, not ported to rayfed_tpu_torch yet"
+            f"fed_aggregate(secure=True, mode={mode!r}): secure aggregation "
+            "is ROADMAP Queue 1 item 11, not ported to rayfed_tpu_torch yet"
         )
+    if mode in ("sync", "async"):
+        _m_aggregates.labels(mode=mode).inc()
     if mode == "async":
-        raise NotImplementedError(
-            "fed_aggregate(mode='async'): buffered async rounds are ROADMAP "
-            "Queue 1 item 10, not ported to rayfed_tpu_torch yet"
+        if op not in ("mean", "wmean"):
+            raise ValueError(
+                f"mode='async' aggregates a staleness-weighted mean; "
+                f"op={op!r} is sync-only"
+            )
+        if plan is not None or topology is not None:
+            raise ValueError(
+                "mode='async' folds in arrival order — topology=/plan= "
+                "are sync-only knobs"
+            )
+        if op == "wmean" and weights is None:
+            raise ValueError("op='wmean' needs weights={party: w}")
+        from rayfed_tpu_torch import async_rounds
+
+        return async_rounds.async_round(
+            objs,
+            round_tag=round_tag,
+            weights=weights if op == "wmean" else None,
+            buffer_k=buffer_k,
+            staleness_fn=staleness_fn,
+            publish_to=publish_to,
         )
     if mode != "sync":
         raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
-    _m_aggregates.labels(mode=mode).inc()
     if buffer_k is not None or staleness_fn is not None or round_tag is not None:
         raise ValueError(
             "buffer_k/staleness_fn/round_tag are async-only knobs; "
@@ -150,6 +178,17 @@ def fed_aggregate(
             from rayfed_tpu_torch.resilience.liveness import DEAD
 
             dead = {p for p, st in liveness.items() if st == DEAD}
+        # Elastic membership: parties evicted (or departed) since the
+        # caller built ``objs`` are outside the current roster — exclude
+        # them like DEAD parties so the schedule re-plans over the
+        # members. Every party applied the same epoch bump at the same
+        # sync point, so every driver excludes identically.
+        from rayfed_tpu_torch.membership.manager import get_membership_manager
+
+        membership = get_membership_manager()
+        if membership is not None:
+            roster = set(membership.roster())
+            dead |= {p for p in objs if p not in roster}
         plan = topo.plan(
             list(objs.keys()),
             topology or default_topo,

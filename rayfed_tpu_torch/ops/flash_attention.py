@@ -39,11 +39,21 @@ launches the kernel, or raises on a dtype, head dim or layout the kernel
 does not take. There is no fallback between the two. ``LAUNCHES`` counts
 kernel launches, so a run can show that it went through the kernels.
 
+The kernels are built for head dims 16, 32, 64 and 128. Any other head
+dim up to 128 runs zero-padded to the next of them (q, k, v and dO padded
+along D, the scale kept at the true ``D**-0.5``, the outputs sliced back),
+as the Pallas kernels take any D; a zero column adds nothing to a score,
+so O, lse and the gradients are those of the true D, at the padded D's
+work (D=80 on the D=128 kernel: 1.6x the products). Head dims above 128
+raise: a D=256 instantiation needs its own register plan (ROADMAP Queue
+2, "head dims above 128").
+
 The kernels choose their own tiles (bf16: K1 128 queries x 128 keys, K2
-128 queries x 64 keys, K3 128 keys x 64 queries; f32: K1 64 x 64, K2
-128 queries x 32 keys, K3 128 keys x 32 queries)
-and mask ragged edges, whatever ``block_q``/``block_k`` say; the block
-sizes drive the plain versions. Both dQ kernels also compute ``delta =
+128 queries x 64 keys, K3 128 keys x 64 queries; f32: K1 and K2 128
+queries x 32 keys, K3 128 keys x 32 queries) and mask ragged edges,
+whatever ``block_q``/``block_k`` say; the block sizes drive the plain
+versions. The launch grid is (B·H, row tiles): B·H may reach 2^31-1, the
+row tiles of the tiled sequence (Sq for K1 and K2, Sk for K3) 65535. Both dQ kernels also compute ``delta =
 rowsum(dO * O)``, which the reference left to XLA between its two backward
 passes. The entry points take the reference's arguments in its order;
 its ``interpret`` flag is accepted and ignored, since the tensors' device
@@ -59,6 +69,13 @@ import torch
 
 _NEG_BIG = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: Sequence rows each kernel's block owns, every kernel and both dtypes
+#: (csrc: bf16 ``FwdCfg``/``DqCfg::kM`` and ``DkvCfg::kN``, 64 x 2
+#: warpgroups; f32 ``kM``, 16 x 8 warps). The grid's y dimension counts
+#: these tiles and may not pass 65535; its x dimension (B·H) 2^31-1.
+_TILE_ROWS = 128
+_GRID_Y_MAX = 65535
+_GRID_X_MAX = 2**31 - 1
 
 #: Launches of each CUDA kernel; a wrapper adds one where it launches.
 LAUNCHES: Dict[str, int] = {
@@ -201,7 +218,9 @@ def _flash_bwd_dkv_plain(q, k, v, do, lse, delta, block_q, block_k,
 # ---------------------------------------------------------------------------
 
 
-def _check_qkv(name, x, b, s, h, d, device, dtype):
+def _check_qkv(name, x, b, s, h, d, device, dtype, padded=False):
+    """Raise unless ``x`` is a (b, s, h, d) tensor the kernels take; a
+    tensor to be zero-padded (``padded``) is copied, so any layout does."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, q on {device}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -213,6 +232,8 @@ def _check_qkv(name, x, b, s, h, d, device, dtype):
     if tuple(x.shape) != (b, s, h, d):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, "
                          f"expected {(b, s, h, d)}")
+    if padded:
+        return
     if x.stride(3) != 1 or any(st % 8 for st in x.stride()[:3]) \
             or x.data_ptr() % 16:
         raise ValueError(
@@ -241,7 +262,29 @@ def _dims(q, k, v, o, do, q_offset):
                                     *strides)
 
 
-def _geometry(q, k, q_offset):
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at: ``d`` itself, or
+    the next of ``KERNEL_HEAD_DIMS`` with q, k, v and dO zero-padded."""
+    for kd in KERNEL_HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise NotImplementedError(
+        f"head dim {d}: the CUDA flash kernels take D <= "
+        f"{KERNEL_HEAD_DIMS[-1]} (zero-padded up to one of "
+        f"{KERNEL_HEAD_DIMS}); a D=256 instantiation needs its own register "
+        f"plan — ROADMAP Queue 2, 'head dims above 128'"
+    )
+
+
+def _pad_head(x, kd):
+    return x if x.shape[-1] == kd else torch.nn.functional.pad(
+        x, (0, kd - x.shape[-1]))
+
+
+def _geometry(q, k, q_offset, tiled):
+    """(B, Sq, Sk, H, D, the kernel head dim) of a launch whose grid
+    tiles ``tiled`` ("q" for K1 and K2, "k" for K3); raises where the
+    kernels cannot run it."""
     if not q.is_cuda:
         raise ValueError(
             f"the CUDA flash kernels need CUDA tensors, got {q.device}")
@@ -249,12 +292,20 @@ def _geometry(q, k, q_offset):
         raise ValueError(f"q must be (B, S, H, D), got shape {tuple(q.shape)}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
-    if sq < 1 or sk < 1 or b * h > 65535 or q_offset < 0:
+    kd = kernel_head_dim(d)
+    if sq < 1 or sk < 1 or b * h < 1 or q_offset < 0:
         raise ValueError(f"unsupported geometry B={b} Sq={sq} Sk={sk} H={h} "
                          f"q_offset={q_offset}")
-    return b, sq, sk, h, d
+    if b * h > _GRID_X_MAX:
+        raise ValueError(f"B·H = {b * h} passes the launch grid's x limit "
+                         f"{_GRID_X_MAX}")
+    s = sq if tiled == "q" else sk
+    tiles = -(-s // _TILE_ROWS)
+    if tiles > _GRID_Y_MAX:
+        raise ValueError(
+            f"S{tiled} = {s} is {tiles} tiles of {_TILE_ROWS} rows, past the "
+            f"launch grid's y limit {_GRID_Y_MAX}")
+    return b, sq, sk, h, d, kd
 
 
 def _stream(device):
@@ -266,11 +317,13 @@ def _flash_fwd_cuda(q, k, v, q_offset):
     (f32); returns (O, lse)."""
     from rayfed_tpu_torch.ops import _native
 
-    b, sq, sk, h, d = _geometry(q, k, q_offset)
+    b, sq, sk, h, d, kd = _geometry(q, k, q_offset, "q")
+    padded = kd != d
     for name, x, s in (("q", q, sq), ("k", k, sk), ("v", v, sk)):
-        _check_qkv(name, x, b, s, h, d, q.device, q.dtype)
+        _check_qkv(name, x, b, s, h, d, q.device, q.dtype, padded)
+    q, k, v = (_pad_head(x, kd) for x in (q, k, v))
     kind = "flash_fwd" + _KERNEL_DTYPES[q.dtype]
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, sq, h, kd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     dims = _dims(q, k, v, None, None, q_offset)
     entry = getattr(_native.lib(), "rf_" + kind)
@@ -282,7 +335,7 @@ def _flash_fwd_cuda(q, k, v, q_offset):
         )
     _native.check(code, kind + "_kernel")
     LAUNCHES[kind] += 1
-    return o, lse
+    return o[..., :d], lse
 
 
 def _flash_bwd_dq_cuda(q, k, v, o, lse, do, q_offset):
@@ -290,13 +343,15 @@ def _flash_bwd_dq_cuda(q, k, v, o, lse, do, q_offset):
     ``flash_bwd_dq_f32_kernel`` (f32); returns (dq, delta)."""
     from rayfed_tpu_torch.ops import _native
 
-    b, sq, sk, h, d = _geometry(q, k, q_offset)
+    b, sq, sk, h, d, kd = _geometry(q, k, q_offset, "q")
+    padded = kd != d
     for name, x, s in (("q", q, sq), ("k", k, sk), ("v", v, sk),
                        ("o", o, sq), ("do", do, sq)):
-        _check_qkv(name, x, b, s, h, d, q.device, q.dtype)
+        _check_qkv(name, x, b, s, h, d, q.device, q.dtype, padded)
     _check_stat("lse", lse, b, sq, h, q.device)
+    q, k, v, o, do = (_pad_head(x, kd) for x in (q, k, v, o, do))
     kind = "flash_bwd_dq" + _KERNEL_DTYPES[q.dtype]
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, sq, h, kd), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     dims = _dims(q, k, v, o, do, q_offset)
     entry = getattr(_native.lib(), "rf_" + kind)
@@ -308,7 +363,7 @@ def _flash_bwd_dq_cuda(q, k, v, o, lse, do, q_offset):
         )
     _native.check(code, kind + "_kernel")
     LAUNCHES[kind] += 1
-    return dq, delta
+    return dq[..., :d], delta
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_offset):
@@ -316,15 +371,17 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_offset):
     ``flash_bwd_dkv_f32_kernel`` (f32); returns (dk, dv)."""
     from rayfed_tpu_torch.ops import _native
 
-    b, sq, sk, h, d = _geometry(q, k, q_offset)
+    b, sq, sk, h, d, kd = _geometry(q, k, q_offset, "k")
+    padded = kd != d
     for name, x, s in (("q", q, sq), ("k", k, sk), ("v", v, sk),
                        ("do", do, sq)):
-        _check_qkv(name, x, b, s, h, d, q.device, q.dtype)
+        _check_qkv(name, x, b, s, h, d, q.device, q.dtype, padded)
     _check_stat("lse", lse, b, sq, h, q.device)
     _check_stat("delta", delta, b, sq, h, q.device)
+    q, k, v, do = (_pad_head(x, kd) for x in (q, k, v, do))
     kind = "flash_bwd_dkv" + _KERNEL_DTYPES[q.dtype]
-    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, kd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, kd), dtype=v.dtype, device=q.device)
     dims = _dims(q, k, v, None, do, q_offset)
     entry = getattr(_native.lib(), "rf_" + kind)
     with torch.cuda.device(q.device):
@@ -335,7 +392,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_offset):
         )
     _native.check(code, kind + "_kernel")
     LAUNCHES[kind] += 1
-    return dk, dv
+    return dk[..., :d], dv[..., :d]
 
 
 # ---------------------------------------------------------------------------
@@ -443,5 +500,5 @@ def make_flash_attn_fn(block_q: int = 512, block_k: int = 512,
 
 __all__ = [
     "flash_attention", "make_flash_attn_fn", "LAUNCHES",
-    "reset_launch_counts", "KERNEL_HEAD_DIMS",
+    "reset_launch_counts", "KERNEL_HEAD_DIMS", "kernel_head_dim",
 ]

@@ -49,6 +49,30 @@ def _hook_global_context() -> None:
     clear_global_context(wait_for_sending=False)
 
 
+def _hook_async_sessions() -> None:
+    from rayfed_tpu_torch.async_rounds import reset_sessions
+
+    reset_sessions()
+
+
+def _hook_async_default() -> None:
+    from rayfed_tpu_torch.async_rounds import reset_default_async_config
+
+    reset_default_async_config()
+
+
+def _hook_checkpoint() -> None:
+    from rayfed_tpu_torch.checkpoint import reset_default_checkpoint_config
+
+    reset_default_checkpoint_config()
+
+
+def _hook_membership() -> None:
+    from rayfed_tpu_torch.membership.manager import clear_membership_manager
+
+    clear_membership_manager()
+
+
 def _hook_kv() -> None:
     from rayfed_tpu_torch._private.kv import kv_reset
 
@@ -183,9 +207,15 @@ RESET_HOOKS: Dict[str, List[Tuple[Callable[[], None], str]]] = {
     "rayfed_tpu_torch.resilience.liveness": [(_hook_liveness, JOB)],
     "rayfed_tpu_torch.resilience.inject": [(_hook_inject, JOB)],
     "rayfed_tpu_torch.resilience.linkhealth": [(_hook_linkhealth, JOB)],
+    "rayfed_tpu_torch.membership.manager": [(_hook_membership, JOB)],
     "rayfed_tpu_torch.serving.server": [(_hook_serving_server, JOB)],
     "rayfed_tpu_torch.serving.client": [(_hook_serving_client, JOB)],
     "rayfed_tpu_torch.topology": [(_hook_topology, JOB)],
+    "rayfed_tpu_torch.async_rounds": [
+        (_hook_async_sessions, JOB),
+        (_hook_async_default, JOB),
+    ],
+    "rayfed_tpu_torch.checkpoint": [(_hook_checkpoint, JOB)],
     "rayfed_tpu_torch.proxy.barriers": [(_hook_barriers, JOB)],
     "rayfed_tpu_torch.proxy.rendezvous": [(_hook_rendezvous, JOB)],
     "rayfed_tpu_torch._private.kv": [(_hook_kv, JOB)],

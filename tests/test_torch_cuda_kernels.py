@@ -62,6 +62,11 @@ SHAPES = [
     (1, 72, 200, 3, 128, 128),     # Sq = 72 < Sk, q_offset 128
     (1, 100, 90, 2, 64, 20),       # queries past the last key: Sk ends
                                    # mid-stage before their diagonal
+    # Head dims the kernels take zero-padded to the next of 16/32/64/128:
+    (1, 200, 200, 2, 48, 0),
+    (2, 96, 160, 3, 80, 64),
+    (1, 136, 328, 3, 96, 150),
+    (4096, 64, 64, 16, 64, 0),     # B*H = 65536 on the grid's x dimension
 ]
 
 
@@ -150,9 +155,15 @@ def test_kernel_wrappers_raise_on_untaken_inputs(cuda_device):
         fa._flash_bwd_dq_cuda(x, x, x, x.float(),
                               torch.zeros((1, 64, 2), device=cuda_device),
                               x, 0)
-    y = torch.zeros((1, 64, 2, 48), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    y = torch.zeros((1, 64, 2, 160), device=cuda_device,
+                    dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head dims above 128"):
         fa._flash_fwd_cuda(y, y, y, 0)
+    # The grid's y dimension counts 128-row tiles, at most 65535.
+    w = torch.zeros((1, 128 * 65535 + 1, 1, 16), device=cuda_device,
+                    dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="grid's y limit"):
+        fa._flash_fwd_cuda(w, w, w, 0)
     z = torch.zeros((1, 64, 2, 32), device=cuda_device,
                     dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="layout"):

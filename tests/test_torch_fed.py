@@ -466,9 +466,6 @@ _REFUSED = [
     ({"jax_distributed": {"num_processes": 2, "process_id": 0}}, "item 17"),
     ({"party_mesh": {"device_ids": [0, 1]}}, "item 8"),
     ({"collective": {"coordinator": "127.0.0.1:1"}}, "item 12"),
-    ({"aggregation": {"async_buffer_k": 2}}, "item 10"),
-    ({"membership": {}}, "item 10"),
-    ({"checkpoint": {"dir": "x"}}, "item 10"),
     ({"privacy": {"quantize": "int8"}}, "item 11"),
     ({"telemetry": {"collector": "alice"}}, "item 18"),
     ({"transport": "tpu"}, "item 4"),
@@ -487,6 +484,78 @@ def test_unported_config_block_is_refused_at_init(config, item):
     with pytest.raises((NotImplementedError, ImportError), match=item):
         fed.init(addresses=addresses, party="alice", config=config)
     assert get_global_context() is None and not tenancy_context.contexts()
+
+
+# The blocks of the planes ported since (ROADMAP item 10): init accepts
+# each and rejects a typo in it, before building any state, with the JAX
+# package's message.
+_ACCEPTED_BLOCKS = [
+    ("membership", {"membership": {"join_timeout_s": 5.0}},
+     {"membership": {"join_timeout": 5.0}},
+     r"unknown membership config key\(s\) \['join_timeout'\]"),
+    ("checkpoint", {"checkpoint": {"keep": 2}}, {"checkpoint": {"dir": "x"}},
+     r"unknown checkpoint config key\(s\) \['dir'\]"),
+    ("aggregation_async",
+     {"aggregation": {"topology": "tree", "async_buffer_k": 2}},
+     {"aggregation": {"topology": "tree", "async_bufer_k": 2}},
+     r"unknown aggregation config key 'async_bufer_k'"),
+]
+
+
+@pytest.mark.parametrize("block, config, typo, message", _ACCEPTED_BLOCKS,
+                         ids=[b for b, *_ in _ACCEPTED_BLOCKS])
+def test_ported_config_block_is_accepted_and_its_typo_rejected(
+        block, config, typo, message):
+    from rayfed_tpu_torch._private.global_context import get_global_context
+    from rayfed_tpu_torch.tenancy import context as tenancy_context
+
+    with pytest.raises(ValueError, match=message):
+        fed.init(addresses={"alice": "127.0.0.1:1"}, party="alice",
+                 config=typo)
+    assert get_global_context() is None and not tenancy_context.contexts()
+    fed.init(addresses=get_addresses(["alice"]), party="alice",
+             config=config)
+    try:
+        if block == "membership":
+            assert fed.membership_view().roster == ("alice",)
+        elif block == "checkpoint":
+            from rayfed_tpu_torch import checkpoint
+
+            assert checkpoint.get_default_checkpoint_config().keep == 2
+        else:
+            from rayfed_tpu_torch import async_rounds
+
+            assert async_rounds.get_default_async_config().buffer_k == 2
+    finally:
+        fed.shutdown()
+    assert get_global_context() is None
+
+
+def _secure_async_round():
+    from rayfed_tpu_torch.async_rounds import async_round
+
+    async_round({"alice": object()}, secure=True)
+
+
+def _head_dim_256():
+    from rayfed_tpu_torch.ops.flash_attention import kernel_head_dim
+
+    kernel_head_dim(256)
+
+
+# Refusals that are calls, not config blocks: each names where its work
+# stands in the ROADMAP.
+_REFUSED_CALLS = [
+    (_secure_async_round, "item 11"),
+    (_head_dim_256, "Queue 2, 'head dims above 128'"),
+]
+
+
+@pytest.mark.parametrize("call, item", _REFUSED_CALLS,
+                         ids=["secure_async", "head_dim_over_128"])
+def test_unported_call_is_refused(call, item):
+    with pytest.raises(NotImplementedError, match=item):
+        call()
 
 
 # ---------------------------------------------------------------------------

@@ -242,7 +242,7 @@ def test_fedavg_trainer_converges():
 # ---------------------------------------------------------------------------
 
 _REFUSED_CALLS = [
-    (dict(mode="async"), "item 10"),
+    (dict(mode="async", secure=True), "item 11"),
     (dict(secure=True), "item 11"),
 ]
 
@@ -257,8 +257,8 @@ def test_fed_aggregate_refuses_what_is_not_ported(kwargs, item):
 
 
 _REFUSED_INIT = [
-    ({"aggregation": {"topology": "tree", "async_buffer_k": 2}},
-     NotImplementedError, "item 10"),
+    ({"aggregation": {"topology": "tree", "async_bufer_k": 2}},
+     ValueError, "unknown aggregation config key 'async_bufer_k'"),
     ({"party_mesh": {"device_ids": [0, 1]}}, NotImplementedError, "item 8"),
     ({"party_mesh": {"mesh_shape": [2, 2]}}, NotImplementedError, "item 8"),
     ({"transport": "cuda"}, RuntimeError, "no CUDA|none is available"),

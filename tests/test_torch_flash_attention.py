@@ -97,6 +97,25 @@ def test_bwd_passes_match_pallas(sq, sk, q_offset):
         _close(got, want, 3e-4)
 
 
+def test_padded_head_dim_plain_path_matches_pallas():
+    """D = 80, which the Hopper kernels run zero-padded to 128: the plain
+    path (what a CPU tensor takes) against the Pallas kernels in
+    interpret mode, forward and both backward passes."""
+    arrs = _inputs(8, [(1, 64, 2, 80)] * 4)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(arrs)
+    jo, jl = jfa._flash_fwd_raw(jq, jk, jv, 16, 16, True, 0)
+    to, tl = fa._flash_fwd_raw(tq, tk, tv, 16, 16, True, 0)
+    _close(to, jo, 2e-5)
+    _close(tl, jl, 2e-5)
+    jgrads = jfa._flash_bwd_pallas(jq, jk, jv, jo, jl, jdo, 16, 16, True, 0)
+    tgrads = fa._flash_bwd_raw(tq, tk, tv, torch.from_numpy(np.array(jo)),
+                               torch.from_numpy(np.array(jl)), tdo, 16, 16,
+                               True, 0)
+    for got, want in zip(tgrads, jgrads):
+        _close(got, want, 3e-4)
+    assert fa.kernel_head_dim(80) == 128 and fa.kernel_head_dim(64) == 64
+
+
 def test_autograd_matches_jax_grad():
     """The autograd.Function's backward against jax.grad through the
     custom_vjp, and the forward's value too."""

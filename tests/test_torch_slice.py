@@ -168,6 +168,24 @@ def test_chip_smoke_fed_phase_on_the_python_io_path_at_tiny_size():
     chip_smoke.compare_io_paths({"native": results, "python": results})
 
 
+def test_chip_smoke_async_phase_on_cpu_at_tiny_size():
+    # Phase 8's program, three spawned party processes (carol joins and
+    # leaves mid-job), end to end at tiny size: phase_async fails on any
+    # of its checks (a)-(g) ((h) needs the card).
+    results = chip_smoke.phase_async(
+        "cpu", tfm.tiny_config(), batch=BATCH, seq=SEQ, label="cpu:",
+        straggler=dict(chip_smoke.ASYNC_STRAGGLER, stall_s=3.0),
+        timeout_s=150)
+    res = results["alice"]
+    assert res["n_offers"] == chip_smoke.ASYNC_ROUNDS + 1
+    assert [v["version"] for v in res["versions"]] == [1, 2, 3]
+    # carol's offer (round 3) lands before bob's stalled round-2 offer.
+    v2 = res["versions"][1]["contributions"]
+    assert [(c["party"], c["round_tag"], c["staleness"]) for c in v2] == [
+        ("carol", 3, 0), ("bob", 2, 1)]
+    assert v2[1]["weight"] == 2 ** -0.5
+
+
 def test_chip_smoke_f32_phase_on_cpu_at_tiny_size():
     # Phase 4b at tiny size: the f32 steps (the dense attention on the
     # CPU) and the batch-1 check of the flash path's loss and gradients
