@@ -18,6 +18,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --serving-only   # phases 1 and 7 alone
     python3 chip_smoke.py --async-only     # phases 1, 2 and 8 alone
+    python3 chip_smoke.py --family-only    # phases 1, 2 and 9 alone
 
 Phases:
 
@@ -134,6 +135,26 @@ Phases:
    publish's ms (CUDA events), each offer's push, the join and leave
    ms, each cut's bytes and save and restore ms, each party's peak
    memory.
+
+9. family: the rest of the transformer family at the same width and
+   depth. (a) An MoE model (each FFN a top-1 MoE FFN of 8 experts, each
+   d_ff wide; the repo has no MoE configuration, so this is an
+   assumption) takes 3 AdamW steps through ``make_fed_train_step(attn=
+   "flash", remat="attn")``, then 2 each under ``remat=False`` and
+   ``True``: finite losses, K1-K3 launched; per mode the step ms,
+   tokens/s, peak memory and K1 launches per step. At depth 2, batch 2
+   the three modes' loss and gradients are bitwise equal. (c) Cached
+   decoding of the MoE model: at f32 compute and depth 2 the prefill's and
+   each decode step's logits within 1e-4 of a full forward's norm and the
+   greedy tokens those of ``make_generate_fn``; greedy tokens of the bf16
+   model of (a), the same on a rerun. (b) ``examples/fedavg_lora.py`` on
+   the dense model in two spawned party processes, ``transport="cuda"``,
+   rank 8 on the attention targets, 2 rounds of 3 local steps at batch
+   12: the merged models hash the same in both parties every round, the
+   root's aggregate is bitwise the CPU fold of the two pushed adapter
+   trees, the frozen base is bitwise unchanged, each party launched K1-K3.
+   Prints the adapter bytes pushed a round against the base's, each
+   round's wall, each party's launches and peak memory.
 
 Every phase prints its wall seconds. It needs a CUDA card and exits
 non-zero without one. The last two lines
@@ -3049,8 +3070,404 @@ def phase_async(device, cfg, *, batch, seq, label="",
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the rest of the transformer family (MoE, remat="attn", LoRA)
+# ---------------------------------------------------------------------------
+
+# The repo has no MoE configuration of its own: phase 9's MoE model is the
+# flagship width with each dense FFN replaced by a top-1 MoE FFN of
+# FAMILY_EXPERTS experts, each d_ff wide (an assumption, no source).
+FAMILY_EXPERTS = 8
+# MoE train steps under remat="attn", and under remat False and True for
+# the comparison; the first step of each warms up and is not timed.
+FAMILY_STEPS = 3
+FAMILY_MODE_STEPS = 2
+REMAT_MODES = ("attn", False, True)
+# The remat agreement check runs at this smaller (depth, batch). K1-K3
+# have no atomics and every other op runs at the same shapes in each mode,
+# so the three modes' loss and gradients are held bitwise.
+FAMILY_REMAT_CHECK = (2, 2)
+# The LoRA FedAvg round: examples/fedavg_lora.py at the flagship width,
+# with the example's adapters (its RANK on the attention targets) and its
+# LOCAL_STEPS.
+FAMILY_LORA_ROUNDS = 2
+FAMILY_LORA_TIMEOUT_S = 420
+# The MoE decode check: f32 compute at depth 2 (as phase 7's (d)), cached
+# prefill and decode logits within SERVE_LOGIT_TOL of a full forward's
+# norm; then greedy tokens from the bf16 MoE model of (a).
+FAMILY_DECODE_LAYERS = 2
+FAMILY_DECODE_PROMPT = 48
+FAMILY_DECODE_NEW = 8
+
+
+def moe_steps(cfg, device, *, batch, seq, remat, steps, lr=1e-3, seed=0):
+    """``steps`` AdamW steps of ``make_fed_train_step(attn="flash",
+    remat=remat)`` on ``cfg`` from ``seed``: the losses, each step's ms
+    (host clock around the synchronized step), the kernel launches, the
+    peak memory (params, AdamW state and activations) and the state."""
+    import torch
+
+    from rayfed_tpu_torch.data import synthetic_lm_dataset
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+
+    on_cuda = torch.device(device).type == "cuda"
+    init_fn, step_fn = make_fed_train_step(cfg, device, lr=lr, attn="flash",
+                                           remat=remat)
+    params, opt = init_fn(seed)
+    # The same batches in every mode: the first ``steps`` of FAMILY_STEPS.
+    data = synthetic_lm_dataset(
+        cfg.vocab, batch * max(steps, FAMILY_STEPS) * (seq + 1), seq,
+        seed=seed + 1)
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, step_ms = [], []
+    for _, blk in zip(range(steps), data.batches(batch, epoch=0)):
+        t0 = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, blk[:, :-1], blk[:, 1:])
+        losses.append(float(loss))
+        if on_cuda:
+            torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    timed = step_ms[1:] or step_ms
+    return dict(
+        losses=losses, step_ms=step_ms,
+        tokens_per_s=len(timed) * batch * seq / sum(timed) * 1e3,
+        launches=dict(fa.LAUNCHES),
+        k1_per_step=fa.LAUNCHES["flash_fwd"] / len(losses),
+        max_memory_allocated=(torch.cuda.max_memory_allocated()
+                              if on_cuda else None),
+        params=params)
+
+
+def remat_agreement(cfg, device, *, seq, seed=5):
+    """One loss and gradient of ``cfg`` at ``FAMILY_REMAT_CHECK``'s depth
+    and batch under each remat mode, with the flash kernels: the elements
+    of the loss and gradients that differ from ``remat=False``'s, and the
+    largest difference relative to the gradient's largest entry."""
+    import dataclasses
+
+    import torch
+
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+
+    depth, batch = FAMILY_REMAT_CHECK
+    small = dataclasses.replace(cfg, n_layers=depth)
+    base = tfm.init_params(seed, small, device)
+    gen = torch.Generator(device=base["embed"].device).manual_seed(seed)
+    blk = torch.randint(0, small.vocab, (batch, seq + 1), generator=gen,
+                        device=base["embed"].device)
+    got = {}
+    for mode in REMAT_MODES:
+        ps = tree_util.tree_map(
+            lambda p: p.detach().clone().requires_grad_(True), base)
+        loss = tfm.lm_loss_pair(ps, blk[:, :-1], blk[:, 1:], small,
+                                fa.make_flash_attn_fn(), remat=mode,
+                                loss_chunk=512)
+        loss.backward()
+        got[mode] = [loss.detach()] + [p.grad for p in
+                                       tree_util.tree_flatten(ps)[0]]
+    out = {}
+    for mode in (True, "attn"):
+        diff = sum(int((_int_view(a) != _int_view(b)).sum())
+                   for a, b in zip(got[mode], got[False]))
+        rel = max(float((a.float() - b.float()).abs().max())
+                  / max(float(b.float().abs().max()), 1e-30)
+                  for a, b in zip(got[mode], got[False]))
+        out[str(mode)] = dict(mismatched=diff, max_rel=rel)
+    out["elements"] = sum(x.numel() for x in got[False])
+    return out
+
+
+def moe_decode_check(cfg, device, params, *, seed=9):
+    """(c): cached decode of the MoE model. At f32 compute and
+    ``FAMILY_DECODE_LAYERS`` layers (fresh params), the prefill's and each
+    decode step's logits against a full forward over the same tokens
+    (error norm over the reference's norm, per position block); then
+    ``FAMILY_DECODE_NEW`` greedy tokens from ``params`` (the bf16 model of
+    (a)), twice, through ``make_generate_fn``."""
+    import dataclasses
+
+    import torch
+
+    from rayfed_tpu_torch.models import decode, transformer as tfm
+
+    f32 = dataclasses.replace(cfg, n_layers=FAMILY_DECODE_LAYERS,
+                              compute_dtype=torch.float32)
+    p32 = tfm.init_params(seed, f32, device)
+    dev = p32["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(1, cfg.vocab, (1, FAMILY_DECODE_PROMPT),
+                           generator=gen, device=dev)
+    s, new = FAMILY_DECODE_PROMPT, FAMILY_DECODE_NEW
+    with torch.no_grad():
+        cache = decode.init_cache(f32, 1, s + new, device=dev)
+        logits, cache = decode.forward_with_cache(p32, prompt, cache, 0, f32)
+        cached = [logits[0]]
+        toks = [int(logits[0, -1].argmax())]
+        for pos in range(s, s + new - 1):
+            step, cache = decode.forward_with_cache(
+                p32, torch.tensor([[toks[-1]]], device=dev), cache, pos, f32)
+            cached.append(step[0])
+            toks.append(int(step[0, -1].argmax()))
+        seq = torch.cat([prompt, torch.tensor([toks], device=dev)], dim=1)
+        full = tfm.forward(p32, seq[:, :-1], f32)[0]
+        cached = torch.cat(cached, dim=0)
+        ratios = {"prefill": float((cached[:s] - full[:s]).norm()
+                                   / full[:s].norm()),
+                  "decode": float((cached[s:] - full[s:]).norm()
+                                  / full[s:].norm())}
+        gen_fn = decode.make_generate_fn(f32, max_new_tokens=new)
+        same_as_loop = gen_fn(p32, prompt)[0, s:].tolist() == toks
+        bf16_fn = decode.make_generate_fn(cfg, max_new_tokens=new)
+        first = bf16_fn(params, prompt)
+        again = bf16_fn(params, prompt)
+    greedy = first[0, s:].tolist()
+    return dict(ratios=ratios, f32_tokens=toks, same_as_loop=same_as_loop,
+                greedy=greedy, rerun_equal=torch.equal(first, again),
+                in_vocab=all(0 <= t < cfg.vocab for t in greedy))
+
+
+def _lora_program(party, addresses, device, cfg_kw, batch, seq, rounds, lr):
+    """Phase 9 (b)'s party: ``rayfed_tpu_torch/examples/fedavg_lora.py``
+    (its ``LoraWorker`` and ``run``) at ``cfg_kw``'s width with
+    ``transport="cuda"`` on a card ("tcp" on the CPU), plus what the parent
+    checks: each round's aggregate at the root against the CPU fold of
+    the two pushed adapter trees, both parties' merged-model and base
+    digests, each round's wall, each party's launches and peak memory."""
+    import torch
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import mesh, topology, tree_util
+    from rayfed_tpu_torch.examples import fedavg_lora as example
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.ops.aggregate import reduce_by_plan
+
+    cfg = tfm.TransformerConfig(**cfg_kw)
+    on_cuda = torch.device(device).type == "cuda"
+    names = list(example.SEEDS)
+    root, other = names
+    fed.init(addresses=addresses, party=party, logging_level="warning",
+             transport="cuda" if on_cuda else "tcp",
+             config={"cross_silo_comm": FED_COMM})
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+
+    @fed.remote
+    def check_fold(mine, theirs, agg):
+        """At the root: the aggregate on the party's device against the
+        CPU fold (``reduce_by_plan``, the sum and divide of
+        ``fed_aggregate``) of the two pushed adapter trees."""
+        want = reduce_by_plan(topology.plan(names, "flat"),
+                              {root: _host_tree(mine),
+                               other: _host_tree(theirs)})
+        got, spec = tree_util.tree_flatten(_host_tree(agg))
+        mismatched = sum(int((_int_view(a) != _int_view(b)).sum())
+                         for a, b in zip(got, tree_util.leaves_like(want,
+                                                                    spec)))
+        return dict(mismatched=mismatched,
+                    elements=sum(x.numel() for x in got),
+                    adapter_bytes=_tree_nbytes(agg),
+                    landed=sorted({str(x.device) for x in
+                                   tree_util.tree_flatten(theirs)[0]}),
+                    folded_on=sorted({str(x.device) for x in
+                                      tree_util.tree_flatten(agg)[0]}))
+
+    @fed.remote
+    def report():
+        return dict(launches=dict(fa.LAUNCHES),
+                    max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                          if on_cuda else None))
+
+    workers = {n: example.LoraWorker.party(n).remote(
+        seed, cfg, batch=batch, seq=seq, lr=lr,
+        device=None if on_cuda else "cpu")
+        for n, seed in example.SEEDS.items()}
+    start = fed.get([workers[n].digests.remote() for n in names])
+    rounds_out = []
+    t0 = [time.perf_counter()]
+
+    def on_round(r, locals_, g, reports):
+        wall = time.perf_counter() - t0[0]
+        chk = fed.get(check_fold.party(root).remote(locals_[root],
+                                                    locals_[other], g))
+        digests = fed.get([workers[n].digests.remote(g) for n in names])
+        rounds_out.append(dict(wall_s=wall, check=chk, digests=digests,
+                               losses=[rep[0] for rep in reports]))
+        t0[0] = time.perf_counter()
+
+    example.run(party, workers, rounds=rounds, on_round=on_round)
+    end = fed.get([workers[n].digests.remote() for n in names])
+    reports = fed.get([report.party(n).remote() for n in names])
+    fed.shutdown()
+    return dict(party=party, rounds=rounds_out, start=start, end=end,
+                reports=dict(zip(names, reports)))
+
+
+def phase_lora(device, cfg, *, batch, seq, rounds=FAMILY_LORA_ROUNDS,
+               lr=1e-3, label="", timeout_s=FAMILY_LORA_TIMEOUT_S):
+    """Phase 9 (b): the LoRA FedAvg program in two spawned party processes,
+    checked: (b1) both parties' merged models hash the same every round,
+    (b2) the root's aggregate is bitwise the CPU fold of the two pushed
+    adapter trees, landed on and folded on the root's device, (b3) the
+    frozen base hashes the same before and after the rounds, in both
+    parties, (b4) each party's local steps launched K1-K3 (on a card)."""
+    import dataclasses
+
+    import torch
+
+    from rayfed_tpu_torch.examples import fedavg_lora as example
+
+    on_cuda = torch.device(device).type == "cuda"
+    results, wall = spawn_parties(
+        _lora_program, (device, dataclasses.asdict(cfg), batch, seq, rounds,
+                        lr), timeout_s)
+    root, other = (n for n, _ in PARTIES)
+    res = results[root]
+    require(all(results[other][k] == res[k]
+                for k in ("start", "end", "reports")),
+            "the parties disagree on values both fetched through fed.get")
+    for r, rnd in enumerate(res["rounds"]):
+        merged = {d["merged"] for d in rnd["digests"]}
+        require(len(merged) == 1,
+                f"(b1) round {r}: the merged models hash differently")
+        chk = rnd["check"]
+        require(chk["mismatched"] == 0,
+                f"(b2) round {r}: the aggregate differs from the CPU fold in "
+                f"{chk['mismatched']} of {chk['elements']} elements")
+        devs = {chk["landed"][0], chk["folded_on"][0]}
+        require(len(chk["landed"]) == len(chk["folded_on"]) == 1
+                and len(devs) == 1,
+                f"(b2) round {r}: landed on {chk['landed']}, folded on "
+                f"{chk['folded_on']}")
+    bases = {d["base"] for d in res["start"] + res["end"]}
+    require(len(bases) == 1,
+            "(b3) the frozen base changed over the rounds or differs "
+            "between the parties")
+    if on_cuda:
+        for n, rep in res["reports"].items():
+            require(all(rep["launches"][k] > 0 for k in BF16_KERNELS),
+                    f"(b4) party {n}'s LoRA steps did not launch every "
+                    f"kernel: {rep['launches']}")
+    adapter = res["rounds"][0]["check"]["adapter_bytes"]
+    base = res["start"][0]["base_bytes"]
+    print(f"[family] {label} LoRA FedAvg (rank {example.RANK}, "
+          f"attention targets): two party processes, {rounds} rounds of "
+          f"{example.LOCAL_STEPS} steps at batch {batch} in {wall:.1f} s from spawn "
+          f"to exit; round walls "
+          + ", ".join(f"{rnd['wall_s']:.2f} s" for rnd in res["rounds"])
+          + f"; adapter push {adapter} B a round against base "
+          f"{base} B ({base / adapter:.0f}x smaller)")
+    print(f"[family] {label} LoRA local losses per round "
+          + str([rnd["losses"] for rnd in res["rounds"]])
+          + "; merged digests equal, folds bitwise "
+          f"({res['rounds'][0]['check']['elements']} elements), base "
+          "unchanged")
+    for n, rep in res["reports"].items():
+        print(f"[family] {label} LoRA party {n}: launches {rep['launches']}, "
+              f"max_memory_allocated {rep['max_memory_allocated']}")
+    return dict(results=results, wall_s=wall, adapter_bytes=adapter,
+                base_bytes=base)
+
+
+def phase_family(device, cfg, *, batch, seq, label="", steps=FAMILY_STEPS,
+                 mode_steps=FAMILY_MODE_STEPS,
+                 lora_timeout_s=FAMILY_LORA_TIMEOUT_S):
+    """Phase 9: (a) the MoE model (``cfg`` with ``FAMILY_EXPERTS``
+    experts) trained under ``remat="attn"`` and, for the comparison, under
+    ``remat=False`` and ``True``; the three modes' loss and gradients
+    bitwise equal at ``FAMILY_REMAT_CHECK``; (c) MoE cached decode; (b)
+    the LoRA FedAvg round on the dense ``cfg``. Returns a summary with the
+    MoE steps' launches (``launches``, remat="attn")."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    on_cuda = torch.device(device).type == "cuda"
+    moe_cfg = dataclasses.replace(cfg, n_experts=FAMILY_EXPERTS)
+    modes, launches, state = {}, None, None
+    for mode in REMAT_MODES:
+        run = moe_steps(moe_cfg, device, batch=batch, seq=seq, remat=mode,
+                        steps=steps if mode == "attn" else mode_steps)
+        require(all(x == x and abs(x) < 1e30 for x in run["losses"]),
+                f"(a) remat={mode!r}: non-finite loss {run['losses']}")
+        if mode == "attn":
+            launches, state = run["launches"], run.pop("params")
+            if on_cuda:
+                require(all(launches[k] > 0 for k in BF16_KERNELS),
+                        f"(a) the MoE steps did not launch every kernel: "
+                        f"{launches}")
+        run.pop("params", None)
+        modes[mode] = run
+        gc.collect()
+        if on_cuda:
+            torch.cuda.empty_cache()
+    for mode, run in modes.items():
+        print(f"[family] {label} MoE ({FAMILY_EXPERTS} experts, top-1) "
+              f"remat={mode!r}: losses {[round(x, 4) for x in run['losses']]}"
+              f", step ms {[round(x, 1) for x in run['step_ms']]} "
+              f"({run['tokens_per_s']:.1f} tokens/s after the first), "
+              f"max_memory_allocated {run['max_memory_allocated']}, K1 "
+              f"launches per step {run['k1_per_step']:g}, launches "
+              f"{run['launches']}")
+    agree = remat_agreement(moe_cfg, device, seq=seq)
+    for mode in ("True", "attn"):
+        require(agree[mode]["mismatched"] == 0,
+                f"(a) remat={mode} differs from remat=False in "
+                f"{agree[mode]['mismatched']} of {agree['elements']} loss "
+                f"and gradient elements (largest relative difference "
+                f"{agree[mode]['max_rel']:.3g})")
+    print(f"[family] {label} remat True and 'attn' vs False at depth "
+          f"{FAMILY_REMAT_CHECK[0]}, batch {FAMILY_REMAT_CHECK[1]}: loss and "
+          f"gradients bitwise equal ({agree['elements']} elements)")
+    dec = moe_decode_check(moe_cfg, device, state)
+    require(all(r <= SERVE_LOGIT_TOL for r in dec["ratios"].values()),
+            f"(c) cached MoE logits vs the full forward: {dec['ratios']}")
+    require(dec["same_as_loop"] and dec["rerun_equal"] and dec["in_vocab"],
+            f"(c) greedy MoE decoding: {dec}")
+    print(f"[family] {label} MoE decode: f32 cached vs full forward "
+          f"{dec['ratios']} (limit {SERVE_LOGIT_TOL}); greedy bf16 tokens "
+          f"{dec['greedy']}")
+    del state
+    gc.collect()
+    if on_cuda:
+        torch.cuda.empty_cache()
+    lora_out = phase_lora(device, cfg, batch=batch, seq=seq, label=label,
+                          timeout_s=lora_timeout_s)
+    return dict(modes=modes, launches=launches, agree=agree, decode=dec,
+                lora=lora_out)
+
+
 def _phase_wall(n, t0, smi):
     print(f"[phase {n}] {time.perf_counter() - t0:.1f} s on {smi}")
+
+
+def _flagship_cfg(n_layers):
+    from rayfed_tpu_torch.models import transformer as tfm
+
+    return tfm.TransformerConfig(
+        vocab=FLAGSHIP["vocab"], d_model=FLAGSHIP["d_model"],
+        n_heads=FLAGSHIP["n_heads"], n_layers=n_layers,
+        d_ff=FLAGSHIP["d_ff"])
+
+
+def run_family(smi):
+    """Phase 9 at the flagship width, depth cut as phase 4's."""
+    print("[family] reduced " + json.dumps(
+        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
+    t = time.perf_counter()
+    out = phase_family("cuda", _flagship_cfg(SMOKE_LAYERS),
+                       batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+                       label=f"on {smi}:")
+    _phase_wall(9, t, smi)
+    return out
 
 
 def main(argv):
@@ -3059,21 +3476,27 @@ def main(argv):
     t0 = time.perf_counter()
     name, smi = phase_device()
     _phase_wall(1, t0, smi)
+    if argv == ["--family-only"]:
+        # Phases 2 and 9 alone, in a fresh process (no kernel line).
+        t = time.perf_counter()
+        phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+        _phase_wall(2, t, smi)
+        run_family(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if argv == ["--async-only"]:
         # Phases 2 and 8 alone, in a fresh process (no kernel line).
-        from rayfed_tpu_torch.models import transformer as tfm
-
         t = time.perf_counter()
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
         t = time.perf_counter()
         print("[async] reduced " + json.dumps(
             {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
-        phase_async("cuda", tfm.TransformerConfig(
-            vocab=FLAGSHIP["vocab"], d_model=FLAGSHIP["d_model"],
-            n_heads=FLAGSHIP["n_heads"], n_layers=SMOKE_LAYERS,
-            d_ff=FLAGSHIP["d_ff"]), batch=FLAGSHIP["batch"],
-            seq=FLAGSHIP["seq"], label=f"on {smi}:")
+        phase_async("cuda", _flagship_cfg(SMOKE_LAYERS),
+                    batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+                    label=f"on {smi}:")
         _phase_wall(8, t, smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -3081,23 +3504,16 @@ def main(argv):
         return
     if argv == ["--serving-only"]:
         # Phase 7 alone, in a fresh process (no kernel line).
-        from rayfed_tpu_torch.models import transformer as tfm
-
-        phase_serving_all(tfm.TransformerConfig(
-            vocab=FLAGSHIP["vocab"], d_model=FLAGSHIP["d_model"],
-            n_heads=FLAGSHIP["n_heads"], n_layers=FLAGSHIP["n_layers"],
-            d_ff=FLAGSHIP["d_ff"]), smi)
+        phase_serving_all(_flagship_cfg(FLAGSHIP["n_layers"]), smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
         return
     require(not argv, f"unknown arguments {argv}; the options are "
-                      "--serving-only and --async-only")
+                      "--serving-only, --async-only and --family-only")
     t = time.perf_counter()
     phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
     _phase_wall(2, t, smi)
-
-    from rayfed_tpu_torch.models import transformer as tfm
 
     t = time.perf_counter()
     kern = phase_kernels("cuda", FLAGSHIP["batch"], FLAGSHIP["seq"],
@@ -3105,11 +3521,7 @@ def main(argv):
                          FLAGSHIP["d_model"] // FLAGSHIP["n_heads"], smi)
     _phase_wall(3, t, smi)
 
-    cfg = tfm.TransformerConfig(
-        vocab=FLAGSHIP["vocab"], d_model=FLAGSHIP["d_model"],
-        n_heads=FLAGSHIP["n_heads"], n_layers=SMOKE_LAYERS,
-        d_ff=FLAGSHIP["d_ff"],
-    )
+    cfg = _flagship_cfg(SMOKE_LAYERS)
     reduced = {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}
     print("[slice] reduced " + json.dumps(reduced))
     t = time.perf_counter()
@@ -3170,6 +3582,13 @@ def main(argv):
     phase_async("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                 label=f"on {smi}:")
     _phase_wall(8, t, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    family = run_family(smi)
+    # The bf16 kernels' launches: phase 4's train steps and phase 9's MoE
+    # steps (remat="attn"), each counted from zero.
+    for kern_name in BF16_KERNELS:
+        launches[kern_name] += family["launches"][kern_name]
     print(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
 
     line = []

@@ -50,19 +50,13 @@ _MESH_LATER = (
     "sharded decoding (mesh=) comes with the sharded train step, ROADMAP "
     "Queue 1 item 8; rayfed_tpu_torch decodes on one device"
 )
-_MOE_LATER = (
-    "decoding an MoE transformer (n_experts > 0) comes with the MoE FFN, "
-    "ROADMAP Queue 1 item 13a"
-)
 
 
 def check_decodable(cfg: tfm.TransformerConfig, mesh=None) -> None:
     """Raise for what cached decoding does not support yet: a ``mesh``
-    (item 8) and an MoE config (item 13a)."""
+    (item 8). An MoE config decodes through ``ffn_apply``'s MoE lane."""
     if mesh is not None:
         raise NotImplementedError(_MESH_LATER)
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_LATER)
 
 
 def init_cache(cfg: tfm.TransformerConfig, batch: int, max_len: int,
@@ -137,7 +131,7 @@ def forward_with_cache(params, tokens, cache: Cache, offset,
     x = params["embed"][tokens].to(cdt)
     stacked = params["layers"]
     for i in range(cfg.n_layers):
-        layer = {name: leaf[i] for name, leaf in stacked.items()}
+        layer = tfm.stacked_layer(stacked, i)
         q, k, v = tfm.qkv_proj(x, layer, positions, cfg)
         if per_row:
             ck[i][rows, positions] = k.to(ck.dtype)

@@ -28,21 +28,23 @@ softmax/logsumexp accumulation in f32; attention is pluggable through
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from rayfed_tpu_torch import tree_util
+from rayfed_tpu_torch.ops import flash_attention  # noqa: F401 - registers flash_fwd
 from rayfed_tpu_torch.utils import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
-
-_MOE_LATER = (
-    "the MoE FFN (n_experts > 0, models/moe.py) is ported with the "
-    "expert-parallel slice (ROADMAP.md Queue 1)"
-)
+Remat = Union[bool, str]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,11 +53,12 @@ class TransformerConfig:
     d_model: int = 512
     n_heads: int = 8
     n_layers: int = 4
-    d_ff: int = 1408  # SwiGLU hidden width
+    d_ff: int = 1408  # SwiGLU (or per-expert MoE) hidden width
     rope_theta: float = 10000.0
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    # 0 = dense SwiGLU FFN; >0 = MoE, not ported yet (see _MOE_LATER).
+    # 0 = dense SwiGLU FFN; >0 = top-1 MoE FFN with this many experts
+    # (the dense-gating lane of models/moe.py, on one device).
     n_experts: int = 0
 
     @property
@@ -82,8 +85,6 @@ def init_params(rng, cfg: TransformerConfig,
     with the reference's shapes and scales. The draws differ from
     ``jax.random``'s; to match the JAX package exactly, carry its params
     over with :func:`params_from_numpy`."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_LATER)
     dev = resolve_device(device)
     if not isinstance(rng, torch.Generator):
         rng = torch.Generator(device=dev).manual_seed(int(rng))
@@ -104,10 +105,22 @@ def init_params(rng, cfg: TransformerConfig,
         "wv": normal((n, d, h, dh), d**-0.5),
         "wo": normal((n, h, dh, d), (h * dh) ** -0.5),
         "ln2": ones((n, d)),
-        "w_gate": normal((n, d, f), d**-0.5),
-        "w_up": normal((n, d, f), d**-0.5),
-        "w_down": normal((n, f, d), f**-0.5),
     }
+    if cfg.n_experts > 0:
+        from rayfed_tpu_torch.models.moe import init_moe_ffn
+
+        # One expert block per layer, stacked along the leading axis.
+        per_layer = [init_moe_ffn(rng, d, f, cfg.n_experts,
+                                  dtype=cfg.param_dtype, device=dev)
+                     for _ in range(n)]
+        layers["moe"] = {name: torch.stack([m[name] for m in per_layer])
+                         for name in per_layer[0]}
+    else:
+        layers.update(
+            w_gate=normal((n, d, f), d**-0.5),
+            w_up=normal((n, d, f), d**-0.5),
+            w_down=normal((n, f, d), f**-0.5),
+        )
     return {
         "embed": normal((cfg.vocab, d), 0.02),
         "layers": layers,
@@ -225,10 +238,15 @@ def qkv_proj(x, layer: Params, positions, cfg: TransformerConfig):
 
 
 def ffn_apply(hmlp, layer: Params, cfg: TransformerConfig):
-    """The block's FFN half on a pre-normed input: dense SwiGLU."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_LATER)
+    """The block's FFN half on a pre-normed input: SwiGLU, or the top-1 MoE
+    FFN (every leaf of ``layer["moe"]`` in the compute dtype) when
+    ``cfg.n_experts > 0``."""
     cdt = cfg.compute_dtype
+    if cfg.n_experts > 0:
+        from rayfed_tpu_torch.models.moe import moe_ffn_apply
+
+        return moe_ffn_apply({name: p.to(cdt)
+                              for name, p in layer["moe"].items()}, hmlp)
     pre = hmlp @ layer["w_gate"].to(cdt)
     # jax.nn.silu as XLA lowers it: x * 1 / (1 + exp(-x)), each op rounded
     # to the compute dtype (torch.sigmoid would round once).
@@ -251,32 +269,92 @@ def layer_fn(x, layer: Params, positions, cfg: TransformerConfig,
     return x + ffn_apply(hmlp, layer, cfg)
 
 
+@torch.library.custom_op("rayfed_tpu_torch::attn_out", mutates_args=())
+def attn_out(o: torch.Tensor) -> torch.Tensor:
+    """A copy of an attention output that the ``remat="attn"`` policy can
+    name: the reference's ``checkpoint_name(o, "attn_out")``."""
+    return o.clone()
+
+
+attn_out.register_autograd(lambda ctx, grad: grad)
+
+
+def _named_attention(attn_fn: AttnFn) -> AttnFn:
+    def attn(q, k, v):
+        return attn_out(attn_fn(q, k, v))
+
+    return attn
+
+
+def _attn_remat_contexts():
+    """The ``remat="attn"`` policy for one layer's checkpoint: keep the
+    attention output, recompute everything else. The flash forward's
+    outputs (O and its lse) are kept whole, so K1 never runs again in the
+    backward, and the ``attn_out`` copy of O is recomputed from them; the
+    dense attention has no lse, and its ``attn_out`` copy is kept."""
+    flash = [False]
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is torch.ops.rayfed_tpu_torch.flash_fwd.default:
+            flash[0] = True
+            return CheckpointPolicy.MUST_SAVE
+        if op is torch.ops.rayfed_tpu_torch.attn_out.default and not flash[0]:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def check_remat(remat: Remat) -> None:
+    if remat not in (True, False, "attn"):
+        raise ValueError(f"remat must be True, False or 'attn'; got {remat!r}")
+
+
+def stacked_layer(stacked: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked layer tree, nested subtrees (``moe``)
+    included. A plain dict walk: the serving engine's decode step calls it
+    for every layer and is bound by the host."""
+    return {name: stacked_layer(leaf, i) if isinstance(leaf, dict)
+            else leaf[i] for name, leaf in stacked.items()}
+
+
+def n_stacked_layers(stacked: Params) -> int:
+    leaf = next(iter(stacked.values()))
+    return n_stacked_layers(leaf) if isinstance(leaf, dict) else leaf.shape[0]
+
+
 def hidden_states(params: Params, tokens, cfg: TransformerConfig,
                   attn_fn: Optional[AttnFn] = None,
-                  positions=None, remat: bool = False) -> torch.Tensor:
+                  positions=None, remat: Remat = False) -> torch.Tensor:
     """tokens (B, S) int -> final hidden states (B, S, d_model), post
     final-norm, in compute dtype.
 
     Layers run one by one over the stacked parameters. ``remat=True``
     checkpoints each layer (``torch.utils.checkpoint``, non-reentrant): the
     backward recomputes its activations, device memory for FLOPs.
+    ``remat="attn"`` checkpoints each layer too but keeps the attention
+    output, under any ``attn_fn``, as the reference's ``attn_out`` name
+    does (a selective checkpoint): the backward recomputes the
+    projections, norms and FFN. With the flash attention it keeps the
+    forward's O and lse and never runs the forward kernel again; the JAX
+    package's policy saves ``attn_out`` but not the kernel's lse
+    residual, so its backward does run the forward kernel again.
     """
-    if remat not in (True, False):
-        raise NotImplementedError(
-            f"remat={remat!r}: only True/False are ported; the reference's "
-            "remat='attn' save policy waits for a later slice"
-        )
+    check_remat(remat)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = params["embed"][tokens].to(cfg.compute_dtype)
     stacked = params["layers"]
-    n_layers = next(iter(stacked.values())).shape[0]
-    for i in range(n_layers):
-        layer = {name: leaf[i] for name, leaf in stacked.items()}
+    context_fn = noop_context_fn
+    if remat == "attn":
+        attn_fn = _named_attention(attn_fn or causal_attention)
+        context_fn = _attn_remat_contexts
+    for i in range(n_stacked_layers(stacked)):
+        layer = stacked_layer(stacked, i)
         if remat:
             x = checkpoint(layer_fn, x, layer, positions, cfg, attn_fn,
-                           use_reentrant=False)
+                           use_reentrant=False, context_fn=context_fn)
         else:
             x = layer_fn(x, layer, positions, cfg, attn_fn)
     return rms_norm(x, params["ln_f"])
@@ -284,7 +362,7 @@ def hidden_states(params: Params, tokens, cfg: TransformerConfig,
 
 def forward(params: Params, tokens, cfg: TransformerConfig,
             attn_fn: Optional[AttnFn] = None,
-            positions=None, remat: bool = False) -> torch.Tensor:
+            positions=None, remat: Remat = False) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, vocab) float32."""
     x = hidden_states(params, tokens, cfg, attn_fn, positions, remat)
     return (x @ params["lm_head"].to(cfg.compute_dtype)).float()
@@ -299,7 +377,7 @@ def _ce_sum(x, w, targets):
 
 def lm_loss_pair(params: Params, inputs, targets, cfg: TransformerConfig,
                  attn_fn: Optional[AttnFn] = None,
-                 remat: bool = False,
+                 remat: Remat = False,
                  loss_chunk: Optional[int] = None) -> torch.Tensor:
     """Next-token cross entropy over pre-shifted (inputs, targets) pairs,
     both (B, S). f32 accumulation.

@@ -436,25 +436,37 @@ def _flash_bwd_raw(q, k, v, o, lse, do, block_q, block_k, interpret=None,
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The ``custom_vjp`` of the reference: the forward keeps (q, k, v, O,
-    lse) and the backward runs the two blockwise passes."""
+@torch.library.custom_op("rayfed_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 block_q: int, block_k: int,
+                 q_offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable forward, (O, lse): the ``custom_vjp`` of the
+    reference, whose residuals are (q, k, v, O, lse) and whose backward
+    runs the two blockwise passes. It is an operator of its own (not an
+    ``autograd.Function``) so that a selective checkpoint can name it:
+    ``remat="attn"`` keeps its outputs and never runs K1 again in the
+    backward (``models/transformer.py``)."""
+    return _flash_fwd_raw(q, k, v, block_q, block_k, q_offset=q_offset)
 
-    @staticmethod
-    def forward(ctx, q, k, v, block_q, block_k, q_offset):
-        out, lse = _flash_fwd_raw(q, k, v, block_q, block_k,
-                                  q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.blocks = (block_q, block_k, q_offset)
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        block_q, block_k, q_offset = ctx.blocks
-        dq, dk, dv = _flash_bwd_raw(q, k, v, out, lse, do.contiguous(),
-                                    block_q, block_k, q_offset=q_offset)
-        return dq, dk, dv, None, None, None
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, block_q, block_k, q_offset = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.blocks = (block_q, block_k, q_offset)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    block_q, block_k, q_offset = ctx.blocks
+    dq, dk, dv = _flash_bwd_raw(q, k, v, out, lse, do.contiguous(),
+                                block_q, block_k, q_offset=q_offset)
+    return dq, dk, dv, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_fwd_backward,
+                               setup_context=_flash_fwd_setup)
 
 
 def flash_attention(q, k, v, block_q: int = 512, block_k: int = 512,
@@ -469,7 +481,7 @@ def flash_attention(q, k, v, block_q: int = 512, block_k: int = 512,
     """
     block_q = min(block_q, _pow2_block(q.shape[1], cap=block_q))
     block_k = min(block_k, _pow2_block(k.shape[1], cap=block_k))
-    return _FlashAttention.apply(q, k, v, block_q, block_k, q_offset)
+    return flash_fwd_op(q, k, v, block_q, block_k, int(q_offset))[0]
 
 
 def _pow2_block(s: int, cap: int = 128) -> int:
@@ -499,6 +511,6 @@ def make_flash_attn_fn(block_q: int = 512, block_k: int = 512,
 
 
 __all__ = [
-    "flash_attention", "make_flash_attn_fn", "LAUNCHES",
+    "flash_attention", "flash_fwd_op", "make_flash_attn_fn", "LAUNCHES",
     "reset_launch_counts", "KERNEL_HEAD_DIMS", "kernel_head_dim",
 ]

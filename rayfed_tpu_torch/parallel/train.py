@@ -76,7 +76,7 @@ def make_fed_train_step(
     seq_axis: Optional[str] = None,
     model_axis: Optional[str] = None,
     lr: float = 3e-4,
-    remat: bool = False,
+    remat: tfm.Remat = False,
     attn: str = "auto",
     accum_steps: int = 1,
     shard_opt_state: bool = False,
@@ -97,7 +97,10 @@ def make_fed_train_step(
     ``attn`` selects the attention: ``"flash"`` = the flash kernels
     (O(S) memory, differentiable; the plain versions on the CPU),
     ``"xla"`` = the dense reference attention, ``"auto"`` = flash on CUDA,
-    dense elsewhere. ``remat=True`` checkpoints each layer.
+    dense elsewhere. ``remat=True`` checkpoints each layer;
+    ``remat="attn"`` checkpoints each layer but keeps its attention output,
+    so the backward does not run the flash forward again
+    (``models.transformer.hidden_states``).
     ``accum_steps > 1`` splits the batch into that many strided
     microbatches (rows ``i::accum_steps``, as the reference) and averages
     their gradients. ``loss_chunk`` positions per checkpointed head+CE
@@ -119,6 +122,7 @@ def make_fed_train_step(
         raise ValueError(f"attn must be 'auto', 'flash', or 'xla'; got {attn!r}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    tfm.check_remat(remat)
     dev = resolve_device(device)
     if attn == "auto":
         attn = "flash" if is_cuda_backend(dev) else "xla"

@@ -339,14 +339,27 @@ def test_sharded_decode_is_refused(make):
         make(_cfg())
 
 
-def test_moe_decode_is_refused():
-    cfg = _cfg(n_experts=2)
-    with pytest.raises(NotImplementedError, match="item 13a"):
-        decode.make_generate_fn(cfg, max_new_tokens=2)
-    with pytest.raises(NotImplementedError, match="item 13a"):
-        decode.forward_with_cache(
-            {}, torch.zeros((1, 1), dtype=torch.long),
-            decode.init_cache(_cfg(), 1, 2, device="cpu"), 0, cfg)
+def test_moe_config_decodes():
+    # The mirror of test_decode.py::test_moe_config_decodes, on the JAX
+    # package's params; the greedy tokens and the cached logits are also
+    # held against the JAX package's.
+    jcfg, cfg = _cfgs(n_experts=2)
+    jp, params = _shared_params(jcfg, 10)
+    prompt = _tokens(cfg.vocab, (1, 4), 11)
+    out = decode.make_generate_fn(cfg, max_new_tokens=3)(params, _t(prompt))
+    assert out.shape == (1, 7)
+    want = jdecode.make_generate_fn(jcfg, max_new_tokens=3)(
+        jp, jnp.asarray(prompt, jnp.int32))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+    full = tfm.forward(params, _t(prompt), cfg)
+    cache = decode.init_cache(cfg, 1, 8, device="cpu")
+    cached, _ = decode.forward_with_cache(params, _t(prompt), cache, 0, cfg)
+    _close(cached, full.numpy(), 2e-5)
+    jcached, _ = jdecode.forward_with_cache(
+        jp, jnp.asarray(prompt, jnp.int32), jdecode.init_cache(jcfg, 1, 8), 0,
+        jcfg)
+    _close(cached, np.asarray(jcached))
 
 
 # ---------------------------------------------------------------------------

@@ -954,33 +954,35 @@ def test_paged_pool_gather_scatter_round_trip():
 # The port against the JAX package's server
 
 
-def _jax_pair():
-    """The JAX package's tiny f32 config and params, and the port's
-    config and the same params carried over."""
+def _jax_pair(**cfg_kw):
+    """The JAX package's tiny f32 config (with ``cfg_kw``) and params, and
+    the same params carried over to the port."""
     import jax
     import jax.numpy as jnp
 
     from rayfed_tpu.models import transformer as jtfm
 
-    jcfg = jtfm.tiny_config(compute_dtype=jnp.float32)
+    jcfg = jtfm.tiny_config(compute_dtype=jnp.float32, **cfg_kw)
     jp = jtfm.init_params(jax.random.PRNGKey(3), jcfg)
     tp = tfm.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                                device="cpu")
     return jcfg, jp, tp
 
 
-def _serve_both(requests, **scfg):
+def _serve_both(requests, cfg_kw=None, **scfg):
     """Run ``requests`` ([(prompt, opts)]) through the JAX package's
-    server and the port's on the same params; returns both token lists."""
+    server and the port's on the same params (``CFG``, or a tiny config
+    with ``cfg_kw``); returns both token lists."""
     from rayfed_tpu.config import ServingConfig as JServingConfig
     from rayfed_tpu.serving.server import InferenceServer as JServer
 
-    jcfg, jp, tp = _jax_pair()
+    jcfg, jp, tp = _jax_pair(**(cfg_kw or {}))
+    cfg = tfm.tiny_config(compute_dtype=torch.float32, **(cfg_kw or {}))
     out = {}
     for pkg in ("jax", "torch"):
         srv = (JServer(jcfg, JServingConfig(**scfg), params=jp)
                if pkg == "jax" else
-               InferenceServer(CFG, ServingConfig(**scfg), params=tp,
+               InferenceServer(cfg, ServingConfig(**scfg), params=tp,
                                device="cpu"))
         try:
             futs = [srv.submit(p, **o) for p, o in requests]
@@ -998,6 +1000,18 @@ def test_greedy_responses_match_the_jax_server(layout):
     requests.append((requests[1][0], dict(max_new_tokens=8)))  # a donor
     out = _serve_both(requests, max_slots=4, max_len=32, max_new_tokens=8,
                       kv_layout=layout, prefill_chunk=8,
+                      prefill_token_budget=16)
+    assert out["torch"] == out["jax"]
+
+
+def test_greedy_moe_responses_match_the_jax_server():
+    # An MoE config through the engine (cached decode reaches the MoE FFN
+    # through ffn_apply): the same tokens as the JAX package's server.
+    rng = np.random.default_rng(22)
+    requests = [([int(t) for t in rng.integers(1, 255, size=n)],
+                 dict(max_new_tokens=6)) for n in (4, 11, 7, 16)]
+    out = _serve_both(requests, cfg_kw=dict(n_experts=4), max_slots=4,
+                      max_len=32, max_new_tokens=6, prefill_chunk=8,
                       prefill_token_budget=16)
     assert out["torch"] == out["jax"]
 

@@ -435,3 +435,22 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     out = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_chip_smoke_family_phase_on_cpu_at_tiny_size():
+    # Phase 9 at tiny size: the MoE steps under each remat mode, their
+    # bitwise agreement, MoE cached decode and the LoRA program in two
+    # spawned parties; phase_family fails on any of its checks but the
+    # launch counts, which need the card.
+    out = chip_smoke.phase_family("cpu", tfm.tiny_config(vocab=512),
+                                  batch=BATCH, seq=SEQ, label="tiny",
+                                  lora_timeout_s=180)
+    assert set(out["modes"]) == set(chip_smoke.REMAT_MODES)
+    assert len(out["modes"]["attn"]["losses"]) == chip_smoke.FAMILY_STEPS
+    assert all(n == 0 for n in out["launches"].values())
+    assert out["agree"]["attn"]["mismatched"] == 0
+    assert out["decode"]["same_as_loop"]
+    assert len(out["decode"]["greedy"]) == chip_smoke.FAMILY_DECODE_NEW
+    res = out["lora"]["results"]["alice"]
+    assert len(res["rounds"]) == chip_smoke.FAMILY_LORA_ROUNDS
+    assert out["lora"]["base_bytes"] > 5 * out["lora"]["adapter_bytes"]

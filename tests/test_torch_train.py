@@ -59,12 +59,12 @@ def _batches(n, vocab, seed=3):
     return [rng.integers(0, vocab, size=(4, 33)).astype(np.int32) for _ in range(n)]
 
 
-def _run_jax(n_steps, accum_steps=1):
+def _run_jax(n_steps, accum_steps=1, remat=False):
     cfg = _jax_cfg()
     mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
     init_fn, step_fn = j_make_step(cfg, mesh, party_axis=None,
                                    data_axis="data", attn="flash", lr=LR,
-                                   accum_steps=accum_steps)
+                                   accum_steps=accum_steps, remat=remat)
     batches = _batches(n_steps, cfg.vocab)
     params, opt = init_fn(jax.random.PRNGKey(0), jnp.asarray(batches[0][:, :-1]))
     init = jax.tree_util.tree_map(np.asarray, params)
@@ -117,6 +117,127 @@ def test_remat_on_and_off_agree():
     assert on_losses == off_losses
     for a, b in zip(jax.tree_util.tree_leaves(on), jax.tree_util.tree_leaves(off)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_remat_attn_agrees_with_on_and_off_and_the_reference():
+    batches = _batches(2, 256)
+    init = tfm.params_to_numpy(tfm.init_params(0, _torch_cfg(), device="cpu"))
+    off_losses, off = _run_torch(init, batches, remat=False)
+    attn_losses, attn = _run_torch(init, batches, remat="attn")
+    assert attn_losses == off_losses
+    for a, b in zip(jax.tree_util.tree_leaves(attn),
+                    jax.tree_util.tree_leaves(off)):
+        np.testing.assert_array_equal(a, b)
+    # Against the JAX package's train step under its remat="attn" policy.
+    init, jlosses, jparams, batches = _run_jax(2, remat="attn")
+    tlosses, tparams = _run_torch(init, batches, remat="attn")
+    np.testing.assert_allclose(tlosses, jlosses, rtol=LOSS_TOL, atol=LOSS_TOL)
+    _assert_params_close(tparams, jparams)
+
+
+def _k1_per_layer_in_jax_grad(remat):
+    """How often the JAX package's gradient runs its forward kernel per
+    layer: the pallas_calls with an f32 (lse) output in the scan body of
+    its grad jaxpr, at bf16 compute (where only the forward has one)."""
+    from rayfed_tpu.ops.flash_attention import make_flash_attn_fn as j_flash
+
+    cfg = jtfm.tiny_config()
+    params = jtfm.init_params(jax.random.PRNGKey(0), cfg)
+    blk = jnp.asarray(_batches(1, cfg.vocab)[0])
+    jaxpr = jax.make_jaxpr(jax.grad(lambda p: jtfm.lm_loss_pair(
+        p, blk[:, :-1], blk[:, 1:], cfg, j_flash(), remat=remat)))(params)
+    found = []
+
+    def walk(jp):
+        for eqn in jp.eqns:
+            if eqn.primitive.name == "pallas_call":
+                found.append(any(v.aval.dtype == jnp.float32
+                                 for v in eqn.outvars))
+            for param in eqn.params.values():
+                for sub in (param if isinstance(param, (list, tuple))
+                            else [param]):
+                    inner = getattr(sub, "jaxpr", sub)
+                    if hasattr(inner, "eqns"):
+                        walk(inner)
+
+    walk(jaxpr.jaxpr)
+    return sum(found)
+
+
+@pytest.mark.parametrize("remat,port_k1,jax_k1", [
+    (False, 1, 1), (True, 2, 2), ("attn", 1, 2)])
+def test_remat_attn_runs_the_forward_kernel_once(remat, port_k1, jax_k1):
+    # The port's "attn" keeps the flash forward's O and lse, so its
+    # backward never runs the forward again; the JAX package's policy saves
+    # attn_out but not the lse residual of its custom_vjp, so its backward
+    # runs the forward kernel again, as remat=True does.
+    from rayfed_tpu_torch.ops import flash_attention as fa
+
+    cfg = _torch_cfg()
+    params = tree_util.tree_map(lambda p: p.requires_grad_(True),
+                                tfm.init_params(0, cfg, device="cpu"))
+    blk = torch.from_numpy(_batches(1, cfg.vocab)[0]).long()
+    calls = []
+    plain = fa._flash_fwd_plain
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return plain(*args, **kw)
+
+    fa._flash_fwd_plain = counted
+    try:
+        tfm.lm_loss_pair(params, blk[:, :-1], blk[:, 1:], cfg,
+                         fa.make_flash_attn_fn(), remat=remat).backward()
+    finally:
+        fa._flash_fwd_plain = plain
+    assert len(calls) == port_k1 * cfg.n_layers
+    assert _k1_per_layer_in_jax_grad(remat) == jax_k1
+
+
+@pytest.mark.parametrize("flash,copies", [(False, 1), (True, 2)])
+def test_remat_attn_keeps_the_attention_output_of_any_attn_fn(flash, copies):
+    # The reference names attn_out under any attn_fn. Under the dense
+    # attention the port keeps its attn_out copy, made once a layer in the
+    # forward; under flash it keeps the kernel's O and lse instead and
+    # makes the copy again from them in the backward. Either way the loss
+    # and gradients are remat=False's, bit for bit.
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from rayfed_tpu_torch.ops import flash_attention as fa
+
+    class Executed(TorchDispatchMode):
+        """Counts the ops that run; ops a selective checkpoint serves from
+        what it kept never reach it."""
+
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    cfg = _torch_cfg()
+    init = tfm.init_params(0, cfg, device="cpu")
+    blk = torch.from_numpy(_batches(1, cfg.vocab)[0]).long()
+    attn_fn = fa.make_flash_attn_fn() if flash else None
+    got = {}
+    for remat in (False, "attn"):
+        params = tree_util.tree_map(
+            lambda p: p.detach().clone().requires_grad_(True), init)
+        with Executed() as ran:
+            loss = tfm.lm_loss_pair(params, blk[:, :-1], blk[:, 1:], cfg,
+                                    attn_fn, remat=remat)
+            loss.backward()
+        got[remat] = (ran.ops, [loss.detach()] + [
+            p.grad for p in tree_util.tree_flatten(params)[0]])
+    ops = got["attn"][0]
+    assert ops.count(torch.ops.rayfed_tpu_torch.attn_out.default) == (
+        copies * cfg.n_layers)
+    assert ops.count(torch.ops.rayfed_tpu_torch.flash_fwd.default) == (
+        cfg.n_layers if flash else 0)
+    for a, b in zip(got["attn"][1], got[False][1]):
+        assert torch.equal(a, b)
 
 
 def test_donate_updates_in_place_and_copy_leaves_inputs():
