@@ -19,6 +19,7 @@
     python3 chip_smoke.py --serving-only   # phases 1 and 7 alone
     python3 chip_smoke.py --async-only     # phases 1, 2 and 8 alone
     python3 chip_smoke.py --family-only    # phases 1, 2 and 9 alone
+    python3 chip_smoke.py --privacy-only   # phases 1, 2 and 10 alone
 
 Phases:
 
@@ -155,6 +156,30 @@ Phases:
    trees, the frozen base is bitwise unchanged, each party launched K1-K3.
    Prints the adapter bytes pushed a round against the base's, each
    round's wall, each party's launches and peak memory.
+
+10. privacy: secure aggregation (``rayfed_tpu_torch.privacy``,
+   ``fed_aggregate(secure=True)``) at the same width and depth, three
+   spawned party processes on the card with ``transport="cuda"`` and
+   ``config["privacy"]``: each party takes one bf16 AdamW step (batch
+   cut to 4, so the three share the card), then alice folds the three
+   trained param trees in a plaintext and a secure mean. Checks: (a) in
+   each party, the mask words the card added to the largest leaf
+   (masked minus encoded) at its first and last 2**20 flat indices equal
+   the CPU plain path's threefry words bitwise, (b) the ring sum of the
+   three masked envelopes equals the ring sum of the three plain
+   encodings bitwise (the masks cancel), (c) the secure mean is within
+   2**-(f+1) (f = 16) plus eight f32 epsilons of the entries' mean
+   magnitude of the plaintext ``tree_mean``, (d) over grid-valued copies
+   of the trees (multiples of 2**-16) the secure mean is the plaintext
+   fold's bits, (e) a secure round with carol's envelope withheld,
+   followed by alice's and bob's ``reoffer_seeds``, gives the survivors'
+   plaintext mean bitwise, (f) one secure ``async_round`` at
+   ``buffer_k`` 2 folds the three masked offers into version 1, bitwise
+   (d)'s mean; each party launched every bf16 kernel. Prints per party
+   each partner's mask stream ms and GB/s of words and the encode ms,
+   alice's ring sum and decode ms, the secure round's wall against the
+   plaintext round's of the same trees, and each party's peak memory in
+   the step and in the rounds.
 
 Every phase prints its wall seconds. It needs a CUDA card and exits
 non-zero without one. The last two lines
@@ -3445,6 +3470,450 @@ def phase_family(device, cfg, *, batch, seq, label="", steps=FAMILY_STEPS,
                 lora=lora_out)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: secure aggregation (the privacy plane)
+# ---------------------------------------------------------------------------
+
+# The secure job: three parties on the card, alice the root; each takes
+# one bf16 local step at PRIVACY_BATCH (a cut of the flagship batch: the
+# three parties' train steps share the card) and offers its params.
+PRIVACY_PARTIES = ("alice", "bob", "carol")
+PRIVACY_BATCH = 4
+PRIVACY_MASK_SEED = 1234
+PRIVACY_FP_BITS = 16  # privacy.fixedpoint_bits (the default)
+# Check (a): the mask words at the first and last this many flat indices
+# of the largest leaf, the card's against the CPU's.
+PRIVACY_CHECK_WORDS = 1 << 20
+# Check (c): |secure - plaintext tree_mean| per entry within half a grid
+# step, 2**-(f+1) (each party's encoding rounds by at most that; the mean
+# of three such errors is no larger), plus the f32 roundings of the two
+# paths at the entry: the decoded sum's cast and the division, the
+# plaintext fold's two sums and reciprocal product, within eight f32
+# epsilons of the entries' mean magnitude.
+PRIVACY_MEAN_ULPS = 8 * 2.0 ** -23
+PRIVACY_TIMEOUT_S = 480
+PRIVACY_DROPOUT_DOMAIN = "smoke-dropout"
+
+
+def _grid(tree, fp_bits):
+    """``tree`` rounded to integer multiples of 2**-fp_bits of magnitude
+    at most 16: the sum of three such values is exact in f32, so a secure
+    mean of such trees is the plaintext fold's bit for bit. Zeros are
+    +0.0 (a ring sum of zeros decodes to +0.0, where a float sum of -0.0
+    stays -0.0)."""
+    import torch
+
+    from rayfed_tpu_torch import tree_util
+
+    scale = float(1 << fp_bits)
+    lim = float(1 << (fp_bits + 4))
+
+    def leaf(x):
+        q = torch.round(x.detach() * scale).clamp_(-lim, lim)
+        return torch.where(q == 0, torch.zeros_like(q), q) / scale
+
+    return tree_util.tree_map(leaf, tree)
+
+
+def _privacy_program(party, addresses, device, cfg_kw, batch, seq):
+    """Phase 10's driver, the same program in every party: one bf16 local
+    step, then secure rounds at alice over the parties' params: (1) a
+    plaintext and a secure ``fed_aggregate`` mean of the trained trees,
+    (2) both again over grid-valued copies, (3) a secure round over the
+    grid trees whose carol envelope is withheld, recovered from alice's
+    and bob's ``reoffer_seeds``, against the plaintext mean of the
+    survivors, (4) one secure ``async_round`` at ``buffer_k`` 2. Each
+    party times its encode and each partner's mask stream, and keeps the
+    largest leaf's encoded and masked words at both ends for check (a);
+    alice times the ring sum and decode and keeps the first round's
+    masked sum for check (b)."""
+    import gc
+
+    import torch
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import async_rounds, mesh
+    from rayfed_tpu_torch.data import make_batch_iterator, synthetic_lm_dataset
+    from rayfed_tpu_torch.federated import (
+        _secagg_mask,
+        _secagg_reduce,
+        fed_aggregate,
+    )
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.ops.aggregate import tree_mean
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+    from rayfed_tpu_torch.privacy import secagg, threefry
+    from rayfed_tpu_torch.privacy.manager import get_privacy_manager
+
+    cfg = tfm.TransformerConfig(**cfg_kw)
+    on_cuda = torch.device(device).type == "cuda"
+    root = PRIVACY_PARTIES[0]
+    timer = _DeviceTimer(on_cuda)
+    fed.init(addresses=addresses, party=party, logging_level="warning",
+             transport="cuda" if on_cuda else "tcp",
+             config={"cross_silo_comm": FED_COMM,
+                     "barrier_on_initializing": True,
+                     "privacy": {"secure_aggregation": True,
+                                 "mask_seed": PRIVACY_MASK_SEED,
+                                 "fixedpoint_bits": PRIVACY_FP_BITS}})
+    dev = mesh.get_party_device() if on_cuda else torch.device("cpu")
+    mgr = get_privacy_manager()
+    out = dict(party=party)
+
+    fa.reset_launch_counts()
+    init_fn, step_fn = make_fed_train_step(cfg, dev, lr=1e-3)
+    params, opt = init_fn(0)
+    seeds = {p: i + 1 for i, p in enumerate(PRIVACY_PARTIES)}
+    data = synthetic_lm_dataset(cfg.vocab, batch * (seq + 1), seq,
+                                seed=seeds[party])
+    inputs, targets = next(make_batch_iterator(data, batch, dev))
+    params, opt, loss = step_fn(params, opt, inputs, targets)
+    out["loss"] = float(loss)
+    out["launches"] = dict(fa.LAUNCHES)
+    del opt, inputs, targets, step_fn
+    gc.collect()
+    if on_cuda:
+        out["step_peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = {"params": params, "grid": _grid(params, PRIVACY_FP_BITS)}
+
+    # Timing and capture around the privacy plane's own functions.
+    others = [p for p in PRIVACY_PARTIES if p != party]
+    seed_owner = {mgr._generate_seed(q): q for q in others}
+    rec = dict(encode=[], streams={}, sums=[], decodes=[])
+    live = dict(encode=secagg.encode_tree, acc=secagg._accumulate,
+                modsum=secagg.modular_sum_host, decode=secagg.decode_sum,
+                mask=mgr.mask_contribution)
+    n_check = PRIVACY_CHECK_WORDS
+
+    def ends(words):
+        flat = words.reshape(-1)
+        k = min(n_check, flat.numel())
+        return (flat[:k].to(torch.int64).clone(),
+                flat[-k:].to(torch.int64).clone())
+
+    def encode_tree(tree, fp, n):
+        a = timer.mark()
+        ring, dtypes, spec = live["encode"](tree, fp, n)
+        rec["encode"].append((a, timer.mark()))
+        if "a_enc" not in rec:
+            idx = max(range(len(ring)), key=lambda i: (ring[i].numel(), -i))
+            rec["a_idx"], rec["a_numel"] = idx, ring[idx].numel()
+            rec["a_enc"] = ends(ring[idx])
+        return ring, dtypes, spec
+
+    def accumulate(acc, pair_seed, domain, round_index, leaf_index, sign):
+        a = timer.mark()
+        live["acc"](acc, pair_seed, domain, round_index, leaf_index, sign)
+        key = (domain, round_index, seed_owner.get(pair_seed, "?"))
+        rec["streams"].setdefault(key, []).append((a, timer.mark(),
+                                                   acc.numel()))
+
+    def modular_sum(contributions):
+        a = timer.mark()
+        words = live["modsum"](contributions)
+        rec["sums"].append((a, timer.mark()))
+        if "b_sum" not in rec:
+            rec["b_sum"] = words
+        return words
+
+    def decode_sum(words, dtypes, spec, fp):
+        a = timer.mark()
+        tree = live["decode"](words, dtypes, spec, fp)
+        rec["decodes"].append((a, timer.mark()))
+        return tree
+
+    def mask_contribution(tree, **kw):
+        env = live["mask"](tree, **kw)
+        if "a_masked" not in rec:
+            rec["a_round"] = (kw["domain"], kw["round_index"])
+            rec["a_masked"] = ends(secagg._leaves(env["q"])[0][rec["a_idx"]])
+        return env
+
+    secagg.encode_tree, secagg._accumulate = encode_tree, accumulate
+    secagg.modular_sum_host, secagg.decode_sum = modular_sum, decode_sum
+    mgr.mask_contribution = mask_contribution
+
+    @fed.remote
+    def get_tree(kind):
+        return state[kind]
+
+    @fed.remote
+    def stamp(_agg):
+        if on_cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    @fed.remote
+    def same(a, b):
+        return _bitwise_equal(a, b)
+
+    @fed.remote
+    def withheld(_tree):
+        return None  # carol's envelope never leaves carol
+
+    @fed.remote
+    def reoffer(dead):
+        mgr.reoffer_seeds(dead, root=root)
+        return True
+
+    @fed.remote
+    def check_round(sec, *trees):
+        """(b) the ring sum of the three masked envelopes (kept by the
+        secure round) against the ring sum of the three trees' plain
+        encodings; (c) the secure mean against ``tree_mean``."""
+        masked_sum = rec.pop("b_sum")
+        per_party = [secagg._leaves(t)[0] for t in trees]
+        sec_leaves = secagg._leaves(sec)[0]
+        b_ok, c_err, c_ratio = True, 0.0, 0.0
+        eps = 2.0 ** -(PRIVACY_FP_BITS + 1)
+        for idx, want in enumerate(masked_sum):
+            xs = [leaves[idx].detach() for leaves in per_party]
+            plain_sum = None
+            for x in xs:
+                words = live["encode"](x, PRIVACY_FP_BITS, len(xs))[0][0]
+                plain_sum = (words if plain_sum is None
+                             else (plain_sum + words) & 0xFFFFFFFF)
+                del words
+            b_ok = b_ok and torch.equal(plain_sum, want)
+            del plain_sum
+            plain = tree_mean(*xs)
+            diff = (sec_leaves[idx].double() - plain.double()).abs()
+            mag = sum(x.double().abs() for x in xs) / len(xs)
+            bound = eps + PRIVACY_MEAN_ULPS * mag
+            c_err = max(c_err, float(diff.max()))
+            c_ratio = max(c_ratio, float((diff / bound).max()))
+        return dict(b_ok=b_ok, c_max_abs=c_err, c_max_over_bound=c_ratio)
+
+    @fed.remote
+    def async_version(expect):
+        _wait_for(lambda: async_rounds.get_session("secure") is not None
+                  and async_rounds.get_session("secure").version >= 1,
+                  "the secure async version", PRIVACY_TIMEOUT_S / 4)
+        agg = async_rounds.get_session("secure")
+        cur = agg.current()
+        return dict(version=cur["version"],
+                    publishes=agg.snapshot_stats()["publishes"],
+                    bitwise=_bitwise_equal(cur["params"], expect))
+
+    def report():
+        streams = {}
+        for (domain, rnd, partner), marks in rec["streams"].items():
+            if (domain, rnd) == rec["a_round"]:
+                ms = sum(timer.ms(a, b) for a, b, _ in marks)
+                words = sum(n for _, _, n in marks)
+                streams[partner] = dict(ms=ms, words=words,
+                                        gb_s=4 * words / ms / 1e6)
+        return dict(
+            streams=streams,
+            encode_ms=[timer.ms(a, b) for a, b in rec["encode"]],
+            sum_ms=[timer.ms(a, b) for a, b in rec["sums"]],
+            decode_ms=[timer.ms(a, b) for a, b in rec["decodes"]],
+            launches=out["launches"], loss=out["loss"],
+            step_peak=out.get("step_peak"),
+            round_peak=(torch.cuda.max_memory_allocated() if on_cuda
+                        else None))
+
+    remote_report = fed.remote(report)
+
+    def wall(agg, t0):
+        return fed.get(stamp.party(root).remote(agg)) - t0
+
+    # Every party has stepped before any round is timed.
+    fed.get([stamp.party(p).remote(None) for p in PRIVACY_PARTIES])
+    objs = {p: get_tree.party(p).remote("params") for p in PRIVACY_PARTIES}
+    t0 = time.perf_counter()
+    plain = fed_aggregate(objs, op="mean")
+    plain_wall = wall(plain, t0)
+    t0 = time.perf_counter()
+    sec = fed_aggregate(objs, op="mean", secure=True)
+    sec_wall = wall(sec, t0)
+    checks = fed.get(check_round.party(root).remote(
+        sec, *[objs[p] for p in PRIVACY_PARTIES]))
+    del plain, sec
+
+    # The grid round runs the secure fold first, so each order is timed.
+    gobjs = {p: get_tree.party(p).remote("grid") for p in PRIVACY_PARTIES}
+    t0 = time.perf_counter()
+    gsec = fed_aggregate(gobjs, op="mean", secure=True)
+    gsec_wall = wall(gsec, t0)
+    t0 = time.perf_counter()
+    gplain = fed_aggregate(gobjs, op="mean")
+    gplain_wall = wall(gplain, t0)
+    checks["d_bitwise"] = fed.get(same.party(root).remote(gsec, gplain))
+    del gplain
+
+    survivors = PRIVACY_PARTIES[:2]
+    envs = [_secagg_mask.party(p).remote(
+        gobjs[p], p, PRIVACY_PARTIES, PRIVACY_DROPOUT_DOMAIN, 0, None)
+        for p in survivors]
+    envs.append(withheld.party("carol").remote(gobjs["carol"]))
+    acks = [reoffer.party(p).remote("carol") for p in survivors]
+    recovered = _secagg_reduce.party(root).remote(
+        "mean", PRIVACY_PARTIES, PRIVACY_DROPOUT_DOMAIN, 0, None,
+        *envs, *acks)
+    checks["e_bitwise"] = fed.get(same.party(root).remote(
+        recovered, fed_aggregate({p: gobjs[p] for p in survivors},
+                                 op="mean")))
+
+    h = async_rounds.async_round(gobjs, root=root, round_tag=0,
+                                 session="secure", buffer_k=2, secure=True,
+                                 fetch_model=False)
+    checks["f"] = fed.get(async_version.party(root).remote(gsec))
+    checks["f"]["offers"] = fed.get([h.offers[p] for p in PRIVACY_PARTIES])
+
+    # (a): this party's mask words at both ends of the largest leaf, the
+    # card's (masked minus encoded) against the CPU's plain path.
+    domain, rnd = rec["a_round"]
+    idx, n = rec["a_idx"], rec["a_numel"]
+    k = min(n_check, n)
+    a_ok = True
+    for got_enc, got_masked, start in zip(rec["a_enc"], rec["a_masked"],
+                                          (0, n - k)):
+        card = ((got_masked - got_enc) & 0xFFFFFFFF).cpu()
+        cpu = torch.zeros(k, dtype=torch.int64)
+        for q in others:
+            key = secagg._mask_key(mgr.pair_seed(q), domain, rnd, idx)
+            words = threefry.words(key, start, start + k)
+            cpu = (cpu + secagg.pair_sign(party, q) * words) & 0xFFFFFFFF
+        a_ok = a_ok and torch.equal(card, cpu)
+    out.update(a_ok=a_ok, a_leaf=idx, a_numel=n, a_words=k,
+               walls=dict(plain=plain_wall, secure=sec_wall,
+                          grid_secure=gsec_wall, grid_plain=gplain_wall),
+               checks=checks, reports=dict(zip(PRIVACY_PARTIES, fed.get(
+                   [remote_report.party(p).remote()
+                    for p in PRIVACY_PARTIES]))))
+    fed.shutdown()
+    return out
+
+
+def mask_stream_alone(device, cfg, reps=3):
+    """One partner's mask stream added to a leaf of the model's largest
+    shape (the embedding), alone in this process: ms (CUDA events, the
+    mean of ``reps`` after a warm-up on a card; the host clock on the
+    CPU), GB/s of words, and the bytes bound of one fused pass (read the
+    encoded word, write the masked one: 8 B a word at 3.35 TB/s)."""
+    import torch
+
+    from rayfed_tpu_torch.privacy import secagg
+
+    words = torch.zeros(cfg.vocab * cfg.d_model, dtype=torch.int64,
+                        device=device)
+    timer = _DeviceTimer(torch.device(device).type == "cuda")
+
+    def once():
+        secagg.mask_leaf(words, 0, "alice", ("alice", "bob"),
+                         {"bob": PRIVACY_MASK_SEED}, "smoke-alone", 0,
+                         inplace=True)
+
+    once()
+    a = timer.mark()
+    for _ in range(reps):
+        once()
+    ms = timer.ms(a, timer.mark()) / reps
+    n = words.numel()
+    return dict(words=n, ms=ms, gb_s=4 * n / ms / 1e6,
+                fused_bound_ms=1e3 * 8 * n / PEAK_BYTES_PER_S)
+
+
+def phase_privacy(device, cfg, *, batch, seq, label="",
+                  timeout_s=PRIVACY_TIMEOUT_S):
+    """Phase 10: :func:`_privacy_program` in three spawned party
+    processes on one card, checked: (a) each party's mask words at the
+    first and last 2**20 flat indices of the largest leaf equal the CPU
+    plain path's bitwise, (b) the ring sum of the three masked envelopes
+    equals the ring sum of the three plain encodings bitwise, (c) the
+    secure mean is within 2**-(f+1) plus eight f32 epsilons of the
+    entries' mean magnitude of the plaintext ``tree_mean``, (d) over
+    grid-valued trees the secure mean is bitwise the plaintext fold,
+    (e) carol's envelope withheld, alice's and bob's re-offered seeds
+    recover the survivors' plaintext mean bitwise, (f) one secure async
+    version (``buffer_k`` 2) folds the three offers and publishes (d)'s
+    mean bitwise; each party's steps launched every bf16 kernel on a
+    card. Returns the parties' results."""
+    import dataclasses
+
+    import torch
+
+    t10 = time.perf_counter()
+    alone = mask_stream_alone(device, cfg)
+    results, wall = spawn_parties(
+        _privacy_program, (device, dataclasses.asdict(cfg), batch, seq),
+        timeout_s, names=PRIVACY_PARTIES)
+    res = results["alice"]
+    checks, reports = res["checks"], res["reports"]
+    for p, r in results.items():
+        require(r["a_ok"], f"(a) {p}'s mask words on the card differ from "
+                           f"the CPU's at the ends of leaf {r['a_leaf']}")
+    require(checks["b_ok"], "(b) the masked envelopes' ring sum is not the "
+                            "plain encodings' ring sum")
+    require(checks["c_max_over_bound"] <= 1.0,
+            f"(c) the secure mean is {checks['c_max_over_bound']:.3f} times "
+            f"the bound from the plaintext tree_mean")
+    require(checks["d_bitwise"], "(d) the secure mean of grid-valued trees "
+                                 "is not the plaintext fold's bits")
+    require(checks["e_bitwise"], "(e) the round with carol's envelope "
+                                 "withheld did not recover the survivors' "
+                                 "mean bitwise")
+    f = checks["f"]
+    require(f["version"] == 1 and f["publishes"] == 1 and f["bitwise"]
+            and all(o["accepted"] for o in f["offers"]),
+            f"(f) the secure async version: {f}")
+    if torch.device(device).type == "cuda":
+        for p, rep in reports.items():
+            for k in BF16_KERNELS:
+                require(rep["launches"][k] > 0,
+                        f"{p} did not launch {k}: {rep['launches']}")
+    for p, rep in reports.items():
+        print(f"[privacy] {label} {p}: " + ", ".join(
+            f"mask stream with {q} {s['ms']:.1f} ms ({s['words']} words, "
+            f"{s['gb_s']:.1f} GB/s of words)"
+            for q, s in sorted(rep["streams"].items()))
+            + f"; encode {', '.join(f'{m:.1f}' for m in rep['encode_ms'])}"
+            f" ms; peak {rep['step_peak']} B in the step, "
+            f"{rep['round_peak']} B in the rounds")
+    print(f"[privacy] {label} one partner stream alone over {alone['words']}"
+          f" words: {alone['ms']:.2f} ms ({alone['gb_s']:.1f} GB/s of words;"
+          f" a fused pass's bytes bound {alone['fused_bound_ms']:.3f} ms)")
+    root = reports["alice"]
+    print(f"[privacy] {label} alice: ring sum "
+          f"{', '.join(f'{m:.1f}' for m in root['sum_ms'])} ms, decode "
+          f"{', '.join(f'{m:.1f}' for m in root['decode_ms'])} ms")
+    w = res["walls"]
+    print(f"[privacy] {label} round wall at alice, trained trees: plaintext "
+          f"{w['plain']:.3f} s, then secure {w['secure']:.3f} s (first secure"
+          f" round, seed exchange included; {w['secure'] / w['plain']:.2f}x);"
+          f" grid trees: secure {w['grid_secure']:.3f} s, then plaintext "
+          f"{w['grid_plain']:.3f} s "
+          f"({w['grid_secure'] / w['grid_plain']:.2f}x)")
+    print(f"[privacy] {label} checks: (a) leaf {res['a_leaf']} "
+          f"({res['a_numel']} words), {res['a_words']} words at each end in "
+          f"all three parties; (b) {checks['b_ok']}; (c) max |secure - "
+          f"plain| {checks['c_max_abs']:.6e}, {checks['c_max_over_bound']:.6f}"
+          f" of the bound; (d) {checks['d_bitwise']}; (e) "
+          f"{checks['e_bitwise']}; (f) version {f['version']}; losses "
+          + ", ".join(f"{p} {r['loss']:.4f}" for p, r in reports.items())
+          + f"; phase 10 {time.perf_counter() - t10:.1f} s ({wall:.1f} s "
+          f"from spawn to exit)")
+    return results
+
+
+def run_privacy(smi):
+    """Phase 10 at the flagship width, depth cut as phase 4's, batch cut
+    to PRIVACY_BATCH."""
+    print("[privacy] reduced " + json.dumps(
+        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS],
+         "batch": [FLAGSHIP["batch"], PRIVACY_BATCH]}))
+    t = time.perf_counter()
+    out = phase_privacy("cuda", _flagship_cfg(SMOKE_LAYERS),
+                        batch=PRIVACY_BATCH, seq=FLAGSHIP["seq"],
+                        label=f"on {smi}:")
+    _phase_wall(10, t, smi)
+    return out
+
+
 def _phase_wall(n, t0, smi):
     print(f"[phase {n}] {time.perf_counter() - t0:.1f} s on {smi}")
 
@@ -3476,6 +3945,16 @@ def main(argv):
     t0 = time.perf_counter()
     name, smi = phase_device()
     _phase_wall(1, t0, smi)
+    if argv == ["--privacy-only"]:
+        # Phases 2 and 10 alone, in a fresh process (no kernel line).
+        t = time.perf_counter()
+        phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+        _phase_wall(2, t, smi)
+        run_privacy(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if argv == ["--family-only"]:
         # Phases 2 and 9 alone, in a fresh process (no kernel line).
         t = time.perf_counter()
@@ -3510,7 +3989,8 @@ def main(argv):
             "count": torch.cuda.device_count()}}))
         return
     require(not argv, f"unknown arguments {argv}; the options are "
-                      "--serving-only, --async-only and --family-only")
+                      "--serving-only, --async-only, --family-only and "
+                      "--privacy-only")
     t = time.perf_counter()
     phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
     _phase_wall(2, t, smi)
@@ -3585,10 +4065,16 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     family = run_family(smi)
-    # The bf16 kernels' launches: phase 4's train steps and phase 9's MoE
-    # steps (remat="attn"), each counted from zero.
+    gc.collect()
+    torch.cuda.empty_cache()
+    privacy = run_privacy(smi)
+    # The bf16 kernels' launches: phase 4's train steps, phase 9's MoE
+    # steps (remat="attn") and phase 10's parties' steps, each counted
+    # from zero.
     for kern_name in BF16_KERNELS:
         launches[kern_name] += family["launches"][kern_name]
+        launches[kern_name] += sum(r["launches"][kern_name]
+                                   for r in privacy.values())
     print(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
 
     line = []

@@ -30,7 +30,9 @@ continuous-batching inference over a slab or paged KV pool with hot model
 swap, fed by ``fed_aggregate(publish_to=)``; FedBuff-style async rounds
 (``async_round``, ``fed_aggregate(mode="async")``), elastic membership
 with coordinator failover (``join``, ``leave``, ``membership_sync``) and
-job checkpoints (``save_job_state``, ``restore_job_state``).
+job checkpoints (``save_job_state``, ``restore_job_state``); and secure
+aggregation (``config["privacy"]``, ``fed_aggregate(secure=True)`` in
+either mode; privacy/), whose mask streams are ``jax.random``'s words.
 It never imports jax or rayfed_tpu. Entry points run on CUDA unless the
 caller passes device="cpu"; the attention kernels are hand-written for
 Hopper (csrc/) and built at first use. Planes not ported yet are absent,

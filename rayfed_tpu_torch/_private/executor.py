@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextvars
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from queue import Queue
 from typing import Any, Callable, List, Optional, Sequence, Union
@@ -228,9 +229,20 @@ def _run_task(
             set_result_versioned(f, item)
 
 
+#: How long ``LocalExecutor.shutdown`` waits, in all, for its lane
+#: threads to finish the task in hand and exit.
+LANE_JOIN_TIMEOUT_S = 5.0
+
+
 class SerialLane:
     """A single-threaded execution lane preserving submission order —
-    the actor execution model (ref ``fed/_private/fed_actor.py``)."""
+    the actor execution model (ref ``fed/_private/fed_actor.py``).
+
+    The lane thread is a daemon, so ``LocalExecutor.shutdown`` joins it:
+    a daemon thread that frees a tensor (releasing the GIL inside torch's
+    deallocator) while the interpreter finalizes is made to exit inside
+    that noexcept deallocator, and the process aborts ("terminate called
+    without an active exception")."""
 
     def __init__(self, name: str = "fedtpu-actor-lane"):
         self._q: "Queue[Optional[Callable[[], None]]]" = Queue()
@@ -245,6 +257,9 @@ class SerialLane:
             if item is None:
                 return
             item()
+            # Free the task's arguments and results now, not when the next
+            # item arrives (perhaps the stop sentinel, at shutdown).
+            del item
 
     def submit_thunk(self, thunk: Callable[[], None]) -> bool:
         """Enqueue; False if the lane was killed (caller must fail the
@@ -264,6 +279,10 @@ class SerialLane:
 
     def stop(self) -> None:
         self._q.put(None)
+
+    def join(self, timeout: float) -> None:
+        if self._thread is not threading.current_thread():
+            self._thread.join(timeout)
 
 
 class LocalExecutor:
@@ -364,4 +383,9 @@ class LocalExecutor:
             lanes, self._lanes = self._lanes, []
         for lane in lanes:
             lane.stop()
+        # Each lane finishes the task in hand and exits (bounded: a task
+        # blocked on a peer that is gone keeps its lane past the wait).
+        deadline = time.monotonic() + LANE_JOIN_TIMEOUT_S
+        for lane in lanes:
+            lane.join(max(0.0, deadline - time.monotonic()))
         self._pool.shutdown(wait=wait)

@@ -517,9 +517,9 @@ def _spec_from_wire(w: dict) -> tree_util.TreeSpec:
 # values -> canonical dtype names. bf16 keeps float32's exponent range
 # (safe for gradients); fp16 halves mantissa error but overflows past
 # 65504 — callers pick their poison explicitly. The JAX package's int8
-# tier belongs to its privacy plane, which this package does not have
-# yet (ROADMAP Queue 1 item 11): fed.init refuses it, and so does the
-# codec. Received int8-tier leaves (``qs``) still decode.
+# tier belongs to its privacy plane's quantizer, which this package does
+# not have yet (ROADMAP Queue 1 item 11b): fed.init refuses it, and so
+# does the codec. Received int8-tier leaves (``qs``) still decode.
 WIRE_DTYPES = {
     "bf16": "bfloat16",
     "bfloat16": "bfloat16",
@@ -539,7 +539,7 @@ def wire_dtype_name(knob: Optional[str]) -> Optional[str]:
         raise ValueError(
             "payload_wire_dtype='int8' is the privacy plane's quantized "
             "tier, not ported to rayfed_tpu_torch yet (ROADMAP Queue 1 "
-            "item 11)"
+            "item 11b)"
         )
     try:
         return WIRE_DTYPES[key]

@@ -75,7 +75,6 @@ _UNPORTED_BLOCKS = {
         "ROADMAP Queue 1 item 17"
     ),
     "collective": "the cross-party collective lane is ROADMAP Queue 1 item 12",
-    "privacy": "the privacy plane is ROADMAP Queue 1 item 11",
     "telemetry": (
         "the telemetry agent and collector are ROADMAP Queue 1 item 18"
     ),
@@ -102,7 +101,7 @@ def _refuse_unported(config: Dict, transport: str) -> None:
     if wire_dtype is not None and str(wire_dtype).lower() == "int8":
         raise NotImplementedError(
             "payload_wire_dtype='int8' is the privacy plane's quantized "
-            "tier, ROADMAP Queue 1 item 11, not ported to rayfed_tpu_torch "
+            "tier, ROADMAP Queue 1 item 11b, not ported to rayfed_tpu_torch "
             "yet"
         )
 
@@ -149,12 +148,14 @@ def init(
             ``serving`` (:class:`~rayfed_tpu_torch.config.ServingConfig`
             keys: the job default of ``fed.serve``), ``membership``
             (:class:`~rayfed_tpu_torch.membership.MembershipConfig`),
-            ``checkpoint`` (:class:`~rayfed_tpu_torch.checkpoint.CheckpointConfig`)
-            and the ``aggregation.async_*`` keys; each is validated
-            strictly before any state is built. The blocks of planes not
-            ported yet (``jax_distributed``, ``collective``,
-            ``privacy``, ``telemetry``) and a ``party_mesh`` over more
-            than one device are refused.
+            ``checkpoint`` (:class:`~rayfed_tpu_torch.checkpoint.CheckpointConfig`),
+            ``privacy`` (:class:`~rayfed_tpu_torch.privacy.PrivacyConfig`:
+            secure aggregation; its DP and quantizer keys are refused,
+            item 11b) and the ``aggregation.async_*`` keys; each is
+            validated strictly before any state is built. The blocks of
+            planes not ported yet (``jax_distributed``, ``collective``,
+            ``telemetry``) and a ``party_mesh`` over more than one device
+            are refused.
         tls_config: ``{ca_cert, cert, key}`` file paths for mutual TLS.
         logging_level: root logging level.
         sender_proxy_cls / receiver_proxy_cls: custom transport classes
@@ -198,6 +199,14 @@ def init(
         from rayfed_tpu_torch.membership import MembershipConfig
 
         membership_cfg = MembershipConfig.from_dict(membership_dict)
+    # The privacy block is STRICT: a typo'd privacy.* key rejects init
+    # (a job must not silently run without the protection it asked for).
+    privacy_dict = config.get("privacy")
+    privacy_cfg = None
+    if privacy_dict is not None:
+        from rayfed_tpu_torch.privacy.config import PrivacyConfig
+
+        privacy_cfg = PrivacyConfig.from_dict(privacy_dict)
     aggregation_dict = config.get("aggregation") or {}
     if aggregation_dict:
         from rayfed_tpu_torch import async_rounds as _async_rounds
@@ -442,6 +451,15 @@ def init(
 
         _checkpoint.set_default_checkpoint_config(checkpoint_dict)
 
+    # Privacy plane (docs/privacy.md): the manager owns the pairwise seed
+    # store and the ``prv:`` control handler. AFTER membership (dropout
+    # recovery consults the roster). This process is the party's leader,
+    # which owns the control handlers.
+    if privacy_cfg is not None:
+        from rayfed_tpu_torch.privacy.manager import install_privacy
+
+        install_privacy(job_name, party, privacy_cfg)
+
     if config.get("barrier_on_initializing", False):
         barriers.ping_others(addresses=addresses, self_party=party, max_retries=3600)
 
@@ -530,6 +548,15 @@ def _shutdown_impl(intended: bool = True):
             except Exception:  # noqa: BLE001 - must not block teardown
                 logger.warning("membership drain failed", exc_info=True)
         _membership.clear_membership_manager()
+    # Privacy plane: unregister the prv: control handler while the
+    # rendezvous store is still up, and drop the seeds — a new job must
+    # not aggregate under an old job's masks.
+    _privacy = sys.modules.get("rayfed_tpu_torch.privacy.manager")
+    if _privacy is not None:
+        try:
+            _privacy.uninstall_privacy()
+        except Exception:  # noqa: BLE001 - must not block teardown
+            logger.warning("privacy-plane teardown failed", exc_info=True)
     internal_kv.kv_reset()
     clear_global_context(wait_for_sending=wait_for_sending)
     # Async aggregation sessions hold buffered contribution trees; the

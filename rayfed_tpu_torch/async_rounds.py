@@ -59,9 +59,11 @@ identical on every driver, so no party's local clock leaks into the
 fold. DEAD parties (the root's ``fed.liveness_view()``) are dropped from
 the buffer; SUSPECT ones are down-weighted by ``async_suspect_factor``.
 
-Secure (masked) offers are the privacy plane's, ROADMAP Queue 1 item 11:
-``secure=True`` and a masked envelope at the aggregator raise
-``NotImplementedError`` naming it.
+Secure (masked) offers (``secure=True``, privacy plane): each contribution
+is masked at its party (``privacy/manager.py``) and the aggregator
+buffers the envelopes per mask round, folding a round's group only once
+it is complete (or its missing parties are DEAD and their masks
+recovered), so its fold is the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -135,12 +137,6 @@ class _Contribution:
     weight: float      # base * staleness decay * liveness factor
 
 
-_SECURE_ITEM = (
-    "secure async aggregation (masked offers) is the privacy plane, ROADMAP "
-    "Queue 1 item 11, not ported to rayfed_tpu_torch yet"
-)
-
-
 def _snapshot_tree(tree: Any) -> Any:
     """Copy mutable leaves so the buffered contribution is immune to the
     offering driver reusing its buffer in place while the fold is still
@@ -197,6 +193,12 @@ class BufferedAggregator:
         self._publish_cb = publish_cb
         self._lock = threading.Lock()
         self._buffer: List[_Contribution] = []
+        #: Pending secure-aggregation groups, keyed by mask round:
+        #: {round: {party: masked envelope}} (docs/privacy.md). A group
+        #: folds when every party named in its envelopes has arrived —
+        #: or when the missing parties are DEAD/evicted and every
+        #: survivor's recovery seed has been re-offered.
+        self._secure_groups: Dict[int, Dict[str, Any]] = {}
         self._arrivals = 0
         self._latest_tag = -1
         self._current: Any = None
@@ -290,8 +292,8 @@ class BufferedAggregator:
         """One consistent snapshot of everything a successor aggregator
         needs to continue this session bitwise: the un-folded buffer in
         arrival order, the arrival counter (slot labels must not
-        collide), the staleness ledger (latest round tag), the published
-        model, and the counters. The
+        collide), the staleness ledger (latest round tag), the pending
+        secure groups, the published model, and the counters. The
         returned dict is wire-clean — it rides a normal fed push to the
         successor, or a checkpoint to disk."""
         with self._lock:
@@ -308,10 +310,9 @@ class BufferedAggregator:
                 ],
                 "arrivals": self._arrivals,
                 "latest_tag": self._latest_tag,
-                # Masked groups are the privacy plane's (item 11): none
-                # is ever pending here. The key keeps the JAX package's
-                # export shape, so either package adopts the other's.
-                "secure_groups": {},
+                "secure_groups": {
+                    int(r): dict(g) for r, g in self._secure_groups.items()
+                },
                 "current": self._current,
                 "version": self.version,
                 "stats": dict(self.stats),
@@ -322,10 +323,6 @@ class BufferedAggregator:
         REPLACING this aggregator's state (the handoff target is a
         fresh/empty successor; a checkpoint restore starts from an empty
         registry). Counts one handoff. Returns ``snapshot_stats()``."""
-        if state.get("secure_groups"):
-            raise NotImplementedError(
-                f"adopting pending masked groups: {_SECURE_ITEM}"
-            )
         with self._lock:
             self._buffer = [
                 _Contribution(
@@ -337,6 +334,10 @@ class BufferedAggregator:
             ]
             self._arrivals = int(state.get("arrivals") or 0)
             self._latest_tag = int(state.get("latest_tag", -1))
+            self._secure_groups = {
+                int(r): dict(g)
+                for r, g in (state.get("secure_groups") or {}).items()
+            }
             self._current = state.get("current")
             self.version = int(state.get("version") or 0)
             prior = state.get("stats") or {}
@@ -391,7 +392,10 @@ class BufferedAggregator:
         state = view.get(party)
         membership = get_membership_manager()
         if isinstance(tree, dict) and tree.get("__secagg__"):
-            raise NotImplementedError(f"a masked offer: {_SECURE_ITEM}")
+            return self._offer_secure(
+                party, tree, round_tag=round_tag, epoch=epoch,
+                t0=t0, view=view, membership=membership,
+            )
         tree = _snapshot_tree(tree)
         with self._lock:
             self._latest_tag = max(self._latest_tag, int(round_tag))
@@ -467,7 +471,8 @@ class BufferedAggregator:
 
     def _install_locked(self, mean, t0, *, path, k, round_tags) -> int:
         """Mix a folded mean into the global model, bump the version,
-        and fire the publish hook."""
+        and fire the publish hook (shared by the plaintext and secure
+        folds)."""
         from rayfed_tpu_torch.ops.aggregate import tree_mix
 
         self._current = tree_mix(self._current, mean, self.cfg.server_lr)
@@ -499,6 +504,134 @@ class BufferedAggregator:
                     self.session, self.version, e,
                 )
         return self.version
+
+    # -- secure groups (privacy plane, docs/privacy.md) ---------------------
+
+    def _offer_secure(
+        self, party, env, *, round_tag, epoch, t0, view, membership
+    ) -> Dict[str, Any]:
+        """Buffer one MASKED contribution. Masked envelopes group by
+        their mask round (not by arrival count): an individual envelope
+        is a one-time-pad — only the complete group's modular sum means
+        anything — so the effective ``buffer_k`` of a secure session is
+        the contributing group's size. The uniform group staleness
+        factor cancels in the mean, which is what keeps the secure fold
+        bit-comparable to the plaintext one (docs/privacy.md)."""
+        from rayfed_tpu_torch.resilience.liveness import DEAD
+
+        with self._lock:
+            self._latest_tag = max(self._latest_tag, int(round_tag))
+            self._m_latest_tag.set(self._latest_tag)
+            staleness = self._latest_tag - int(round_tag)
+            buffered = sum(len(g) for g in self._secure_groups.values())
+            if membership is not None and membership.is_ghost(party, epoch):
+                self._bump_stat_locked("dropped_ghost")
+                return {
+                    "accepted": False, "reason": "ghost",
+                    "staleness": staleness, "weight": 0.0,
+                    "buffered": buffered, "version": self.version,
+                }
+            if view.get(party) == DEAD:
+                self._bump_stat_locked("dropped_dead")
+                return {
+                    "accepted": False, "reason": "dead",
+                    "staleness": staleness, "weight": 0.0,
+                    "buffered": buffered, "version": self.version,
+                }
+            if (
+                self.cfg.max_staleness is not None
+                and staleness > self.cfg.max_staleness
+            ):
+                self._bump_stat_locked("dropped_stale")
+                return {
+                    "accepted": False, "reason": "stale",
+                    "staleness": staleness, "weight": 0.0,
+                    "buffered": buffered, "version": self.version,
+                }
+            rnd = int(env["round"])
+            group = self._secure_groups.setdefault(rnd, {})
+            group[party] = env
+            self._bump_stat_locked("accepted")
+            published = self._try_fold_secure_locked(rnd, t0)
+            self._sync_gauges_locked()
+            w = 1.0 if env.get("w") is None else float(env["w"])
+            return {
+                "accepted": True, "secure": True, "staleness": staleness,
+                "weight": w,
+                "buffered": sum(len(g) for g in self._secure_groups.values()),
+                "version": self.version,
+                **({"published": published} if published else {}),
+            }
+
+    def _try_fold_secure_locked(self, rnd: int, t0: float) -> Optional[int]:
+        """Fold the round's secure group if it is completable: every
+        expected party arrived, or every missing one is DEAD/evicted AND
+        every survivor's recovery seed has been re-offered
+        (``prv:recover``). Returns the new version, or None to keep the
+        group pending (re-tried on the next offer and on every
+        :func:`poke_secure_sessions`)."""
+        from rayfed_tpu_torch.privacy.manager import get_privacy_manager
+
+        group = self._secure_groups.get(rnd)
+        if not group:
+            return None
+        mgr = get_privacy_manager()
+        if mgr is None:
+            logger.warning(
+                "masked offers buffered at a party without a privacy "
+                "plane; session %r round %s cannot fold", self.session, rnd,
+            )
+            return None
+        first = next(iter(group.values()))
+        expected = list(first["parties"])
+        missing = [p for p in expected if p not in group]
+        if missing:
+            from rayfed_tpu_torch.membership.manager import (
+                get_membership_manager,
+            )
+            from rayfed_tpu_torch.resilience.liveness import DEAD
+
+            view = self._liveness_fn() if self._liveness_fn else {}
+            membership = get_membership_manager()
+            roster = (
+                set(membership.roster()) if membership is not None else None
+            )
+            survivors = [p for p in expected if p in group]
+            for p in missing:
+                gone = view.get(p) == DEAD or (
+                    roster is not None and p not in roster
+                )
+                if not gone:
+                    return None  # still expecting its envelope
+                if mgr.recovery_seeds(p, survivors) is None:
+                    return None  # survivors' re-offers still in flight
+        weights = None
+        op = "mean"
+        if first.get("w") is not None:
+            op = "wmean"
+            weights = {p: float(e["w"]) for p, e in group.items()}
+        try:
+            mean = mgr.secure_reduce(
+                op, expected, first["domain"], rnd, weights, dict(group)
+            )
+        except Exception:  # noqa: BLE001 - fold stays pending, retried
+            logger.warning(
+                "secure fold for session %r round %s not completable yet",
+                self.session, rnd, exc_info=True,
+            )
+            return None
+        del self._secure_groups[rnd]
+        return self._install_locked(
+            mean, t0, path="secure", k=len(group), round_tags=[rnd]
+        )
+
+    def poke_secure(self) -> None:
+        """Re-try every pending secure group (called when a recovery
+        seed lands — the fold it was blocking may now be completable)."""
+        with self._lock:
+            for rnd in sorted(self._secure_groups):
+                self._try_fold_secure_locked(rnd, time.perf_counter())
+            self._sync_gauges_locked()
 
 
 # ---------------------------------------------------------------------------
@@ -559,9 +692,13 @@ def reset_sessions() -> None:
 
 
 def poke_secure_sessions() -> None:
-    """The JAX package re-tries every session's pending secure folds when
-    a ``prv:recover`` seed lands; masked groups are the privacy plane's."""
-    raise NotImplementedError(f"poke_secure_sessions: {_SECURE_ITEM}")
+    """Re-try every session's pending secure folds (the privacy manager
+    calls this when a ``prv:recover`` seed lands — a dropout-blocked
+    group may now be completable)."""
+    with _sessions_lock:
+        aggs = list(_sessions.get().values())
+    for agg in aggs:
+        agg.poke_secure()
 
 
 # ---------------------------------------------------------------------------
@@ -577,6 +714,20 @@ def _async_offer(
     agg = _get_or_create_session(name, cfg_dict, serve_name)
     return agg.offer(
         party, tree, round_tag=round_tag, weight=weight, epoch=epoch
+    )
+
+
+@fed.remote
+def _async_secure_mask(tree, party, parties, domain, round_index, weight):
+    # Party-side masking for a secure async offer (the async twin of
+    # federated._secagg_mask): only the masked envelope rides to the
+    # root's buffer.
+    from rayfed_tpu_torch.privacy.manager import require_privacy_manager
+
+    mgr = require_privacy_manager("async_round(secure=True)")
+    return mgr.mask_contribution(
+        tree, party=party, parties=list(parties), domain=domain,
+        round_index=round_index, weight=weight,
     )
 
 
@@ -753,12 +904,23 @@ def async_round(
     K-publish into the serving plane in-process. ``fetch_model=False``
     skips the model fetch (pipelined inner rounds that only push).
 
-    ``secure=True`` (masked offers) raises ``NotImplementedError``: it is
-    the privacy plane, ROADMAP Queue 1 item 11.
+    ``secure=True`` masks each contribution AT its party before it is
+    offered (privacy plane, docs/privacy.md): the root buffers masked
+    envelopes per round and folds a round's group only once every
+    contributor has arrived (or dropped out and been recovered), so the
+    effective ``buffer_k`` is the group size. Requires
+    ``config["privacy"]["secure_aggregation"] = True``.
     """
     assert objs, "need at least one party's contribution"
     if secure:
-        raise NotImplementedError(f"async_round(secure=True): {_SECURE_ITEM}")
+        from rayfed_tpu_torch.privacy.manager import require_privacy_manager
+
+        mgr = require_privacy_manager("async_round(secure=True)")
+        if not mgr.config.secure_aggregation:
+            raise ValueError(
+                "async_round(secure=True) needs "
+                'config["privacy"]["secure_aggregation"] = True at fed.init'
+            )
     if root is None:
         root = next(iter(objs))
     cfg = get_default_async_config()
@@ -803,11 +965,23 @@ def async_round(
     from rayfed_tpu_torch.membership.manager import current_epoch_or_none
 
     epoch = current_epoch_or_none()
+    secure_parties = tuple(sorted(objs)) if secure else None
     for party in objs:
         w = 1.0 if weights is None else float(weights[party])
+        contribution = objs[party]
+        if secure:
+            # Mask at the contributing party; the envelope carries the
+            # wmean weight (premultiplied), so the offer itself rides
+            # weight 1.0. The mask round is the round tag — identical on
+            # every driver, so both pair members derive the same streams.
+            contribution = _async_secure_mask.party(party).remote(
+                objs[party], party, secure_parties, f"async:{session}",
+                int(round_tag), None if weights is None else w,
+            )
+            w = 1.0
         handle.offers[party] = _async_offer.party(root).remote(
             session, cfg_dict, serve_name, party, int(round_tag), w, epoch,
-            objs[party],
+            contribution,
         )
     if fetch_model:
         handle.model = _async_current.party(root).remote(
@@ -828,7 +1002,7 @@ def async_handoff(
 ) -> FedObject:
     """Hand the session's aggregator state from ``old_root`` to
     ``new_root``: the old root exports one consistent snapshot (buffer,
-    staleness ledger, published model), the snapshot
+    staleness ledger, secure groups, published model), the snapshot
     rides a normal fed push, and the successor adopts it wholesale.
     Every driver must make the identical call (multi-controller
     contract). Returns a FedObject of the successor's post-adopt stats

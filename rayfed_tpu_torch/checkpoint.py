@@ -41,8 +41,9 @@ tuples and Python scalars) and its tensors keyed by their tree paths,
 read back with ``torch.load(weights_only=True)``. bf16 and f32 leaves
 round-trip bitwise. The JAX package writes orbax; neither package reads
 the other's checkpoint (ROADMAP Queue 3, a deliberate divergence). The
-meta JSON is the JAX package's. The privacy ledger is ROADMAP Queue 1
-item 11.
+meta JSON is the JAX package's. An async session's pending masked groups
+(secure aggregation) ride the cut with its buffer; the DP ledger is ROADMAP
+Queue 1 item 11b.
 """
 
 from __future__ import annotations
@@ -432,8 +433,8 @@ def save_job_state(
             membership.export_snapshot() if membership is not None else None
         ),
         "model_banks": _export_banks(),
-        # The DP ledger is the privacy plane's (ROADMAP Queue 1 item 11);
-        # this package has none to save.
+        # The DP ledger is the privacy plane's DP layer (ROADMAP Queue 1
+        # item 11b); this package has none to save.
         "privacy_ledger": None,
     }
     _save_tree(os.path.join(path, _CONTROL_FILE), control)
@@ -471,10 +472,11 @@ def restore_job_state(
     ``step`` is None) and — with ``install=True`` — fast-forward the
     running engine to it: every checkpointed aggregator session (its
     tensors on the party's card when the job bound one) is adopted into
-    this party's registry, the driver round-tag counters
-    resume where they left off, the membership manager (when installed)
-    fast-forwards to the cut's epoch/sync index/term, and the privacy
-    ledger reloads its spent budget.
+    this party's registry with its buffer and pending masked groups, the
+    driver round-tag counters resume where they left off, and the
+    membership manager (when installed) fast-forwards to the cut's
+    epoch/sync index/term. A cut that holds a DP ledger (the JAX
+    package's) raises: the DP layer is ROADMAP Queue 1 item 11b.
 
     ``template`` (see :func:`restore_party_state`) places the tensors on
     its devices and must mirror the saved ``{"model": ..., "opt_state":
@@ -506,8 +508,8 @@ def restore_job_state(
         control["async_sessions"] = _on_party_device(control["async_sessions"])
     if control.get("privacy_ledger"):
         raise NotImplementedError(
-            "restoring a DP ledger: the privacy plane is ROADMAP Queue 1 "
-            "item 11, not ported to rayfed_tpu_torch yet"
+            "restoring a DP ledger: differential privacy is ROADMAP Queue 1 "
+            "item 11b, not ported to rayfed_tpu_torch yet"
         )
 
     if install and control:

@@ -34,8 +34,12 @@ the JAX package's bit for bit (``ops/aggregate.tree_scale`` /
 ``publish_to=`` hot-publishes the aggregate into a serving engine
 (``fed.serve``'s handle) as its next version. ``mode="async"`` offers
 each contribution to the FedBuff aggregator at the root
-(``async_rounds.py``). Secure aggregation and the same-mesh fast path are
-not ported yet and raise.
+(``async_rounds.py``). ``secure=True`` lowers through the privacy plane
+(``privacy/``): each contribution is encoded and pairwise-masked at its
+party and the root cancels the masks in the ``Z_{2^32}`` ring, with the
+JAX package's tasks and mask streams, so JAX and torch parties mask one
+round together. The same-mesh fast path is ROADMAP Queue 1 item 12 and
+is never taken.
 """
 
 from __future__ import annotations
@@ -85,6 +89,89 @@ def _premul(tree, w):
     return tree_scale(tree, w), w
 
 
+@fed.remote
+def _secagg_mask(tree, party, parties, domain, round_index, weight):
+    # Party-side secure step: premultiply (wmean), encode into the
+    # fixed-point ring, mask against every co-contributor. Executes AT
+    # the contributing party — only the masked envelope rides the wire.
+    from rayfed_tpu_torch.privacy.manager import require_privacy_manager
+
+    mgr = require_privacy_manager("fed_aggregate(secure=True)")
+    return mgr.mask_contribution(
+        tree, party=party, parties=list(parties), domain=domain,
+        round_index=round_index, weight=weight,
+    )
+
+
+@fed.remote
+def _secagg_reduce(op, parties, domain, round_index, weights, *envelopes):
+    # Root-side secure step: ring-sum the masked envelopes, cancel the
+    # orphaned masks of dropped parties, decode, scale. The envelopes of
+    # parties that died before contributing arrive as None (their
+    # FedObject never resolved at the caller).
+    from rayfed_tpu_torch.privacy.manager import require_privacy_manager
+
+    mgr = require_privacy_manager("fed_aggregate(secure=True)")
+    envs = {
+        e["party"]: e
+        for e in envelopes
+        if isinstance(e, dict) and e.get("__secagg__")
+    }
+    return mgr.secure_reduce(
+        op, list(parties), domain, round_index, weights, envs
+    )
+
+
+# Secure rounds are numbered per aggregation domain by a driver-local
+# counter. Every controller calls fed_aggregate in the same order with
+# the same arguments (the multi-controller contract), so every driver —
+# and therefore every party's masking task — derives the same round
+# index without any extra coordination.
+from rayfed_tpu_torch.tenancy.context import JobScoped
+
+_secure_round_counters: JobScoped = JobScoped(
+    "federated.secure_rounds", default_factory=dict
+)
+
+SECURE_SYNC_DOMAIN = "fedagg"
+
+
+def _next_secure_round(domain: str) -> int:
+    counters = _secure_round_counters.get()
+    rnd = counters.get(domain, 0)
+    counters[domain] = rnd + 1
+    return rnd
+
+
+def _reset_secure_rounds() -> None:
+    _secure_round_counters.pop()
+
+
+def _secure_sync_aggregate(plan, objs, op, weights, publish_to):
+    """The secure=True sync lowering: one masking task per party, one
+    unmask-by-cancellation reduce at the root. Always single-hop — a
+    masked envelope is only unmaskable once ALL contributions meet, so
+    intermediate tree/ring hops would see nothing but could compute
+    nothing either."""
+    rnd = _next_secure_round(SECURE_SYNC_DOMAIN)
+    w = None
+    if op == "wmean":
+        w = {p: float(weights[p]) for p in plan.parties}
+    masked = [
+        _secagg_mask.party(p).remote(
+            objs[p], p, tuple(plan.parties), SECURE_SYNC_DOMAIN, rnd,
+            None if w is None else w[p],
+        )
+        for p in plan.parties
+    ]
+    root = _secagg_reduce.party(plan.root).remote(
+        op, tuple(plan.parties), SECURE_SYNC_DOMAIN, rnd, w, *masked
+    )
+    if publish_to is not None:
+        publish_to.publish(root)
+    return root
+
+
 def fed_aggregate(
     objs: Dict[str, Any],
     op: str = "mean",
@@ -129,16 +216,48 @@ def fed_aggregate(
         ``staleness_fn`` ("poly" | "constant" | "exp") and ``round_tag``
         apply only to async mode, which supports op "mean"/"wmean";
         ``topology``/``plan`` are sync-only.
-    secure: secure aggregation is ROADMAP Queue 1 item 11: True raises
-        ``NotImplementedError`` naming it, in either mode.
+    secure: lower the aggregation through the privacy plane
+        (docs/privacy.md): each contribution is fixed-point encoded and
+        pairwise-masked AT its party; only masked envelopes ride the
+        wire; the root cancels the masks in the modular ring and recovers
+        exactly the aggregate. Requires
+        ``config["privacy"]["secure_aggregation"] = True`` at
+        ``fed.init``. Supports op sum/mean/wmean; the plan is forced
+        flat (an envelope is only unmaskable where ALL contributions
+        meet, so intermediate hops cannot partially reduce). Works with
+        ``mode="async"`` (masked offers buffer per round at the root).
     """
     if not objs:
         raise ValueError("fed_aggregate needs at least one party's object")
     if secure:
-        raise NotImplementedError(
-            f"fed_aggregate(secure=True, mode={mode!r}): secure aggregation "
-            "is ROADMAP Queue 1 item 11, not ported to rayfed_tpu_torch yet"
-        )
+        from rayfed_tpu_torch.privacy.manager import require_privacy_manager
+
+        mgr = require_privacy_manager("fed_aggregate(secure=True)")
+        if not mgr.config.secure_aggregation:
+            raise ValueError(
+                "fed_aggregate(secure=True) needs "
+                'config["privacy"]["secure_aggregation"] = True at '
+                "fed.init (the privacy block is present but secure "
+                "aggregation is off)"
+            )
+        if op not in ("sum", "mean", "wmean"):
+            raise ValueError(
+                f"secure aggregation supports op sum/mean/wmean, got {op!r}"
+            )
+        if mode == "sync":
+            if topology not in (None, "auto", "flat"):
+                raise ValueError(
+                    f"secure aggregation is single-hop: a masked envelope "
+                    f"is only unmaskable once every contribution meets, so "
+                    f"topology={topology!r} cannot partially reduce at "
+                    f"intermediate hops — use 'flat' (or drop topology=)"
+                )
+            topology = "flat"
+            if plan is not None and not topo.plan_is_flat(plan):
+                raise ValueError(
+                    "secure aggregation needs a flat plan (single hop); "
+                    "re-plan with topology='flat'"
+                )
     if mode in ("sync", "async"):
         _m_aggregates.labels(mode=mode).inc()
     if mode == "async":
@@ -163,6 +282,7 @@ def fed_aggregate(
             buffer_k=buffer_k,
             staleness_fn=staleness_fn,
             publish_to=publish_to,
+            secure=secure,
         )
     if mode != "sync":
         raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
@@ -210,6 +330,13 @@ def fed_aggregate(
                 f"op='wmean' weights missing entries for parties "
                 f"{sorted(missing_w)}"
             )
+
+    if secure:
+        # Privacy-plane lowering: masks at the parties, one cancel-and-
+        # decode reduce at the root.
+        return _secure_sync_aggregate(plan, objs, op, weights, publish_to)
+
+    if op == "wmean":
         held = {
             p: _premul.party(p).remote(objs[p], float(weights[p]))
             for p in plan.parties

@@ -73,6 +73,18 @@ def _hook_membership() -> None:
     clear_membership_manager()
 
 
+def _hook_privacy() -> None:
+    from rayfed_tpu_torch.privacy.manager import uninstall_privacy
+
+    uninstall_privacy()
+
+
+def _hook_federated() -> None:
+    from rayfed_tpu_torch.federated import _reset_secure_rounds
+
+    _reset_secure_rounds()
+
+
 def _hook_kv() -> None:
     from rayfed_tpu_torch._private.kv import kv_reset
 
@@ -208,6 +220,7 @@ RESET_HOOKS: Dict[str, List[Tuple[Callable[[], None], str]]] = {
     "rayfed_tpu_torch.resilience.inject": [(_hook_inject, JOB)],
     "rayfed_tpu_torch.resilience.linkhealth": [(_hook_linkhealth, JOB)],
     "rayfed_tpu_torch.membership.manager": [(_hook_membership, JOB)],
+    "rayfed_tpu_torch.privacy.manager": [(_hook_privacy, JOB)],
     "rayfed_tpu_torch.serving.server": [(_hook_serving_server, JOB)],
     "rayfed_tpu_torch.serving.client": [(_hook_serving_client, JOB)],
     "rayfed_tpu_torch.topology": [(_hook_topology, JOB)],
@@ -216,6 +229,7 @@ RESET_HOOKS: Dict[str, List[Tuple[Callable[[], None], str]]] = {
         (_hook_async_default, JOB),
     ],
     "rayfed_tpu_torch.checkpoint": [(_hook_checkpoint, JOB)],
+    "rayfed_tpu_torch.federated": [(_hook_federated, JOB)],
     "rayfed_tpu_torch.proxy.barriers": [(_hook_barriers, JOB)],
     "rayfed_tpu_torch.proxy.rendezvous": [(_hook_rendezvous, JOB)],
     "rayfed_tpu_torch._private.kv": [(_hook_kv, JOB)],

@@ -25,8 +25,10 @@ two spawned two-party runs under a seeded straggler schedule), plus:
   buffered contribution as it was;
 - a mixed-package async round over localhost TCP: a JAX party offers to
   a torch root and a torch party to a JAX root, and each root's version
-  equals the other package's fold of the same arrivals bitwise;
-- secure async offers raise, naming ROADMAP item 11.
+  equals the other package's fold of the same arrivals bitwise.
+
+The secure (masked) async offers are held in test_torch_privacy.py and
+test_torch_ha.py.
 """
 
 import pickle
@@ -413,24 +415,6 @@ def test_fed_aggregate_mode_knob_validation():
                dict(round_tag=3)):
         with pytest.raises(ValueError, match="async-only"):
             fed_aggregate(objs, **kw)
-
-
-@pytest.mark.parametrize("call", ["async_round", "fed_aggregate",
-                                  "masked_offer", "poke"])
-def test_secure_async_raises_naming_item_11(call):
-    from rayfed_tpu_torch import async_rounds
-    from rayfed_tpu_torch.federated import fed_aggregate
-
-    with pytest.raises(NotImplementedError, match="item 11"):
-        if call == "async_round":
-            async_round({"alice": object()}, secure=True)
-        elif call == "fed_aggregate":
-            fed_aggregate({"alice": object()}, mode="async", secure=True)
-        elif call == "masked_offer":
-            BufferedAggregator(AsyncAggregationConfig()).offer(
-                "alice", {"__secagg__": True, "round": 0}, round_tag=0)
-        else:
-            async_rounds.poke_secure_sessions()
 
 
 # ---------------------------------------------------------------------------

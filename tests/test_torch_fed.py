@@ -458,6 +458,32 @@ def test_late_capture_refuses_a_value_mutated_since_it_resolved():
     assert torch.equal(staged.result()["p"], torch.zeros(3))
 
 
+def test_executor_shutdown_joins_its_lanes_and_frees_their_tasks():
+    # An actor lane is a daemon thread. A task's tensors that the lane
+    # frees while the interpreter finalizes make the process abort inside
+    # torch's deallocator ("terminate called without an active
+    # exception"), so shutdown joins each lane, and a lane frees a task's
+    # arguments as soon as the task has run.
+    import gc
+    import weakref
+
+    from rayfed_tpu_torch._private.executor import LocalExecutor
+
+    ex = LocalExecutor(max_workers=1)
+    lanes = [ex.new_lane(f"lane-{i}") for i in range(2)]
+    arg = torch.ones(4)
+    freed = weakref.ref(arg)
+    out = ex.submit(lambda t: float(t.sum()), (arg,), lane=lanes[0])
+    assert out.result(10) == 4.0
+    del arg, out
+    gc.collect()
+    assert freed() is None
+    slow = ex.submit(lambda: time.sleep(0.3) or "late", (), lane=lanes[1])
+    ex.shutdown(wait=False)
+    assert not any(lane._thread.is_alive() for lane in lanes)
+    assert slow.result(0) == "late"
+
+
 # ---------------------------------------------------------------------------
 # Planes not ported yet are refused at init, before any state is built
 # ---------------------------------------------------------------------------
@@ -531,12 +557,6 @@ def test_ported_config_block_is_accepted_and_its_typo_rejected(
     assert get_global_context() is None
 
 
-def _secure_async_round():
-    from rayfed_tpu_torch.async_rounds import async_round
-
-    async_round({"alice": object()}, secure=True)
-
-
 def _head_dim_256():
     from rayfed_tpu_torch.ops.flash_attention import kernel_head_dim
 
@@ -546,13 +566,12 @@ def _head_dim_256():
 # Refusals that are calls, not config blocks: each names where its work
 # stands in the ROADMAP.
 _REFUSED_CALLS = [
-    (_secure_async_round, "item 11"),
     (_head_dim_256, "Queue 2, 'head dims above 128'"),
 ]
 
 
 @pytest.mark.parametrize("call, item", _REFUSED_CALLS,
-                         ids=["secure_async", "head_dim_over_128"])
+                         ids=["head_dim_over_128"])
 def test_unported_call_is_refused(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()

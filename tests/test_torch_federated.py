@@ -241,21 +241,6 @@ def test_fedavg_trainer_converges():
 # What is not ported yet is refused, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
-_REFUSED_CALLS = [
-    (dict(mode="async", secure=True), "item 11"),
-    (dict(secure=True), "item 11"),
-]
-
-
-@pytest.mark.parametrize("kwargs, item", _REFUSED_CALLS,
-                         ids=[next(iter(k)) for k, _ in _REFUSED_CALLS])
-def test_fed_aggregate_refuses_what_is_not_ported(kwargs, item):
-    from rayfed_tpu_torch.federated import fed_aggregate
-
-    with pytest.raises(NotImplementedError, match=item):
-        fed_aggregate({"alice": object()}, **kwargs)
-
-
 _REFUSED_INIT = [
     ({"aggregation": {"topology": "tree", "async_bufer_k": 2}},
      ValueError, "unknown aggregation config key 'async_bufer_k'"),

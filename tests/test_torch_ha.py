@@ -19,9 +19,11 @@ deterministic deposed-chain election, takeover re-broadcast, demotion of
 a deposed coordinator, the aggregator's export/adopt handoff continuing
 bitwise, the job checkpoint cut round trip, retention pruning, the
 shutdown drain hooks, and the three spawned chaos runs. The job
-checkpoint restart runs in plaintext: the JAX package's secure version
-waits for the privacy plane (ROADMAP item 11), and so does its DP-ledger
-restore.
+checkpoint restart runs twice: in plaintext, and secure as the JAX
+package's (masked offers, mask streams keyed by the restored round tags);
+a pending masked group rides a cut and folds bitwise after it, and the
+async dropout chaos of ``tests/test_privacy.py`` recovers bitwise. The
+DP-ledger restore waits for ROADMAP item 11b.
 """
 
 import json
@@ -859,7 +861,19 @@ def _ckpt_contrib(p, r):
         rng.integers(-400, 400, (16,)).astype(np.float32))}
 
 
-def _ckpt_config(party, base_dir):
+def _ckpt_config(party, base_dir, secure=False):
+    if secure:
+        # The JAX package's secure job: a round's masked group folds once
+        # all three envelopes are in, whatever buffer_k says, and its ring
+        # sum does not depend on the order they arrive in.
+        return {
+            "barrier_on_initializing": True,
+            "cross_silo_comm": _fast_comm({"recv_timeout_in_ms": 60000}),
+            "aggregation": {"async_staleness": "constant"},
+            "privacy": {"secure_aggregation": True, "mask_seed": 77,
+                        "handshake_timeout_s": 120.0},
+            "checkpoint": {"base_dir": base_dir, "keep": 2},
+        }
     return {
         "barrier_on_initializing": True,
         # No party dies in this test, so the aggressive failover-test
@@ -878,10 +892,10 @@ def _ckpt_config(party, base_dir):
     }
 
 
-def _ckpt_round(records):
-    """One async round with the AUTO round tag (exercises the restored
-    driver-side counter); every party drains its offers and alice
-    records the published model."""
+def _ckpt_round(records, secure=False):
+    """One async round (masked with ``secure``) with the AUTO round tag
+    (exercises the restored driver-side counter); every party drains its
+    offers and alice records the published model."""
     from rayfed_tpu_torch.async_rounds import (
         _async_current,
         async_session_stats,
@@ -892,6 +906,7 @@ def _ckpt_round(records):
             for p in CKPT_PARTIES}
     h = fed.async_round(
         objs, root="alice", session=CKPT_SESSION, fetch_model=False,
+        secure=secure,
     )
     _ckpt_round.counter += 1
     fed.get(list(h.offers.values()), timeout=30.0)
@@ -913,11 +928,11 @@ def _ckpt_round(records):
     })
 
 
-def _run_ckpt_party(party, addresses, workdir, phase):
+def _run_ckpt_party(party, addresses, workdir, phase, secure=False):
     base_dir = os.path.join(workdir, f"ckpt_{party}")
     fed.init(
         addresses=addresses, party=party,
-        config=_ckpt_config(party, base_dir),
+        config=_ckpt_config(party, base_dir, secure),
     )
     model = {"w": torch.full((8,), 3.0)}
     opt_state = {"m": torch.arange(8, dtype=torch.float32)}
@@ -925,7 +940,7 @@ def _run_ckpt_party(party, addresses, workdir, phase):
     if phase == "first":
         _ckpt_round.counter = 0
         for _ in range(CKPT_CUT):
-            _ckpt_round(records)
+            _ckpt_round(records, secure)
         # The consistent cut: every party is at the same round boundary
         # with nothing in flight (offers drained, publishes confirmed).
         fed.save_job_state(step=CKPT_CUT, model=model, opt_state=opt_state)
@@ -942,7 +957,7 @@ def _run_ckpt_party(party, addresses, workdir, phase):
         _ckpt_round.counter = CKPT_CUT
         run_key = "run2"
     for _ in range(CKPT_CUT, CKPT_TOTAL):
-        _ckpt_round(records)
+        _ckpt_round(records, secure)
     if party == "alice":
         with open(os.path.join(workdir, f"{run_key}.json"), "w") as f:
             json.dump(records[-(CKPT_TOTAL - CKPT_CUT):], f, sort_keys=True)
@@ -970,3 +985,132 @@ def test_torch_job_checkpoint_restart_bitwise(tmp_path):
     for a, b in zip(run1, run2):
         assert a["version"] == b["version"]
         assert a["w"] == b["w"]  # bitwise: exact float equality
+
+
+def test_torch_secure_job_checkpoint_restart_bitwise(tmp_path):
+    """The JAX package's acceptance run on the port: a 3-party secure
+    job checkpoints a consistent cut at round 3 of 5, restarts from it,
+    and the continued rounds (masked at the parties, folded at alice)
+    publish aggregates BITWISE identical to the uninterrupted run."""
+    for phase in ("first", "resume"):
+        run_parties(
+            _run_ckpt_party, CKPT_PARTIES, timeout=220,
+            extra_args=(str(tmp_path), phase, True),
+            addresses=get_addresses(CKPT_PARTIES),
+        )
+    run1 = json.loads((tmp_path / "run1.json").read_text())
+    run2 = json.loads((tmp_path / "run2.json").read_text())
+    assert len(run1) == len(run2) == CKPT_TOTAL - CKPT_CUT
+    assert [r["version"] for r in run1] == [CKPT_CUT + 1, CKPT_TOTAL]
+    for a, b in zip(run1, run2):
+        assert a["version"] == b["version"]
+        assert a["w"] == b["w"]  # bitwise: exact float equality
+
+
+# ---------------------------------------------------------------------------
+# 4) Secure groups: dropout chaos, and a pending group across a cut
+# ---------------------------------------------------------------------------
+
+SEC_PARTIES = ["alice", "bob", "carol"]
+SEC_SEEDS = {("alice", "bob"): 1_0001, ("alice", "carol"): 1_0002,
+             ("bob", "carol"): 1_0003}
+
+
+def _sec_managers():
+    from rayfed_tpu_torch.privacy import PrivacyConfig, PrivacyManager
+
+    out = {}
+    for p in SEC_PARTIES:
+        mgr = PrivacyManager("job", p, PrivacyConfig(secure_aggregation=True))
+        for (a, b), seed in SEC_SEEDS.items():
+            if p in (a, b):
+                mgr.store_seed(b if p == a else a, seed)
+        out[p] = mgr
+    return out
+
+
+def _sec_envelopes(seed, domain):
+    rng = np.random.default_rng(seed)
+    trees = {p: {"g": torch.from_numpy(
+        rng.integers(-400, 400, (16,)).astype(np.float32))}
+        for p in SEC_PARTIES}
+    managers = _sec_managers()
+    envs = {p: managers[p].mask_contribution(
+        trees[p], party=p, parties=SEC_PARTIES, domain=domain,
+        round_index=0) for p in SEC_PARTIES}
+    return trees, managers, envs
+
+
+@pytest.fixture
+def _privacy_root():
+    from rayfed_tpu_torch.privacy.manager import set_privacy_manager
+
+    yield set_privacy_manager
+    set_privacy_manager(None)
+
+
+def test_async_secure_dropout_chaos_recovers_bitwise(_privacy_root):
+    """tests/test_privacy.py's dropout chaos: carol dies mid-round, the
+    survivors re-offer their seeds, ZERO lost rounds, and the folded
+    round is bitwise the plaintext survivor aggregate."""
+    from rayfed_tpu_torch import topology as topo
+    from rayfed_tpu_torch.ops.aggregate import reduce_by_plan
+    from rayfed_tpu_torch.privacy import protocol as prv
+    from rayfed_tpu_torch.resilience.liveness import DEAD
+
+    trees, managers, envs = _sec_envelopes(70, "async:chaos")
+    root = managers["alice"]
+    _privacy_root(root)
+    view = {}
+    agg = ar.BufferedAggregator(
+        AsyncAggregationConfig(buffer_k=2, staleness="constant"),
+        liveness_fn=lambda: dict(view), session="chaos",
+    )
+    st = agg.offer("alice", envs["alice"], round_tag=0)
+    assert st["accepted"] and st.get("secure") and st["buffered"] == 1
+    st = agg.offer("bob", envs["bob"], round_tag=0)
+    assert st["accepted"] and st["buffered"] == 2
+    assert agg.current()["params"] is None and agg.version == 0
+    view["carol"] = DEAD
+    agg.poke_secure()
+    assert agg.version == 0  # her orphaned masks still blind the sum
+    code, _ = root.control_handler({}, prv.make_recover_offer(
+        "bob", "carol", SEC_SEEDS[("bob", "carol")], prv.new_nonce(), 0))
+    assert code == 200
+    agg.poke_secure()  # alice's own seed fills in; the fold completes
+    assert agg.version == 1
+    assert not agg._secure_groups
+    survivors = ["alice", "bob"]
+    want = reduce_by_plan(topo.plan(survivors, "flat"),
+                          {p: trees[p] for p in survivors})
+    assert torch.equal(agg.current()["params"]["g"], want["g"])
+    assert root.stats["dropout_recoveries"] == 1
+    stats = agg.snapshot_stats()
+    assert stats["publishes"] == 1 and stats["accepted"] == 2
+
+
+def test_pending_masked_group_rides_the_cut_bitwise(tmp_path, _privacy_root):
+    """Two of three envelopes wait in the root's buffer when the cut is
+    taken; an aggregator rebuilt from the restored cut takes the third
+    and publishes the uninterrupted aggregator's bits."""
+    trees, managers, envs = _sec_envelopes(80, "async:cut")
+    _privacy_root(managers["alice"])
+    cfg = AsyncAggregationConfig(buffer_k=2, staleness="constant")
+    live = ar.BufferedAggregator(cfg, session="cut")
+    for p in ("alice", "bob"):
+        assert live.offer(p, envs[p], round_tag=0)["accepted"]
+    assert live.version == 0
+    path = str(tmp_path / "cut.pt")
+    checkpoint._save_tree(path, live.export_state())
+    saved = checkpoint._load_tree(path)
+    assert sorted(saved["secure_groups"][0]) == ["alice", "bob"]
+    rebuilt = ar.BufferedAggregator(cfg, session="cut2")
+    rebuilt.adopt_state(saved)
+    for agg in (live, rebuilt):
+        assert agg.offer("carol", envs["carol"], round_tag=0).get(
+            "published") == 1
+    assert torch.equal(live.current()["params"]["g"],
+                       rebuilt.current()["params"]["g"])
+    assert torch.equal(live.current()["params"]["g"],
+                       (trees["alice"]["g"] + trees["bob"]["g"]
+                        + trees["carol"]["g"]) / 3.0)

@@ -813,6 +813,11 @@ def _run_bank_crash_party(party, addresses, workdir):
         "cross_silo_comm": _bc_comm(
             {"exit_on_sending_failure": True} if party == "alice" else None),
         "serving": {"max_slots": 4, "max_len": 48, "max_new_tokens": 8},
+        # Every party listens before alice's first send (v2's replication
+        # to carol), which her 2-attempt policy would otherwise race
+        # against carol's process start. The barrier's pings are not data
+        # sends, so the crash schedule's count is unchanged.
+        "barrier_on_initializing": True,
     }
     if party == "alice":
         config["resilience"] = {"fault_schedule": {

@@ -186,6 +186,26 @@ def test_chip_smoke_async_phase_on_cpu_at_tiny_size():
     assert v2[1]["weight"] == 2 ** -0.5
 
 
+def test_chip_smoke_privacy_phase_on_cpu_at_tiny_size():
+    # Phase 10's program, three spawned party processes, end to end at
+    # tiny size: phase_privacy fails on any of its checks (a)-(f) (the
+    # launches need the card).
+    results = chip_smoke.phase_privacy(
+        "cpu", tfm.tiny_config(), batch=BATCH, seq=SEQ, label="cpu:",
+        timeout_s=150)
+    res = results["alice"]
+    assert res["checks"]["c_max_over_bound"] <= 1.0
+    # Each party timed two partner streams over every leaf of the tree.
+    n_words = sum(x.numel() for x in jax.tree_util.tree_leaves(
+        tfm.init_params(0, tfm.tiny_config(), "cpu")))
+    for p, rep in res["reports"].items():
+        assert sorted(rep["streams"]) == sorted(
+            q for q in chip_smoke.PRIVACY_PARTIES if q != p)
+        assert {s["words"] for s in rep["streams"].values()} == {n_words}
+    # Ring sums at alice: rounds (1), (2), (3) and the async fold (4).
+    assert len(res["reports"]["alice"]["sum_ms"]) == 4
+
+
 def test_chip_smoke_f32_phase_on_cpu_at_tiny_size():
     # Phase 4b at tiny size: the f32 steps (the dense attention on the
     # CPU) and the batch-1 check of the flash path's loss and gradients

@@ -430,7 +430,7 @@ def test_unknown_knob_rejected():
 
 
 def test_int8_knob_names_its_roadmap_item():
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="item 11b"):
         ser.wire_dtype_name("int8")
 
 
@@ -446,7 +446,7 @@ def test_big_endian_source_array_roundtrips_correctly():
 
 
 def test_int8_tier_frames_from_the_jax_package_decode():
-    # The quantized tier is the privacy plane's (not ported), but its
+    # The quantized tier is the privacy plane's (item 11b), but its
     # frames decode: the scale rides the meta and dequantizes to odt.
     x = np.linspace(-1.0, 1.0, 33, dtype=np.float32)
     meta, bufs = jser.try_encode_tree({"g": x}, wire_dtype="int8")
