@@ -148,7 +148,12 @@ Phases:
    decoding of the MoE model: at f32 compute and depth 2 the prefill's and
    each decode step's logits within 1e-4 of a full forward's norm and the
    greedy tokens those of ``make_generate_fn``; greedy tokens of the bf16
-   model of (a), the same on a rerun. (b) ``examples/fedavg_lora.py`` on
+   model of (a), the same on a rerun; sampled tokens of that model
+   (temperature 0.8, top_k 40, ``jax.random.categorical`` over threefry):
+   the same key gives the same tokens twice, each lies in the top-k of
+   its position's replayed logits, and the key's threefry ``uniform`` and
+   ``gumbel`` words on the card equal the CPU's bitwise. (b)
+   ``examples/fedavg_lora.py`` on
    the dense model in two spawned party processes, ``transport="cuda"``,
    rank 8 on the attention targets, 2 rounds of 3 local steps at batch
    12: the merged models hash the same in both parties every round, the
@@ -179,7 +184,26 @@ Phases:
    each partner's mask stream ms and GB/s of words and the encode ms,
    alice's ring sum and decode ms, the secure round's wall against the
    plaintext round's of the same trees, and each party's peak memory in
-   the step and in the rounds.
+   the step and in the rounds. Then the same three processes
+   ``fed.shutdown`` and ``fed.init`` a second job, ``smoke-dp``: the
+   privacy config adds ``clip_norm`` (a quarter of the initial tree's
+   norm, so the clip acts), ``noise_multiplier`` 1.1, ``noise_seed`` and
+   ``quantize="int8"``, with ``payload_wire_dtype="int8"``; each party
+   takes two bf16 steps (every bf16 kernel launched, counted in the
+   kernel line), then a secure DP mean at alice. Checks: (g) each
+   party's clipped tree on the card equals the CPU port's clip of the
+   same tree bitwise, (h) at alice the DP mean against the un-noised
+   mean of the same envelopes is the noise: at the first and last 2**20
+   entries of the largest leaf the CPU port's draws bitwise; over every
+   entry noise / stddev has a mean within 5 standard errors of 0 and a
+   standard deviation within 5 of 1; a second draw of the same (seed,
+   round) gives the same bits; ``fed.privacy_ledger()`` charges each
+   party one round of ``sqrt(2 ln(1.25/delta)) / z``; (i) bob's f32 tree
+   pushed to alice under the int8 tier arrives as the CPU port's
+   ``dequantize_tree(quantize_tree(tree))`` bitwise, its frame's bulk
+   bytes a quarter of the f32 bytes and ``quantized_bytes_saved`` up by
+   three quarters. Prints the clip's, the noise's and the push's ms
+   (beside phase 5's f32 push) and the moments.
 
 Every phase prints its wall seconds. It needs a CUDA card and exits
 non-zero without one. The last two lines
@@ -3123,6 +3147,10 @@ FAMILY_LORA_TIMEOUT_S = 420
 FAMILY_DECODE_LAYERS = 2
 FAMILY_DECODE_PROMPT = 48
 FAMILY_DECODE_NEW = 8
+# Sampled decoding of the bf16 MoE model: jax.random.categorical's tokens
+# from a threefry key, truncated to the top FAMILY_SAMPLE_TOP_K.
+FAMILY_SAMPLE_TEMPERATURE = 0.8
+FAMILY_SAMPLE_TOP_K = 40
 
 
 def moe_steps(cfg, device, *, batch, seq, remat, steps, lr=1e-3, seed=0):
@@ -3214,7 +3242,12 @@ def moe_decode_check(cfg, device, params, *, seed=9):
     decode step's logits against a full forward over the same tokens
     (error norm over the reference's norm, per position block); then
     ``FAMILY_DECODE_NEW`` greedy tokens from ``params`` (the bf16 model of
-    (a)), twice, through ``make_generate_fn``."""
+    (a)), twice, through ``make_generate_fn``; then as many sampled ones
+    (``FAMILY_SAMPLE_TEMPERATURE``, top ``FAMILY_SAMPLE_TOP_K``) from one
+    threefry key, twice, each checked against the top-k of the logits a
+    replay of the same cached decode gives at its position, and the
+    key's threefry ``uniform`` and ``gumbel`` words on the card against
+    the CPU's."""
     import dataclasses
 
     import torch
@@ -3251,10 +3284,61 @@ def moe_decode_check(cfg, device, params, *, seed=9):
         bf16_fn = decode.make_generate_fn(cfg, max_new_tokens=new)
         first = bf16_fn(params, prompt)
         again = bf16_fn(params, prompt)
+        sampled = sampled_decode_check(cfg, params, prompt, seed=seed)
     greedy = first[0, s:].tolist()
     return dict(ratios=ratios, f32_tokens=toks, same_as_loop=same_as_loop,
                 greedy=greedy, rerun_equal=torch.equal(first, again),
-                in_vocab=all(0 <= t < cfg.vocab for t in greedy))
+                in_vocab=all(0 <= t < cfg.vocab for t in greedy),
+                sampled=sampled)
+
+
+def sampled_decode_check(cfg, params, prompt, *, seed):
+    """Sampled decoding through ``make_generate_fn`` from the threefry key
+    ``prng_key(seed)``: the tokens of two calls, whether each lies in the
+    top ``FAMILY_SAMPLE_TOP_K`` of the logits that a replay of the same
+    cached decode gives at its position, the ms of one call, and the
+    key's ``uniform`` and ``gumbel`` words over one row of the vocab on
+    the card against the CPU's, bitwise."""
+    import torch
+
+    from rayfed_tpu_torch.models import decode
+    from rayfed_tpu_torch.privacy import threefry
+
+    dev = prompt.device
+    s, new, top_k = prompt.shape[1], FAMILY_DECODE_NEW, FAMILY_SAMPLE_TOP_K
+    fn = decode.make_generate_fn(cfg, max_new_tokens=new,
+                                 temperature=FAMILY_SAMPLE_TEMPERATURE,
+                                 top_k=top_k)
+    key = threefry.prng_key(seed)
+    t = time.perf_counter()
+    first = fn(params, prompt, key)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    call_ms = 1e3 * (time.perf_counter() - t)
+    again = fn(params, prompt, key)
+    toks = first[0, s:].tolist()
+    inv_t = decode._reciprocal(FAMILY_SAMPLE_TEMPERATURE)
+    cache = decode.init_cache(cfg, 1, s + new - 1, device=dev)
+    logits, cache = decode.prefill(params, prompt, cache, cfg)
+    in_top_k = []
+    for i, tok in enumerate(toks):
+        scaled = logits[0] * inv_t
+        kth = torch.sort(scaled).values[-top_k]
+        in_top_k.append(bool(scaled[tok] >= kth))
+        if i < new - 1:
+            step, cache = decode.forward_with_cache(
+                params, torch.tensor([[tok]], device=dev), cache, s + i, cfg)
+            logits = step[:, -1]
+    sub = threefry.split(key)[1]
+    words_equal = {}
+    for name, fn_ in (("uniform", threefry.uniform),
+                      ("gumbel", threefry.gumbel)):
+        card = fn_(sub, (1, cfg.vocab), device=dev).cpu()
+        words_equal[name] = torch.equal(card.view(torch.int32),
+                                        fn_(sub, (1, cfg.vocab)).view(
+                                            torch.int32))
+    return dict(tokens=toks, same_key_equal=torch.equal(first, again),
+                in_top_k=in_top_k, call_ms=call_ms, words_equal=words_equal)
 
 
 def _lora_program(party, addresses, device, cfg_kw, batch, seq, rounds, lr):
@@ -3457,9 +3541,18 @@ def phase_family(device, cfg, *, batch, seq, label="", steps=FAMILY_STEPS,
             f"(c) cached MoE logits vs the full forward: {dec['ratios']}")
     require(dec["same_as_loop"] and dec["rerun_equal"] and dec["in_vocab"],
             f"(c) greedy MoE decoding: {dec}")
+    smp = dec["sampled"]
+    require(smp["same_key_equal"] and all(smp["in_top_k"])
+            and all(smp["words_equal"].values()),
+            f"(c) sampled MoE decoding: {smp}")
     print(f"[family] {label} MoE decode: f32 cached vs full forward "
           f"{dec['ratios']} (limit {SERVE_LOGIT_TOL}); greedy bf16 tokens "
-          f"{dec['greedy']}")
+          f"{dec['greedy']}; sampled (temperature "
+          f"{FAMILY_SAMPLE_TEMPERATURE}, top_k {FAMILY_SAMPLE_TOP_K}, one "
+          f"threefry key) {smp['tokens']}, the same on a rerun, each in the "
+          f"top-k of its replayed logits, {smp['call_ms']:.1f} ms a call; "
+          f"threefry words on the card equal the CPU's: "
+          f"{smp['words_equal']}")
     del state
     gc.collect()
     if on_cuda:
@@ -3493,6 +3586,23 @@ PRIVACY_CHECK_WORDS = 1 << 20
 PRIVACY_MEAN_ULPS = 8 * 2.0 ** -23
 PRIVACY_TIMEOUT_S = 480
 PRIVACY_DROPOUT_DOMAIN = "smoke-dropout"
+# The DP job (checks (g)-(i)), in the same three processes after the
+# secure one: each party clips its update to DP_CLIP_FRACTION of the
+# initial tree's norm (about 405 at this width and depth; a few steps
+# move it little, so the clip acts), the root adds noise of stddev
+# noise_multiplier * clip / 3 and charges each party
+# sqrt(2 ln(1.25 / delta)) / noise_multiplier a round; plaintext pushes
+# ride the int8 wire tier.
+DP_JOB = "smoke-dp"
+DP_STEPS = 2
+DP_DELTA = 1e-5
+DP_CLIP_FRACTION = 0.25
+DP_PRIVACY = {"secure_aggregation": True, "mask_seed": PRIVACY_MASK_SEED,
+              "fixedpoint_bits": PRIVACY_FP_BITS, "noise_multiplier": 1.1,
+              "noise_seed": 2026, "delta": DP_DELTA, "quantize": "int8"}
+# (h): the mean of noise / stddev over every entry within this many
+# standard errors of 0, and its standard deviation within as many of 1.
+DP_MOMENT_SE = 5.0
 
 
 def _grid(tree, fp_bits):
@@ -3515,7 +3625,8 @@ def _grid(tree, fp_bits):
     return tree_util.tree_map(leaf, tree)
 
 
-def _privacy_program(party, addresses, device, cfg_kw, batch, seq):
+def _privacy_program(party, addresses, device, cfg_kw, batch, seq,
+                     dp_addresses, dp_privacy):
     """Phase 10's driver, the same program in every party: one bf16 local
     step, then secure rounds at alice over the parties' params: (1) a
     plaintext and a secure ``fed_aggregate`` mean of the trained trees,
@@ -3526,7 +3637,8 @@ def _privacy_program(party, addresses, device, cfg_kw, batch, seq):
     party times its encode and each partner's mask stream, and keeps the
     largest leaf's encoded and masked words at both ends for check (a);
     alice times the ring sum and decode and keeps the first round's
-    masked sum for check (b)."""
+    masked sum for check (b). Then the same processes run the DP job
+    (:func:`_dp_job`) on ``dp_addresses``."""
     import gc
 
     import torch
@@ -3786,6 +3898,257 @@ def _privacy_program(party, addresses, device, cfg_kw, batch, seq):
                    [remote_report.party(p).remote()
                     for p in PRIVACY_PARTIES]))))
     fed.shutdown()
+    # The DP job starts from nothing of this one: the privacy plane's own
+    # functions back, this job's trees and captures freed.
+    secagg.encode_tree, secagg._accumulate = live["encode"], live["acc"]
+    secagg.modular_sum_host, secagg.decode_sum = live["modsum"], live["decode"]
+    state.clear()
+    rec.clear()
+    del params, gsec, recovered, h, objs, gobjs, envs, acks
+    gc.collect()
+    if on_cuda:
+        torch.cuda.empty_cache()
+    out["dp"] = _dp_job(party, dp_addresses, device, cfg, batch, seq,
+                        dp_privacy)
+    return out
+
+
+def _dp_job(party, addresses, device, cfg, batch, seq, dp_privacy):
+    """Phase 10's second job, ``DP_JOB``: the privacy config
+    ``dp_privacy`` adds the DP layer (``clip_norm``, ``noise_multiplier``,
+    ``noise_seed``) and the int8 quantizer, with
+    ``payload_wire_dtype="int8"``. Each party takes
+    ``DP_STEPS`` bf16 steps, then (1) a secure mean at alice: each party
+    clips its tree on the card before masking, alice adds the round's
+    noise; (g) each party's clipped tree against the CPU port's clip of
+    the same tree; (h) at alice, the noise (the DP mean against the
+    un-noised mean of the same envelopes) at both ends of the largest
+    leaf against the CPU port's draws, its moments over every entry, a
+    second draw, and the ledger; (2) bob pushes his trained f32 tree to
+    alice as a plaintext owner push under the int8 tier, (i) checked
+    against the CPU port's ``dequantize_tree(quantize_tree(tree))``."""
+    import gc
+    import math
+
+    import torch
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import mesh, tracing
+    from rayfed_tpu_torch.data import make_batch_iterator, synthetic_lm_dataset
+    from rayfed_tpu_torch.federated import fed_aggregate
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+    from rayfed_tpu_torch.privacy import dp, quantize, secagg, threefry
+    from rayfed_tpu_torch.privacy.manager import get_privacy_manager
+
+    on_cuda = torch.device(device).type == "cuda"
+    root, pusher = PRIVACY_PARTIES[0], PRIVACY_PARTIES[1]
+    timer = _DeviceTimer(on_cuda)
+    fed.init(addresses=addresses, party=party, logging_level="warning",
+             transport="cuda" if on_cuda else "tcp", job_name=DP_JOB,
+             config={"cross_silo_comm": dict(FED_COMM,
+                                             payload_wire_dtype="int8"),
+                     "barrier_on_initializing": True,
+                     "privacy": dict(dp_privacy)})
+    dev = mesh.get_party_device() if on_cuda else torch.device("cpu")
+    mgr = get_privacy_manager()
+    out = dict(party=party)
+
+    fa.reset_launch_counts()
+    init_fn, step_fn = make_fed_train_step(cfg, dev, lr=1e-3)
+    params, opt = init_fn(0)
+    seeds = {p: 10 + i for i, p in enumerate(PRIVACY_PARTIES)}
+    data = synthetic_lm_dataset(cfg.vocab, DP_STEPS * batch * (seq + 1), seq,
+                                seed=seeds[party])
+    batches = make_batch_iterator(data, batch, dev)
+    losses = []
+    for _ in range(DP_STEPS):
+        inputs, targets = next(batches)
+        params, opt, loss = step_fn(params, opt, inputs, targets)
+        losses.append(float(loss))
+    out.update(losses=losses, launches=dict(fa.LAUNCHES))
+    del opt, inputs, targets, step_fn, batches
+    gc.collect()
+    if on_cuda:
+        torch.cuda.empty_cache()
+
+    # Captures around the DP layer's own functions: the first clip (its
+    # input, output, the input's norm and ms) and the root's noise.
+    rec = {}
+    live_clip, live_dp = dp.clip_tree, mgr.apply_dp
+
+    def clip_tree(tree, clip_norm):
+        norm = dp.tree_l2_norm(tree)
+        a = timer.mark()
+        clipped = live_clip(tree, clip_norm)
+        b = timer.mark()
+        rec.setdefault("clip", dict(tree=tree, clipped=clipped, norm=norm,
+                                    ms=timer.ms(a, b)))
+        return clipped
+
+    def apply_dp(tree, parties, round_index, op="mean"):
+        a = timer.mark()
+        noisy = live_dp(tree, parties, round_index, op=op)
+        b = timer.mark()
+        rec["dp"] = dict(clean=tree, noisy=noisy, n=len(parties),
+                         round=round_index, ms=timer.ms(a, b))
+        return noisy
+
+    dp.clip_tree, mgr.apply_dp = clip_tree, apply_dp
+    state = {"params": params}
+
+    @fed.remote
+    def get_tree():
+        return state["params"]
+
+    @fed.remote
+    def stamp(_agg):
+        if on_cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    @fed.remote
+    def check_noise(sec):
+        """(h) at the root."""
+        d = rec.pop("dp")
+        clean, noisy = d["clean"], d["noisy"]
+        # The manager's stddev: z * (clip_norm / n), in that order.
+        sigma = dp_privacy["noise_multiplier"] * (
+            dp_privacy["clip_norm"] / d["n"])
+        cl, nl = secagg._leaves(clean)[0], secagg._leaves(noisy)[0]
+        idx = max(range(len(cl)), key=lambda i: (cl[i].numel(), -i))
+        n = cl[idx].numel()
+        k = min(PRIVACY_CHECK_WORDS, n)
+        key = threefry.fold_in(threefry.prng_key(
+            dp_privacy["noise_seed"] % (1 << 63)), d["round"] & 0x7FFFFFFF)
+        key = threefry.fold_in(key, idx)
+        ends_ok = True
+        for start in (0, n - k):
+            x = cl[idx].reshape(-1)[start:start + k].cpu()
+            draws = threefry.normal_range(key, start, start + k).double()
+            want = dp._cast_back(x.double() + draws * sigma, x)
+            got = nl[idx].reshape(-1)[start:start + k].cpu()
+            ends_ok = ends_ok and torch.equal(got.view(torch.int32),
+                                              want.view(torch.int32))
+        total = s1 = s2 = 0.0
+        for c, z in zip(cl, nl):
+            e = (z.double() - c.double()) / sigma
+            total += e.numel()
+            s1 += float(e.sum())
+            s2 += float((e * e).sum())
+            del e
+        mean = s1 / total
+        std = math.sqrt(max(0.0, s2 / total - mean * mean))
+        a = timer.mark()
+        again = dp.gaussian_noise_tree(
+            clean, sigma, dp_privacy["noise_seed"], d["round"])
+        again_ms = timer.ms(a, timer.mark())
+        redraw = _bitwise_equal(again, noisy)
+        del again
+        eps = math.sqrt(2 * math.log(1.25 / DP_DELTA)) \
+            / dp_privacy["noise_multiplier"]
+        ledger = fed.privacy_ledger()
+        return dict(
+            leaf=idx, numel=n, words=k, ends_ok=ends_ok, entries=total,
+            mean=mean, std=std, se_mean=1 / math.sqrt(total),
+            se_std=1 / math.sqrt(2 * total), sigma=sigma,
+            redraw_bitwise=redraw, noise_ms=d["ms"], again_ms=again_ms,
+            returned_is_noisy=_bitwise_equal(sec, noisy), ledger=ledger,
+            ledger_ok=(set(ledger) == set(PRIVACY_PARTIES) and all(
+                r["rounds"] == 1 and r["epsilon"] == eps
+                and r["delta"] == DP_DELTA for r in ledger.values())),
+            epsilon=eps)
+
+    @fed.remote
+    def check_clip():
+        """(g) in each party: the card's clip of its tree against the CPU
+        port's clip of the same tree, leaf for leaf."""
+        c = rec.pop("clip")
+        cpu_in = _host_tree(c["tree"])
+        t = time.perf_counter()
+        want = dp.clip_tree(cpu_in, dp_privacy["clip_norm"])
+        cpu_ms = 1e3 * (time.perf_counter() - t)
+        ok = all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+                 for a, b in zip(secagg._leaves(c["clipped"])[0],
+                                 secagg._leaves(want)[0]))
+        return dict(ok=ok, norm=c["norm"], ms=c["ms"], cpu_ms=cpu_ms,
+                    cpu_norm=dp.tree_l2_norm(cpu_in))
+
+    @fed.remote
+    def push_tree():
+        tree = state["params"]
+        if on_cuda:
+            torch.cuda.synchronize()
+        return dict(tree=tree, t_sent=time.time())
+
+    @fed.remote
+    def expected_digest():
+        """What the int8 tier must deliver: the CPU port's
+        ``dequantize_tree(quantize_tree(tree))`` (JAX leaf order); and
+        the tier's sender work timed apart: each leaf quantized on the
+        card and its int8 words copied to host."""
+        a = timer.mark()
+        for leaf in secagg._leaves(state["params"])[0]:
+            q, _ = quantize.quantize_leaf(leaf)
+            q.cpu()
+            del q
+        card_ms = timer.ms(a, timer.mark())
+        cpu = _host_tree(state["params"])
+        t = time.perf_counter()
+        back = quantize.dequantize_tree(quantize.quantize_tree(cpu))
+        return dict(digest=_tree_digest(back),
+                    f32_bytes=_tree_nbytes(cpu), card_ms=card_ms,
+                    cpu_ms=1e3 * (time.perf_counter() - t))
+
+    @fed.remote
+    def arrived(msg):
+        if on_cuda:
+            torch.cuda.synchronize()
+        t = time.time()
+        tree = msg["tree"]
+        leaves = secagg._leaves(tree)[0]
+        return dict(ms=1e3 * (t - msg["t_sent"]),
+                    decode_ms=_span_ms(_last_span("decode", 1)),
+                    place_ms=_span_ms(_last_span("place", 1)),
+                    digest=_tree_digest(secagg.jax_order(tree)),
+                    on_device=all(x.device == dev for x in leaves),
+                    dtypes=sorted({str(x.dtype) for x in leaves}))
+
+    def wall(agg, t0):
+        return fed.get(stamp.party(root).remote(agg)) - t0
+
+    fed.get([stamp.party(p).remote(None) for p in PRIVACY_PARTIES])
+    objs = {p: get_tree.party(p).remote() for p in PRIVACY_PARTIES}
+    t0 = time.perf_counter()
+    sec = fed_aggregate(objs, op="mean", secure=True)
+    out["secure_wall"] = wall(sec, t0)
+    noise = fed.get(check_noise.party(root).remote(sec))
+    del sec
+    clips = fed.get([check_clip.party(p).remote() for p in PRIVACY_PARTIES])
+    gc.collect()
+    if on_cuda:
+        torch.cuda.empty_cache()
+
+    # (i): bob's plaintext owner push under the int8 tier.
+    if party in (root, pusher):
+        tracing.enable()
+    if party == pusher:
+        saved0 = mgr.stats["quantized_bytes_saved"]
+    want = fed.get(expected_digest.party(pusher).remote())
+    got = fed.get(arrived.party(root).remote(push_tree.party(pusher).remote()))
+    if party == pusher:
+        sends = [sp for sp in tracing.get_spans("send")]
+        big = max(sends, key=lambda sp: sp.nbytes)
+        out["push"] = dict(saved=mgr.stats["quantized_bytes_saved"] - saved0,
+                           wire_bytes=big.nbytes, send_ms=_span_ms(big),
+                           stage_ms=_span_ms(_last_span("stage", 1)))
+    if party in (root, pusher):
+        tracing.disable()
+    out.update(noise=noise, clips=dict(zip(PRIVACY_PARTIES, clips)),
+               int8=dict(want=want, got=got),
+               peak=(torch.cuda.max_memory_allocated() if on_cuda else None))
+    dp.clip_tree = live_clip
+    fed.shutdown()
     return out
 
 
@@ -3819,7 +4182,7 @@ def mask_stream_alone(device, cfg, reps=3):
 
 
 def phase_privacy(device, cfg, *, batch, seq, label="",
-                  timeout_s=PRIVACY_TIMEOUT_S):
+                  timeout_s=PRIVACY_TIMEOUT_S, f32_push=None):
     """Phase 10: :func:`_privacy_program` in three spawned party
     processes on one card, checked: (a) each party's mask words at the
     first and last 2**20 flat indices of the largest leaf equal the CPU
@@ -3832,16 +4195,20 @@ def phase_privacy(device, cfg, *, batch, seq, label="",
     recover the survivors' plaintext mean bitwise, (f) one secure async
     version (``buffer_k`` 2) folds the three offers and publishes (d)'s
     mean bitwise; each party's steps launched every bf16 kernel on a
-    card. Returns the parties' results."""
+    card. Then the DP job's (g)-(i) (:func:`check_dp`). Returns the
+    parties' results."""
     import dataclasses
 
     import torch
 
     t10 = time.perf_counter()
     alone = mask_stream_alone(device, cfg)
+    dp_addresses = {n: f"127.0.0.1:{_free_port()}" for n in PRIVACY_PARTIES}
+    dp_privacy = dict(DP_PRIVACY, clip_norm=dp_clip_norm(cfg, device))
     results, wall = spawn_parties(
-        _privacy_program, (device, dataclasses.asdict(cfg), batch, seq),
-        timeout_s, names=PRIVACY_PARTIES)
+        _privacy_program,
+        (device, dataclasses.asdict(cfg), batch, seq, dp_addresses,
+         dp_privacy), timeout_s, names=PRIVACY_PARTIES)
     res = results["alice"]
     checks, reports = res["checks"], res["reports"]
     for p, r in results.items():
@@ -3895,12 +4262,122 @@ def phase_privacy(device, cfg, *, batch, seq, label="",
           f" of the bound; (d) {checks['d_bitwise']}; (e) "
           f"{checks['e_bitwise']}; (f) version {f['version']}; losses "
           + ", ".join(f"{p} {r['loss']:.4f}" for p, r in reports.items())
-          + f"; phase 10 {time.perf_counter() - t10:.1f} s ({wall:.1f} s "
-          f"from spawn to exit)")
+          + f"; the secure job's part of the phase "
+          f"{time.perf_counter() - t10:.1f} s")
+    check_dp(results, device, label, dp_privacy, f32_push)
+    print(f"[privacy] {label} phase 10 {time.perf_counter() - t10:.1f} s "
+          f"({wall:.1f} s from spawn to exit)")
     return results
 
 
-def run_privacy(smi):
+def dp_clip_norm(cfg, device):
+    """``DP_CLIP_FRACTION`` of the L2 norm of ``cfg``'s initial params
+    (the parties' trees start from them), to two significant digits."""
+    import gc
+
+    import torch
+
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.privacy import dp
+
+    params = tfm.init_params(0, cfg, device)
+    norm = dp.tree_l2_norm(params)
+    del params
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return float(f"{DP_CLIP_FRACTION * norm:.2g}")
+
+
+def check_dp(results, device, label, dp_privacy, f32_push=None):
+    """Phase 10's checks (g)-(i) over the DP job's results, and its
+    report: each party's clip, alice's noise and ledger, bob's int8
+    push beside phase 5's f32 push (``f32_push``: its bytes and ms)."""
+    import torch
+
+    dps = {p: r["dp"] for p, r in results.items()}
+    root = dps["alice"]
+    for p, c in root["clips"].items():
+        require(c["ok"], f"(g) {p}'s clipped tree on the card differs from "
+                         f"the CPU port's clip")
+        require(c["norm"] > dp_privacy["clip_norm"] and
+                c["norm"] == c["cpu_norm"],
+                f"(g) {p}'s norm {c['norm']} (CPU {c['cpu_norm']}): the clip "
+                f"must act and the norms agree")
+    n = root["noise"]
+    require(n["ends_ok"], f"(h) the noise at the ends of leaf {n['leaf']} "
+                          f"differs from the CPU port's draws")
+    require(abs(n["mean"]) <= DP_MOMENT_SE * n["se_mean"]
+            and abs(n["std"] - 1.0) <= DP_MOMENT_SE * n["se_std"],
+            f"(h) noise / stddev over {n['entries']} entries: mean "
+            f"{n['mean']:.3e}, std {n['std']:.6f}")
+    require(n["redraw_bitwise"] and n["returned_is_noisy"],
+            f"(h) a second draw of the same (seed, round): {n}")
+    require(n["ledger_ok"], f"(h) the ledger at alice: {n['ledger']}, one "
+                            f"round of {n['epsilon']} each expected")
+    i8 = root["int8"]
+    push = dps["bob"]["push"]
+    f32 = i8["want"]["f32_bytes"]
+    require(i8["got"]["digest"] == i8["want"]["digest"],
+            "(i) alice's tree from bob's int8 push is not the CPU port's "
+            "dequantize_tree(quantize_tree(tree))")
+    require(i8["got"]["on_device"]
+            and i8["got"]["dtypes"] == ["torch.float32"],
+            f"(i) the pushed tree arrived as {i8['got']}")
+    require(4 * push["wire_bytes"] == f32,
+            f"(i) {push['wire_bytes']} bulk bytes on the wire for {f32} f32 "
+            f"bytes: not a quarter")
+    require(4 * push["saved"] == 3 * f32,
+            f"(i) quantized_bytes_saved grew by {push['saved']}, not three "
+            f"quarters of {f32}")
+    if torch.device(device).type == "cuda":
+        for p, d in dps.items():
+            for k in BF16_KERNELS:
+                require(d["launches"][k] > 0,
+                        f"{p}'s DP-job steps did not launch {k}: "
+                        f"{d['launches']}")
+    for p, c in root["clips"].items():
+        print(f"[privacy] {label} DP {p}: norm {c['norm']:.6f} clipped to "
+              f"{dp_privacy['clip_norm']} on the party's device in "
+              f"{c['ms']:.1f} ms "
+              f"(the CPU port's clip {c['cpu_ms']:.1f} ms): (g) bitwise; "
+              f"losses {[round(x, 4) for x in dps[p]['losses']]}, launches "
+              f"{dps[p]['launches']}, peak {dps[p]['peak']} B")
+    print(f"[privacy] {label} DP alice: secure DP round wall "
+          f"{root['secure_wall']:.3f} s; noise over {n['entries']:.0f} "
+          f"entries (stddev {n['sigma']:.6f}) {n['noise_ms']:.1f} ms, a "
+          f"second draw {n['again_ms']:.1f} ms, bitwise the first; (h) the "
+          f"ends of leaf {n['leaf']} ({n['numel']} entries, {n['words']} "
+          f"each) equal the CPU port's draws; noise / stddev mean "
+          f"{n['mean']:.3e} ({n['mean'] / n['se_mean']:.2f} standard "
+          f"errors), std {n['std']:.6f} "
+          f"({(n['std'] - 1) / n['se_std']:.2f} standard errors); ledger "
+          f"{n['ledger']}")
+    rate = f32 / i8["got"]["ms"] / 1e6
+    wire = push["wire_bytes"] / i8["got"]["ms"] / 1e6
+    base = ("phase 5 not run" if not f32_push else
+            f"phase 5's f32 push of {f32_push['nbytes']} B: "
+            f"{f32_push['push_ms']:.1f} ms, "
+            f"{f32_push['nbytes'] / f32_push['push_ms'] / 1e6:.3f} GB/s")
+    print(f"[privacy] {label} int8 push bob -> alice: {f32} f32 bytes as "
+          f"{push['wire_bytes']} bulk bytes ({push['saved']} saved): "
+          f"{i8['got']['ms']:.1f} ms, {rate:.3f} GB/s of f32 "
+          f"({wire:.3f} GB/s on the wire); capture "
+          f"{push['stage_ms']:.1f} ms, socket send {push['send_ms']:.1f} ms, "
+          f"alice's decode (dequantize on the host included) "
+          f"{_fmt_ms(i8['got']['decode_ms'])}, "
+          f"placement on the card {_fmt_ms(i8['got']['place_ms'])}; timed "
+          f"apart at bob, quantize on the card and copy to host "
+          f"{i8['want']['card_ms']:.1f} ms, the CPU port's quantize + "
+          f"dequantize {i8['want']['cpu_ms']:.1f} ms; "
+          f"{base}")
+
+
+def _fmt_ms(v):
+    return "not measured" if v is None else f"{v:.1f} ms"
+
+
+def run_privacy(smi, f32_push=None):
     """Phase 10 at the flagship width, depth cut as phase 4's, batch cut
     to PRIVACY_BATCH."""
     print("[privacy] reduced " + json.dumps(
@@ -3909,7 +4386,7 @@ def run_privacy(smi):
     t = time.perf_counter()
     out = phase_privacy("cuda", _flagship_cfg(SMOKE_LAYERS),
                         batch=PRIVACY_BATCH, seq=FLAGSHIP["seq"],
-                        label=f"on {smi}:")
+                        label=f"on {smi}:", f32_push=f32_push)
     _phase_wall(10, t, smi)
     return out
 
@@ -4067,13 +4544,16 @@ def main(argv):
     family = run_family(smi)
     gc.collect()
     torch.cuda.empty_cache()
-    privacy = run_privacy(smi)
+    push = fed["native"][PARTIES[0][0]]["rounds"][-1]["params_push"]
+    privacy = run_privacy(smi, f32_push=push if push["push_ms"] else None)
     # The bf16 kernels' launches: phase 4's train steps, phase 9's MoE
-    # steps (remat="attn") and phase 10's parties' steps, each counted
-    # from zero.
+    # steps (remat="attn") and phase 10's parties' steps in both of its
+    # jobs, each counted from zero.
     for kern_name in BF16_KERNELS:
         launches[kern_name] += family["launches"][kern_name]
         launches[kern_name] += sum(r["launches"][kern_name]
+                                   for r in privacy.values())
+        launches[kern_name] += sum(r["dp"]["launches"][kern_name]
                                    for r in privacy.values())
     print(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
 

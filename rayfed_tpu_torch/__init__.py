@@ -30,9 +30,11 @@ continuous-batching inference over a slab or paged KV pool with hot model
 swap, fed by ``fed_aggregate(publish_to=)``; FedBuff-style async rounds
 (``async_round``, ``fed_aggregate(mode="async")``), elastic membership
 with coordinator failover (``join``, ``leave``, ``membership_sync``) and
-job checkpoints (``save_job_state``, ``restore_job_state``); and secure
-aggregation (``config["privacy"]``, ``fed_aggregate(secure=True)`` in
-either mode; privacy/), whose mask streams are ``jax.random``'s words.
+job checkpoints (``save_job_state``, ``restore_job_state``); and the
+privacy plane (``config["privacy"]``, privacy/): secure aggregation
+(``fed_aggregate(secure=True)`` in either mode), DP clipping and noise
+with the epsilon ledger (``privacy_ledger``) and the int8 wire tier,
+whose random streams are ``jax.random``'s words.
 It never imports jax or rayfed_tpu. Entry points run on CUDA unless the
 caller passes device="cpu"; the attention kernels are hand-written for
 Hopper (csrc/) and built at first use. Planes not ported yet are absent,
@@ -50,6 +52,7 @@ from rayfed_tpu_torch.api import (  # noqa: F401
     membership_stats,
     membership_sync,
     membership_view,
+    privacy_ledger,
     remote,
     shutdown,
 )
@@ -103,6 +106,7 @@ __all__ = [
     "membership_stats",
     "membership_sync",
     "membership_view",
+    "privacy_ledger",
     "StaleCoordinatorError",
     "serve",
     "submit_request",

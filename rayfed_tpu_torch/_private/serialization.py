@@ -482,6 +482,30 @@ def _downcast(arr: np.ndarray, wire_dtype: str) -> np.ndarray:
     return out
 
 
+def _quantized(leaf) -> bool:
+    """Whether the int8 tier quantizes ``leaf`` (a tensor or a host
+    array): a float wider than two bytes (bf16 and f16 leaves ship as
+    they are)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.is_floating_point() and leaf.element_size() > 2
+    return leaf.dtype.kind == "f" and leaf.dtype.itemsize > 2
+
+
+def _quantize_to_host(t: torch.Tensor):
+    """``(int8 host array, producer dtype name, scale)`` of an int8-tier
+    leaf, quantized on its device; the f64 temporaries are freed before
+    the next leaf. Bumps the privacy plane's savings counter."""
+    from rayfed_tpu_torch.privacy.manager import record_quantized_bytes_saved
+    from rayfed_tpu_torch.privacy.quantize import quantize_leaf
+
+    q, scale = quantize_leaf(t)
+    arr = _tensor_to_host(q)[0]
+    saved = t.numel() * t.element_size() - arr.nbytes
+    if saved > 0:
+        record_quantized_bytes_saved(saved)
+    return arr, str(t.dtype).rpartition(".")[2], scale
+
+
 def _is_array_leaf(x: Any) -> bool:
     # torch.Tensor explicitly; numpy (and anything else exposing
     # ``__array__``) by duck type, without importing it.
@@ -516,15 +540,17 @@ def _spec_from_wire(w: dict) -> tree_util.TreeSpec:
 # Lossy wire precision (config ``payload_wire_dtype``): accepted knob
 # values -> canonical dtype names. bf16 keeps float32's exponent range
 # (safe for gradients); fp16 halves mantissa error but overflows past
-# 65504 — callers pick their poison explicitly. The JAX package's int8
-# tier belongs to its privacy plane's quantizer, which this package does
-# not have yet (ROADMAP Queue 1 item 11b): fed.init refuses it, and so
-# does the codec. Received int8-tier leaves (``qs``) still decode.
+# 65504 — callers pick their poison explicitly. int8 is the privacy
+# plane's quantized tier (4x fewer bulk bytes than fp32): symmetric
+# per-leaf uniform quantization, the scale rides the leaf descriptor
+# (``qs``) — gated at fed.init on config["privacy"]["quantize"]="int8"
+# (privacy/config.validate_wire_dtype_gate).
 WIRE_DTYPES = {
     "bf16": "bfloat16",
     "bfloat16": "bfloat16",
     "fp16": "float16",
     "float16": "float16",
+    "int8": "int8",
 }
 
 
@@ -534,15 +560,8 @@ def wire_dtype_name(knob: Optional[str]) -> Optional[str]:
     compression knobs."""
     if knob is None:
         return None
-    key = str(knob).lower()
-    if key == "int8":
-        raise ValueError(
-            "payload_wire_dtype='int8' is the privacy plane's quantized "
-            "tier, not ported to rayfed_tpu_torch yet (ROADMAP Queue 1 "
-            "item 11b)"
-        )
     try:
-        return WIRE_DTYPES[key]
+        return WIRE_DTYPES[str(knob).lower()]
     except KeyError:
         raise ValueError(
             f"unknown payload_wire_dtype {knob!r}; supported: "
@@ -565,7 +584,10 @@ def try_encode_tree(
     its int16 view under the name ``"bfloat16"``. ``wire_dtype``
     (canonical name from :func:`wire_dtype_name`) downcasts f32/f64 leaves
     on the wire — LOSSY, opt-in; each leaf's original dtype rides the meta
-    (``odt``) and is restored on decode.
+    (``odt``) and is restored on decode. Under ``"int8"`` a leaf is
+    quantized on its own device (a card's before its device-to-host copy,
+    so a quarter of the bytes cross PCIe) and its scale rides the meta
+    (``qs``).
     """
     leaves, spec = tree_util.tree_flatten(data)
     wire_spec = _spec_to_wire(spec)
@@ -577,20 +599,31 @@ def try_encode_tree(
     for leaf in leaves:
         if _is_array_leaf(leaf):
             if isinstance(leaf, torch.Tensor):
-                arr, name = _tensor_to_host(leaf)
+                host = None
             else:
-                arr = np.asarray(leaf)
-                if arr.dtype == object:
+                host = np.asarray(leaf)
+                if host.dtype == object:
                     return None
-                if not arr.dtype.isnative:
+                if not host.dtype.isnative:
                     # The wire declares endianness-less dtype NAMES and the
                     # receiver reads native order — a big-endian source
                     # array shipped raw would decode to garbage values.
-                    arr = arr.astype(arr.dtype.newbyteorder("="))
-                name = arr.dtype.name
-            odt = None
+                    host = host.astype(host.dtype.newbyteorder("="))
+            odt = qscale = None
+            if wire_dtype == "int8" and _quantized(
+                    leaf if host is None else host):
+                # Quantized tier: symmetric per-leaf int8 on the leaf's
+                # device, scale in the descriptor.
+                arr, odt, qscale = _quantize_to_host(
+                    leaf if host is None else torch.from_numpy(host))
+                name = "int8"
+            elif host is None:
+                arr, name = _tensor_to_host(leaf)
+            else:
+                arr, name = host, host.dtype.name
             if (
-                wire_dtype is not None
+                qscale is None
+                and wire_dtype not in (None, "int8")
                 and arr.dtype.kind == "f"
                 and arr.dtype.itemsize > 2
             ):
@@ -609,6 +642,8 @@ def try_encode_tree(
             }
             if odt is not None:
                 desc["odt"] = odt
+            if qscale is not None:
+                desc["qs"] = float(qscale)
             descs.append(desc)
             buffers.append(buf)
             offset += arr.nbytes

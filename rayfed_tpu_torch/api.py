@@ -96,14 +96,6 @@ def _refuse_unported(config: Dict, transport: str) -> None:
         from rayfed_tpu_torch.proxy import lanes
 
         lanes.transport_proxy_classes(transport)
-    comm = config.get("cross_silo_comm") or {}
-    wire_dtype = comm.get("payload_wire_dtype")
-    if wire_dtype is not None and str(wire_dtype).lower() == "int8":
-        raise NotImplementedError(
-            "payload_wire_dtype='int8' is the privacy plane's quantized "
-            "tier, ROADMAP Queue 1 item 11b, not ported to rayfed_tpu_torch "
-            "yet"
-        )
 
 
 original_sigint = signal.getsignal(signal.SIGINT)
@@ -150,8 +142,10 @@ def init(
             (:class:`~rayfed_tpu_torch.membership.MembershipConfig`),
             ``checkpoint`` (:class:`~rayfed_tpu_torch.checkpoint.CheckpointConfig`),
             ``privacy`` (:class:`~rayfed_tpu_torch.privacy.PrivacyConfig`:
-            secure aggregation; its DP and quantizer keys are refused,
-            item 11b) and the ``aggregation.async_*`` keys; each is
+            secure aggregation, DP clipping and noise, the int8
+            quantizer; ``cross_silo_comm.payload_wire_dtype="int8"``
+            needs ``privacy.quantize="int8"``) and the
+            ``aggregation.async_*`` keys; each is
             validated strictly before any state is built. The blocks of
             planes not ported yet (``jax_distributed``, ``collective``,
             ``telemetry``) and a ``party_mesh`` over more than one device
@@ -200,13 +194,21 @@ def init(
 
         membership_cfg = MembershipConfig.from_dict(membership_dict)
     # The privacy block is STRICT: a typo'd privacy.* key rejects init
-    # (a job must not silently run without the protection it asked for).
+    # (a job must not silently run without the protection it asked for),
+    # and the int8 wire tier is refused unless the privacy plane's
+    # quantizer is on.
     privacy_dict = config.get("privacy")
     privacy_cfg = None
     if privacy_dict is not None:
         from rayfed_tpu_torch.privacy.config import PrivacyConfig
 
         privacy_cfg = PrivacyConfig.from_dict(privacy_dict)
+    from rayfed_tpu_torch.privacy.config import validate_wire_dtype_gate
+
+    validate_wire_dtype_gate(
+        (config.get("cross_silo_comm") or {}).get("payload_wire_dtype"),
+        privacy_dict,
+    )
     aggregation_dict = config.get("aggregation") or {}
     if aggregation_dict:
         from rayfed_tpu_torch import async_rounds as _async_rounds
@@ -810,6 +812,20 @@ def membership_view():
 
     manager = _mbr_manager.get_membership_manager()
     return None if manager is None else manager.view()
+
+
+def privacy_ledger() -> Dict[str, Dict[str, float]]:
+    """The DP ledger THIS process has accumulated: ``{party:
+    {"epsilon", "delta", "rounds"}}`` for every party charged by a noisy
+    secure aggregation this session (docs/privacy.md). Epsilon accrues
+    at the aggregation ROOT (where the noise is added); other parties see
+    it through the ``fed_privacy_ledger_epsilon`` telemetry gauge. Empty
+    when the privacy plane is off, ``noise_multiplier`` is unset, or no
+    noisy round has folded yet."""
+    from rayfed_tpu_torch.privacy.manager import get_privacy_manager
+
+    manager = get_privacy_manager()
+    return {} if manager is None else manager.ledger_snapshot()
 
 
 def membership_stats() -> Dict[str, int]:

@@ -42,8 +42,8 @@ read back with ``torch.load(weights_only=True)``. bf16 and f32 leaves
 round-trip bitwise. The JAX package writes orbax; neither package reads
 the other's checkpoint (ROADMAP Queue 3, a deliberate divergence). The
 meta JSON is the JAX package's. An async session's pending masked groups
-(secure aggregation) ride the cut with its buffer; the DP ledger is ROADMAP
-Queue 1 item 11b.
+(secure aggregation) ride the cut with its buffer, and the privacy
+plane's DP ledger rides it too, so the spent epsilon survives a restart.
 """
 
 from __future__ import annotations
@@ -403,6 +403,7 @@ def save_job_state(
     Returns the step directory written."""
     import rayfed_tpu_torch.async_rounds as async_rounds
     from rayfed_tpu_torch.membership.manager import get_membership_manager
+    from rayfed_tpu_torch.privacy.manager import get_privacy_manager
 
     base = _resolve_base_dir(base_dir)
     path = step_dir(base, int(step))
@@ -426,6 +427,7 @@ def save_job_state(
     with async_rounds._tags_lock:
         round_tags = dict(async_rounds._driver_round_tags.get())
     membership = get_membership_manager()
+    privacy = get_privacy_manager()
     control = {
         "async_sessions": sessions,
         "round_tags": round_tags,
@@ -433,9 +435,9 @@ def save_job_state(
             membership.export_snapshot() if membership is not None else None
         ),
         "model_banks": _export_banks(),
-        # The DP ledger is the privacy plane's DP layer (ROADMAP Queue 1
-        # item 11b); this package has none to save.
-        "privacy_ledger": None,
+        "privacy_ledger": (
+            privacy.ledger_snapshot() if privacy is not None else None
+        ),
     }
     _save_tree(os.path.join(path, _CONTROL_FILE), control)
 
@@ -475,8 +477,8 @@ def restore_job_state(
     this party's registry with its buffer and pending masked groups, the
     driver round-tag counters resume where they left off, and the
     membership manager (when installed) fast-forwards to the cut's
-    epoch/sync index/term. A cut that holds a DP ledger (the JAX
-    package's) raises: the DP layer is ROADMAP Queue 1 item 11b.
+    epoch/sync index/term, and the privacy manager (when installed)
+    reloads the cut's DP ledger.
 
     ``template`` (see :func:`restore_party_state`) places the tensors on
     its devices and must mirror the saved ``{"model": ..., "opt_state":
@@ -485,6 +487,7 @@ def restore_job_state(
     (array entries None when the cut carried none)."""
     import rayfed_tpu_torch.async_rounds as async_rounds
     from rayfed_tpu_torch.membership.manager import get_membership_manager
+    from rayfed_tpu_torch.privacy.manager import get_privacy_manager
 
     base = _resolve_base_dir(base_dir)
     if step is None:
@@ -506,11 +509,6 @@ def restore_job_state(
         control = _load_tree(control_path)
     if control.get("async_sessions"):
         control["async_sessions"] = _on_party_device(control["async_sessions"])
-    if control.get("privacy_ledger"):
-        raise NotImplementedError(
-            "restoring a DP ledger: differential privacy is ROADMAP Queue 1 "
-            "item 11b, not ported to rayfed_tpu_torch yet"
-        )
 
     if install and control:
         for name, state in (control.get("async_sessions") or {}).items():
@@ -525,6 +523,9 @@ def restore_job_state(
         membership = get_membership_manager()
         if membership is not None and control.get("membership"):
             membership.restore_snapshot(control["membership"])
+        privacy = get_privacy_manager()
+        if privacy is not None and control.get("privacy_ledger"):
+            privacy.ledger_restore(control["privacy_ledger"])
         _restore_banks(control.get("model_banks") or {})
 
     return {

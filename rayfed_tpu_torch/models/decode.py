@@ -28,10 +28,11 @@ training forward's at equal dtypes.
 ``offset`` is an int (every row at the same position) or a ``(B,)``
 integer tensor (each row at its own position: the serving pool's batched
 step, where the JAX package ``vmap``s a one-row forward). Sampling draws
-from an explicit ``torch.Generator``; its draws differ from
-``jax.random``'s (threefry is not ported), so sampled tokens match the
-JAX package's in their properties, not their values. Greedy decoding,
-beam search and all logits match it.
+``jax.random.categorical``'s Gumbel-max tokens from a threefry key
+(:mod:`rayfed_tpu_torch.privacy.threefry`), split per step as the JAX
+package splits it, so a sampled decode gives the JAX package's tokens
+for the same key wherever the logits agree. Greedy decoding, beam search
+and all logits match it.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from rayfed_tpu_torch.models import transformer as tfm
+from rayfed_tpu_torch.privacy import threefry
 from rayfed_tpu_torch.utils import DeviceLike, resolve_device
 
 Cache = dict
@@ -162,13 +164,23 @@ def _as_tokens(prompt, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(prompt), device=device)
 
 
-def _generator(rng, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` from ``rng`` (a generator, an
-    int seed, or None for seed 0)."""
+def _reciprocal(temperature: float) -> float:
+    """The float32 reciprocal of ``temperature``: XLA compiles ``logits /
+    temperature`` (a constant) as a multiply by it."""
+    if temperature <= 0.0:
+        return 0.0
+    return float(np.float32(1.0) / np.float32(temperature))
+
+
+def _key(rng) -> threefry.Key:
+    """A threefry key from ``rng``: a key (a pair of uint32 words, as
+    ``jax.random.PRNGKey`` gives) or an int seed (``prng_key(seed)``)."""
     if isinstance(rng, torch.Generator):
-        return rng
-    return torch.Generator(device=device).manual_seed(
-        0 if rng is None else int(rng))
+        raise TypeError(
+            "sampling draws from a threefry key, as jax.random does: pass "
+            "rng=threefry.prng_key(seed) (or an int seed), not a "
+            "torch.Generator")
+    return threefry.as_key(rng)
 
 
 def make_generate_fn(
@@ -187,10 +199,12 @@ def make_generate_fn(
     sampling at the given temperature, optionally truncated to the
     ``top_k`` highest-probability tokens and/or the ``top_p`` nucleus
     (smallest set of tokens whose probability mass reaches ``top_p``),
-    drawn from ``rng`` (a ``torch.Generator`` on the prompt's device, or
-    an int seed; None is seed 0). With ``eos_id``, a row that emits it
-    keeps emitting EOS for the rest of the generation — the output still
-    has shape (B, S+max_new), terminated rows are EOS-padded.
+    drawn with ``jax.random.categorical``'s Gumbel-max from ``rng`` (a
+    threefry key, or an int seed; None is ``prng_key(0)``), split once
+    per token as the JAX package splits it. With ``eos_id``, a row that
+    emits it keeps emitting EOS for the rest of the generation — the
+    output still has shape (B, S+max_new), terminated rows are
+    EOS-padded.
 
     ``mesh`` raises (ROADMAP Queue 1 item 8).
     """
@@ -210,10 +224,12 @@ def make_generate_fn(
         )
     check_decodable(cfg, mesh)
 
-    def sample(logits, gen):
+    inv_t = _reciprocal(temperature)
+
+    def sample(logits, key):
         if temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
-        logits = logits / temperature
+        logits = logits * inv_t
         if top_k is not None and top_k < cfg.vocab:
             kth = torch.sort(logits, dim=-1).values[..., -top_k, None]
             logits = torch.where(logits < kth, float("-inf"), logits)
@@ -226,26 +242,27 @@ def make_generate_fn(
             thresh = torch.where(cum_excl < top_p, desc,
                                  float("inf")).min(dim=-1, keepdim=True).values
             logits = torch.where(logits < thresh, float("-inf"), logits)
-        probs = torch.softmax(logits, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return threefry.categorical(key, logits)
 
     @torch.no_grad()
     def generate(params, prompt, rng=None):
         dev = params["embed"].device
         prompt = _as_tokens(prompt, dev)
         b, s = prompt.shape
-        gen = _generator(rng, dev) if temperature > 0.0 else None
+        key = _key(0 if rng is None else rng)
         # The cache only ever holds tokens that later tokens attend to, so
         # the final sampled token needs no slot (and no forward pass).
         cache = init_cache(cfg, b, s + max_new_tokens - 1, device=dev)
         last_logits, cache = prefill(params, prompt, cache, cfg)
-        tok = sample(last_logits, gen).to(prompt.dtype)
+        key, sub = threefry.split(key)
+        tok = sample(last_logits, sub).to(prompt.dtype)
         done = (tok == eos_id) if eos_id is not None else None
         out = [tok]
         for pos in range(s, s + max_new_tokens - 1):
             logits, cache = forward_with_cache(
                 params, tok[:, None], cache, pos, cfg)
-            nxt = sample(logits[:, -1], gen).to(prompt.dtype)
+            key, sub = threefry.split(key)
+            nxt = sample(logits[:, -1], sub).to(prompt.dtype)
             if eos_id is not None:
                 nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
                 done = done | (nxt == eos_id)

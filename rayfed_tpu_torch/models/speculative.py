@@ -31,7 +31,11 @@ trailing ``k_draft+1``-token window through both models at its true
 offset, which rewrites identical cache entries and covers the one
 position a rejection can have staled, so no validity state is tracked.
 Batched rows accept the minimum over rows per round. Sampling draws from
-a ``torch.Generator``, whose draws differ from ``jax.random``'s.
+a threefry key folded as the JAX package folds it (the round's position,
+then 1000 + i per proposal, 2 for the acceptance uniforms, 3 for the
+correction), with ``jax.random``'s ``categorical`` and ``uniform``, so a
+sampled run gives the JAX package's tokens for the same key wherever the
+logits agree.
 """
 
 from __future__ import annotations
@@ -41,9 +45,11 @@ from typing import Optional
 import torch
 
 from rayfed_tpu_torch.models import transformer as tfm
+from rayfed_tpu_torch.privacy import threefry
 from rayfed_tpu_torch.models.decode import (
     _as_tokens,
-    _generator,
+    _key,
+    _reciprocal,
     check_decodable,
     forward_with_cache,
     init_cache,
@@ -71,7 +77,7 @@ def make_speculative_generate_fn(
     ``eos_id``, a row that emits EOS pads the rest of its output with EOS
     (as :func:`~rayfed_tpu_torch.models.decode.make_generate_fn` does).
     Prompt length must be at least ``k_draft + 1``. With ``temperature >
-    0``, ``rng`` (a ``torch.Generator`` or an int seed) is required. With
+    0``, ``rng`` (a threefry key or an int seed) is required. With
     ``return_stats=True`` the result is ``(tokens, n_rounds)``, the
     number of target forwards. ``mesh`` raises (ROADMAP Queue 1 item 8).
     """
@@ -92,13 +98,14 @@ def make_speculative_generate_fn(
     check_decodable(draft_cfg)
     w = k_draft + 1  # verification window
     sampled = temperature > 0.0
+    inv_t = _reciprocal(temperature)
 
     @torch.no_grad()
     def generate(params, draft_params, prompt, rng=None):
         if sampled and rng is None:
             raise ValueError(
-                "temperature > 0 samples: pass rng= (a torch.Generator or "
-                "a seed; a silent fixed seed would make every call "
+                "temperature > 0 samples: pass rng= (a threefry key or a "
+                "seed; a silent fixed key would make every call "
                 "identical)"
             )
         dev = params["embed"].device
@@ -109,7 +116,7 @@ def make_speculative_generate_fn(
                 f"prompt length {s} shorter than the verification window "
                 f"{w} (= k_draft + 1)"
             )
-        gen = _generator(rng, dev) if sampled else None
+        key = _key(rng) if sampled else None
         total = s + max_new_tokens
         # Slack absorbs the last round's overshoot (writes past `total`
         # are never returned; cache slots past it are never attended).
@@ -123,26 +130,29 @@ def make_speculative_generate_fn(
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         pos, rounds = s, 0
 
-        def pick(logits):
+        def pick(logits, k):
             if not sampled:
                 return torch.argmax(logits, dim=-1).to(buf.dtype)
-            probs = torch.softmax(logits / temperature, dim=-1)
-            return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
-                buf.dtype)
+            return threefry.categorical(k, logits * inv_t).to(buf.dtype)
 
         while pos < total:
             win = buf[:, pos - w:pos]
+            # Fresh randomness per (round start, position): pos strictly
+            # advances each round, so folded keys never repeat.
+            kr = threefry.fold_in(key, pos) if sampled else None
             # Draft: the window pass re-validates its cache and yields
             # q_1; k_draft-1 single-token steps yield q_2..q_k.
             d_logits, _ = forward_with_cache(
                 draft_params, win, d_cache, pos - w, draft_cfg)
-            qs = [pick(d_logits[:, -1])]
+            qs = [pick(d_logits[:, -1],
+                       threefry.fold_in(kr, 1000) if sampled else None)]
             d_rows = [d_logits[:, -1]]
             for i in range(k_draft - 1):
                 lg, _ = forward_with_cache(
                     draft_params, qs[-1][:, None], d_cache, pos + i,
                     draft_cfg)
-                qs.append(pick(lg[:, -1]))
+                qs.append(pick(lg[:, -1], threefry.fold_in(kr, 1001 + i)
+                               if sampled else None))
                 d_rows.append(lg[:, -1])
             q = torch.stack(qs, dim=1)                           # (B, k)
 
@@ -161,13 +171,14 @@ def make_speculative_generate_fn(
                 correction = t_pred[:, n]
             else:
                 d_stack = torch.stack(d_rows, dim=1)
-                t_lp = torch.log_softmax(t_stack.float() / temperature, -1)
-                d_lp = torch.log_softmax(d_stack.float() / temperature, -1)
+                t_lp = torch.log_softmax(t_stack.float() * inv_t, -1)
+                d_lp = torch.log_softmax(d_stack.float() * inv_t, -1)
                 qi = q[..., None].long()
                 lt_q = torch.take_along_dim(t_lp[:, :k_draft], qi, -1)[..., 0]
                 ld_q = torch.take_along_dim(d_lp, qi, -1)[..., 0]
-                u = torch.rand((b, k_draft), generator=gen, device=dev)
-                accept = (torch.log(torch.clamp(u, min=1e-38))
+                u = threefry.uniform(threefry.fold_in(kr, 2), (b, k_draft),
+                                     device=dev)
+                accept = (threefry.xla_log(torch.clamp(u, min=1e-38))
                           < (lt_q - ld_q)).to(torch.int32)       # (B, k)
                 n = int(torch.cumprod(accept, dim=1).sum(dim=1).min())
                 # Correction at position pos+n: rows that rejected there
@@ -183,8 +194,10 @@ def make_speculative_generate_fn(
                 res_probs = torch.where(
                     z > 1e-30, res / torch.clamp(z, min=1e-30), pt)
                 final_probs = res_probs if n < k_draft else pt
-                sampled_corr = torch.multinomial(
-                    final_probs, 1, generator=gen)[:, 0].to(buf.dtype)
+                sampled_corr = threefry.categorical(
+                    threefry.fold_in(kr, 3),
+                    threefry.xla_log(torch.clamp(final_probs, min=1e-38)),
+                ).to(buf.dtype)
                 if n < k_draft:
                     correction = torch.where(accept[:, m] == 1, q[:, m],
                                              sampled_corr)

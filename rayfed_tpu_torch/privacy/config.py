@@ -19,12 +19,6 @@ Validated EAGERLY at ``fed.init`` with STRICT key checking — an unknown
 ``privacy.*`` key rejects init with the known-key list, matching the
 ``aggregation.async_*`` / membership precedent (a typo'd knob must fail
 the job at startup, not silently run without its protection).
-
-This package has the secure-aggregation half of the plane. Its DP layer
-(clipping, noise, the epsilon ledger) and the int8 quantizer are ROADMAP
-Queue 1 item 11b: a non-default value of any of their keys raises
-``NotImplementedError`` naming it, after the reference's own checks, so
-a job never runs without the protection it asked for.
 """
 
 from __future__ import annotations
@@ -34,22 +28,6 @@ from typing import Any, Dict, Optional
 
 #: Quantization tiers the privacy plane understands.
 QUANTIZE_TIERS = ("int8",)
-
-#: The keys of the DP layer and the quantizer (ROADMAP Queue 1 item 11b)
-#: and their defaults, the only values this package accepts.
-DP_AND_QUANTIZER_DEFAULTS = {
-    "clip_norm": None,
-    "noise_multiplier": None,
-    "noise_seed": 0,
-    "quantize": None,
-    "error_feedback": True,
-}
-
-ITEM_11B = (
-    "differential privacy (clipping, noise, the epsilon ledger) and the "
-    "int8 quantizer are ROADMAP Queue 1 item 11b, not ported to "
-    "rayfed_tpu_torch yet"
-)
 
 
 @dataclasses.dataclass
@@ -131,11 +109,6 @@ class PrivacyConfig:
                 f"privacy.quantize must be one of {QUANTIZE_TIERS} or "
                 f"None, got {self.quantize!r}"
             )
-        for key, default in DP_AND_QUANTIZER_DEFAULTS.items():
-            if getattr(self, key) != default:
-                raise NotImplementedError(
-                    f"privacy.{key}={getattr(self, key)!r}: {ITEM_11B}"
-                )
 
     @classmethod
     def from_dict(cls, data: Optional[Dict[str, Any]]) -> "PrivacyConfig":

@@ -13,7 +13,7 @@
 # limitations under the License.
 
 """The per-process privacy-plane manager (port of
-``rayfed_tpu/privacy/manager.py``, secure aggregation only).
+``rayfed_tpu/privacy/manager.py``).
 
 One :class:`PrivacyManager` per party process (installed by ``fed.init``
 when ``config["privacy"]`` is present, torn down by ``fed.shutdown``):
@@ -23,12 +23,10 @@ when ``config["privacy"]`` is present, torn down by ``fed.shutdown``):
 - masks outgoing contributions and unmasks-by-cancellation at the
   aggregation root (privacy/secagg.py does the ring math, on the
   device that holds the leaves);
+- applies the DP layer (clip party-side, noise root-side, privacy/dp.py)
+  and keeps the :class:`~rayfed_tpu_torch.privacy.dp.PrivacyLedger`;
 - mirrors every bump into the process-global telemetry registry
   (``fed_privacy_*`` series) AND a local ``stats`` dict.
-
-DP (clipping, noise, the ledger) and the int8 quantizer are ROADMAP
-Queue 1 item 11b: ``PrivacyConfig`` refuses their keys, so this manager
-never clips, adds noise or quantizes.
 """
 
 # fedlint: disable-file=seq-divergence
@@ -50,8 +48,9 @@ from typing import Any, Dict, List, Optional
 from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch._private.constants import CODE_FORBIDDEN, CODE_OK
 from rayfed_tpu_torch.ops.aggregate import tree_divide, tree_scale
-from rayfed_tpu_torch.privacy import protocol, secagg
+from rayfed_tpu_torch.privacy import dp, protocol, secagg
 from rayfed_tpu_torch.privacy.config import PrivacyConfig
+from rayfed_tpu_torch.privacy.quantize import ErrorFeedbackQuantizer
 from rayfed_tpu_torch.telemetry import metrics as telemetry_metrics
 
 logger = logging.getLogger(__name__)
@@ -65,6 +64,27 @@ _m_recoveries = _reg.counter(
     "fed_privacy_dropout_recoveries_total",
     "Orphaned-mask reconstructions applied to a pending secure sum.",
 )
+_m_epsilon = _reg.gauge(
+    "fed_privacy_ledger_epsilon",
+    "Cumulative DP epsilon charged to each party this session.",
+    labels=("party",),
+)
+_m_qbytes = _reg.counter(
+    "fed_privacy_quantized_bytes_saved_total",
+    "Wire bytes saved by the int8 quantized payload tier vs the "
+    "original leaf dtype.",
+)
+
+
+def record_quantized_bytes_saved(nbytes: int) -> None:
+    """Bump the quantized-savings counter (called from the serialization
+    wire tier; also mirrored into the manager stats when one is
+    installed)."""
+    _m_qbytes.inc(int(nbytes))
+    mgr = get_privacy_manager()
+    if mgr is not None:
+        with mgr._lock:
+            mgr.stats["quantized_bytes_saved"] += int(nbytes)
 
 
 class PrivacyManager:
@@ -76,6 +96,8 @@ class PrivacyManager:
         self.job_name = job_name
         self.party = party
         self.config = config
+        self.ledger = dp.PrivacyLedger(config.delta)
+        self.quantizer = ErrorFeedbackQuantizer()
         self._lock = threading.Lock()
         self._pair_seeds: Dict[str, int] = {}
         self._seed_events: Dict[str, threading.Event] = {}
@@ -84,6 +106,7 @@ class PrivacyManager:
         self.stats: Dict[str, int] = {
             "masks_exchanged": 0,
             "dropout_recoveries": 0,
+            "quantized_bytes_saved": 0,
         }
 
     # -- seed store ---------------------------------------------------------
@@ -275,12 +298,15 @@ class PrivacyManager:
         round_index: int,
         weight: Optional[float] = None,
     ) -> Dict[str, Any]:
-        """Premultiply (wmean), encode into the ring, and mask against
-        every co-contributor, on the device of the tree's leaves. Returns
+        """Clip (DP), premultiply (wmean), encode into the ring, and mask
+        against every co-contributor, on the device of the tree's leaves.
+        Returns
         the wire envelope the root's :meth:`secure_reduce` consumes (the
         JAX package's: its ``q`` leaves are uint32 words in JAX's leaf
         order)."""
         cfg = self.config
+        if cfg.clip_norm is not None:
+            tree = dp.clip_tree(tree, float(cfg.clip_norm))
         if weight is not None:
             # The identical premultiply op the plaintext wmean path runs
             # (federated._premul) — part of the bit contract.
@@ -375,7 +401,40 @@ class PrivacyManager:
         elif op != "sum":
             raise ValueError(f"secure aggregation supports sum/mean/wmean, "
                              f"got {op!r}")
-        return out
+        return self.apply_dp(out, present, round_index, op=op)
+
+    # -- DP (root side) -----------------------------------------------------
+
+    def apply_dp(
+        self, tree: Any, parties, round_index: int, op: str = "mean"
+    ) -> Any:
+        """Add the round's Gaussian noise at the root (stddev ``z *
+        clip_norm / n`` for mean and wmean, ``z * clip_norm`` for sum)
+        and charge every contributing party one round."""
+        cfg = self.config
+        z = cfg.noise_multiplier
+        if not z:
+            return tree
+        sensitivity = float(cfg.clip_norm)
+        if op in ("mean", "wmean"):
+            sensitivity /= max(1, len(parties))
+        noisy = dp.gaussian_noise_tree(
+            tree, float(z) * sensitivity, cfg.noise_seed, round_index
+        )
+        self.ledger.record_round(parties, float(z))
+        for p in parties:
+            _m_epsilon.labels(party=p).set(self.ledger.epsilon(p))
+        return noisy
+
+    def ledger_snapshot(self) -> Dict[str, Dict[str, float]]:
+        return self.ledger.snapshot()
+
+    def ledger_restore(self, snapshot: Optional[Dict[str, Dict]]) -> None:
+        """Reload a checkpointed ledger snapshot (job restore) and
+        refresh the per-party epsilon gauges from it."""
+        self.ledger.restore(snapshot)
+        for p, rec in (snapshot or {}).items():
+            _m_epsilon.labels(party=p).set(float(rec.get("epsilon", 0.0)))
 
 
 # ---------------------------------------------------------------------------

@@ -397,7 +397,8 @@ def send(
     sp = _sender_proxies.peek()
     assert sp is not None, "sender proxy not started; call fed.init()"
     data = _capture_for_send(
-        dest_party, data, upstream_seq_id, downstream_seq_id
+        dest_party, data, upstream_seq_id, downstream_seq_id,
+        quantize=_int8_tier(sp, dest_party),
     )
     fut = sp.send(
         dest_party, data, upstream_seq_id, downstream_seq_id, is_error=is_error
@@ -409,14 +410,26 @@ def send(
     return fut
 
 
-def _host_snapshot(value):
+def _int8_tier(sp, dest_party: str) -> bool:
+    """Whether sends to ``dest_party`` ride the int8 wire tier."""
+    cfg = getattr(sp, "_config", None)
+    if cfg is None or not hasattr(cfg, "for_dest"):
+        return False
+    wire = getattr(cfg.for_dest(dest_party), "payload_wire_dtype", None)
+    return wire is not None and str(wire).lower() == "int8"
+
+
+def _host_snapshot(value, quantize: bool = False):
     """Capture every ``torch.Tensor`` leaf of ``value``: a CUDA leaf
     becomes a host copy (every leaf's copy is started non-blocking into
     pinned memory first, then one synchronize per device waits for all of
     them), a CPU leaf becomes a ``clone()``. Torch mutates in place
     (``opt.step()``, ``p.copy_(agg)``), so the tree on the wire must be
     the one the producer returned, not whatever its buffers hold when the
-    send worker reaches them. Other leaves pass through."""
+    send worker reaches them. Other leaves pass through. With
+    ``quantize`` (the int8 wire tier) a CUDA float leaf wider than two
+    bytes is cloned on its card instead: the encoder quantizes it there
+    and copies a quarter of its bytes to host."""
     try:
         leaves, spec = tree_util.tree_flatten(value)
     except Exception:  # noqa: BLE001 - unflattenable values use pickle lane
@@ -428,7 +441,9 @@ def _host_snapshot(value):
     for x in leaves:
         if isinstance(x, torch.Tensor):
             x = x.detach()
-            if x.device.type == "cuda":
+            if x.device.type == "cuda" and not (
+                    quantize and x.is_floating_point()
+                    and x.element_size() > 2):
                 devices.add(x.device)
                 x = x.to("cpu", non_blocking=True)
             else:
@@ -440,7 +455,7 @@ def _host_snapshot(value):
 
 
 def _capture_for_send(dest_party: str, data, upstream_seq_id="",
-                      downstream_seq_id=""):
+                      downstream_seq_id="", quantize: bool = False):
     """Capture the pushed value at RESOLUTION time, Ray-object-store
     style: the reference snapshots a task's result into the object store
     when the task completes, so the producer may freely reuse its buffers
@@ -468,7 +483,7 @@ def _capture_for_send(dest_party: str, data, upstream_seq_id="",
             "stage", dest_party, str(upstream_seq_id), str(downstream_seq_id)
         ) as sp:
             _check_unmutated(value, versions)
-            out = _host_snapshot(value)
+            out = _host_snapshot(value, quantize)
             _check_unmutated(value, versions)
             sp.set_nbytes(_tensor_nbytes(out))
         return out

@@ -12,10 +12,13 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Secure aggregation's words on the card: threefry, the fixed-point
-codec, masking and the ring sum computed on a CUDA device equal the CPU
-path's bitwise (the CPU path is held against ``jax.random`` and the JAX
-package by tests/test_torch_threefry.py and tests/test_torch_privacy.py).
+"""The privacy plane on the card: threefry's words and float draws
+(``uniform``, ``normal``, ``gumbel``, ``categorical``), the fixed-point
+codec, masking and the ring sum, the DP clip and noise and the int8
+quantizer computed on a CUDA device equal the CPU path's bitwise (the
+CPU path is held against ``jax.random`` and the JAX package by
+tests/test_torch_threefry.py, tests/test_torch_privacy.py,
+tests/test_torch_dp.py and tests/test_torch_quantize.py).
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package:
 
@@ -26,7 +29,7 @@ import pytest
 import torch
 
 from rayfed_tpu_torch.privacy import PrivacyConfig, PrivacyManager
-from rayfed_tpu_torch.privacy import secagg, threefry
+from rayfed_tpu_torch.privacy import dp, quantize, secagg, threefry
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +139,105 @@ def test_a_secure_round_on_the_card_equals_the_cpu(cuda_device):
         for k in ("w", "b"):
             assert card[i][k].device.type == "cuda"
             assert torch.equal(cpu[i][k], card[i][k].cpu())
+
+
+# ---------------------------------------------------------------------------
+# Float draws, DP and the quantizer
+# ---------------------------------------------------------------------------
+
+
+def _bits_equal(a, b):
+    assert a.device.type == "cuda"
+    a = a.cpu()
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.is_floating_point():
+        w = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(w), b.view(w))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(7,), (64, 1000), ((1 << 22) + 5,)],
+                         ids=str)
+def test_float_draws_on_the_card_equal_the_cpu(cuda_device, shape):
+    key = threefry.fold_in(threefry.prng_key(2**40 + 5), 23)
+    for lo, hi in ((0.0, 1.0), (-3.3, 7.1)):
+        assert _bits_equal(threefry.uniform(key, shape, lo, hi, cuda_device),
+                           threefry.uniform(key, shape, lo, hi))
+    assert _bits_equal(threefry.gumbel(key, shape, cuda_device),
+                       threefry.gumbel(key, shape))
+    assert _bits_equal(threefry.normal(key, shape, cuda_device),
+                       threefry.normal(key, shape))
+
+
+def test_xla_math_on_the_card_equals_the_cpu(cuda_device):
+    gen = torch.Generator().manual_seed(4)
+    x = torch.cat([torch.rand(1 << 16, generator=gen) * 2 - 1,
+                   1 - torch.rand(1 << 16, generator=gen) * 1e-6,
+                   torch.tensor([0.0, 1e-40, -1e-40, 1.0, -1.0])])
+    for fn in (threefry.xla_erf_inv, threefry.xla_log1p):
+        assert _bits_equal(fn(x.to(cuda_device)), fn(x))
+    y = torch.exp(torch.rand(1 << 16, generator=gen) * 170 - 85)
+    assert _bits_equal(threefry.xla_log(y.to(cuda_device)),
+                       threefry.xla_log(y))
+
+
+def test_categorical_on_the_card_equals_the_cpu(cuda_device):
+    gen = torch.Generator().manual_seed(5)
+    logits = torch.randn(8, 32000, generator=gen) * 3
+    logits[:, 7] = float("-inf")
+    for seed in range(3):
+        key = threefry.prng_key(seed)
+        got = threefry.categorical(key, logits.to(cuda_device))
+        assert torch.equal(got.cpu(), threefry.categorical(key, logits))
+
+
+def _tree(gen, dtype=torch.float32):
+    return {"w": (torch.randn(300, 1001, generator=gen) * 2).to(dtype),
+            "b": torch.randn(70, generator=gen).to(dtype),
+            "h": (torch.randn(130, generator=gen) * 5).half()}
+
+
+def test_clip_and_noise_on_the_card_equal_the_cpu(cuda_device):
+    gen = torch.Generator().manual_seed(6)
+    tree = _tree(gen)
+    card = {k: v.to(cuda_device) for k, v in tree.items()}
+    assert dp.tree_l2_norm(card) == dp.tree_l2_norm(tree)
+    for clip in (0.5, 1e9):
+        got = dp.clip_tree(card, clip)
+        want = dp.clip_tree(tree, clip)
+        for k in tree:
+            assert _bits_equal(got[k], want[k])
+    got = dp.gaussian_noise_tree(card, 0.37, 99, 4)
+    want = dp.gaussian_noise_tree(tree, 0.37, 99, 4)
+    for k in tree:
+        assert _bits_equal(got[k], want[k])
+
+
+def test_quantizer_on_the_card_equals_the_cpu(cuda_device):
+    from rayfed_tpu_torch._private import serialization as ser
+
+    gen = torch.Generator().manual_seed(7)
+    tree = _tree(gen)
+    card = {k: v.to(cuda_device) for k, v in tree.items()}
+    env, env_c = quantize.quantize_tree(tree), quantize.quantize_tree(card)
+    assert env["scales"] == env_c["scales"]
+    for k in env["q"]:
+        assert torch.equal(env["q"][k], env_c["q"][k].cpu())
+    back = quantize.dequantize_tree(env_c)
+    for k, v in quantize.dequantize_tree(env).items():
+        assert _bits_equal(back[k], v)
+    # The int8 wire tier quantizes a card leaf on the card: the frame is
+    # the CPU leaf's, byte for byte.
+    meta, bufs = ser.try_encode_tree(tree, wire_dtype="int8")
+    meta_c, bufs_c = ser.try_encode_tree(card, wire_dtype="int8")
+    assert meta == meta_c
+    assert [bytes(memoryview(b).cast("B")) for b in bufs] == \
+        [bytes(memoryview(b).cast("B")) for b in bufs_c]
+    ef, ef_c = quantize.ErrorFeedbackQuantizer(), \
+        quantize.ErrorFeedbackQuantizer()
+    for _ in range(3):
+        a, b = ef.quantize("p", tree), ef_c.quantize("p", card)
+        assert a["scales"] == b["scales"]
+        res, res_c = ef.residual("p"), ef_c.residual("p")
+        for k in res:
+            assert _bits_equal(res_c[k], res[k])

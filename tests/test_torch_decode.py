@@ -17,8 +17,9 @@ on the CPU: the cases of ``test_decode.py`` (all but the MoE one and the
 two sharded ones, whose refusals are held here instead), and the port
 against the JAX package on the same params and numpy inputs: cached
 logits within 1e-5 (f32 compute), greedy tokens and beams equal.
-Sampling draws from a ``torch.Generator`` (``jax.random``'s threefry is
-not ported), so sampled runs are held by their properties.
+Sampling draws ``jax.random.categorical``'s tokens from a threefry key,
+so sampled runs equal the JAX package's for the same key, and are held
+by their properties too.
 """
 
 import itertools
@@ -32,6 +33,7 @@ import torch
 from rayfed_tpu.models import decode as jdecode
 from rayfed_tpu.models import transformer as jtfm
 from rayfed_tpu_torch.models import decode, transformer as tfm
+from rayfed_tpu_torch.privacy import threefry
 
 F32_TOL = 1e-5
 
@@ -125,12 +127,42 @@ def test_sampled_generate_deterministic_per_key_and_in_vocab():
     prompt = _t(_tokens(cfg.vocab, (2, 4), 7))
     gen = decode.make_generate_fn(cfg, max_new_tokens=5, temperature=0.8)
     a = gen(params, prompt, 8)
-    b = gen(params, prompt, torch.Generator().manual_seed(8))
+    b = gen(params, prompt, threefry.prng_key(8))
     c = gen(params, prompt, 9)
     assert torch.equal(a, b)
+    assert torch.equal(gen(params, prompt), gen(params, prompt, 0))
+    with pytest.raises(TypeError, match="threefry key"):
+        gen(params, prompt, torch.Generator().manual_seed(8))
     assert a.shape == (2, 9)
     assert ((a[:, 4:] >= 0) & (a[:, 4:] < cfg.vocab)).all()
     assert not torch.equal(a, c)
+
+
+_SAMPLING = [dict(temperature=0.8), dict(temperature=0.7, top_k=5),
+             dict(temperature=1.1, top_p=0.9),
+             dict(temperature=0.9, top_k=7, top_p=0.8, eos_id=3)]
+
+
+@pytest.mark.parametrize("kw", _SAMPLING,
+                         ids=["temp", "top_k", "top_p", "all_eos"])
+def test_sampled_generate_equals_the_jax_package_for_the_same_key(kw):
+    # jax.random.categorical's Gumbel-max over threefry, the key split
+    # once per token: the JAX package's tokens, key for key (tiny f32
+    # config; the logits agree within 1e-5).
+    jcfg, cfg = _cfgs()
+    jparams, params = _shared_params(jcfg, 6)
+    prompt = _tokens(cfg.vocab, (3, 4), 7)
+    jgen = jdecode.make_generate_fn(jcfg, max_new_tokens=8, **kw)
+    gen = decode.make_generate_fn(cfg, max_new_tokens=8, **kw)
+    for seed in (0, 3, 2**40 + 8):
+        want = np.asarray(jgen(jparams, jnp.asarray(prompt),
+                               jax.random.PRNGKey(seed)))
+        got = gen(params, _t(prompt), jax.random.PRNGKey(seed))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(got, gen(params, _t(prompt), seed))
+    np.testing.assert_array_equal(
+        gen(params, _t(prompt)).numpy(),
+        np.asarray(jgen(jparams, jnp.asarray(prompt))))
 
 
 @pytest.mark.parametrize("bad", [0, -3])

@@ -492,11 +492,9 @@ _REFUSED = [
     ({"jax_distributed": {"num_processes": 2, "process_id": 0}}, "item 17"),
     ({"party_mesh": {"device_ids": [0, 1]}}, "item 8"),
     ({"collective": {"coordinator": "127.0.0.1:1"}}, "item 12"),
-    ({"privacy": {"quantize": "int8"}}, "item 11"),
     ({"telemetry": {"collector": "alice"}}, "item 18"),
     ({"transport": "tpu"}, "item 4"),
     ({"transport": "grpc"}, "item 15"),
-    ({"cross_silo_comm": {"payload_wire_dtype": "int8"}}, "item 11"),
 ]
 
 
@@ -512,9 +510,9 @@ def test_unported_config_block_is_refused_at_init(config, item):
     assert get_global_context() is None and not tenancy_context.contexts()
 
 
-# The blocks of the planes ported since (ROADMAP item 10): init accepts
-# each and rejects a typo in it, before building any state, with the JAX
-# package's message.
+# The blocks of the planes ported since (ROADMAP items 10 and 11b): init
+# accepts each and rejects a typo in it, before building any state, with
+# the JAX package's message.
 _ACCEPTED_BLOCKS = [
     ("membership", {"membership": {"join_timeout_s": 5.0}},
      {"membership": {"join_timeout": 5.0}},
@@ -525,6 +523,14 @@ _ACCEPTED_BLOCKS = [
      {"aggregation": {"topology": "tree", "async_buffer_k": 2}},
      {"aggregation": {"topology": "tree", "async_bufer_k": 2}},
      r"unknown aggregation config key 'async_bufer_k'"),
+    ("privacy", {"privacy": {"quantize": "int8", "clip_norm": 1.0}},
+     {"privacy": {"quantise": "int8"}},
+     r"unknown privacy config key 'quantise'"),
+    ("wire_int8",
+     {"cross_silo_comm": {"payload_wire_dtype": "int8"},
+      "privacy": {"quantize": "int8"}},
+     {"cross_silo_comm": {"payload_wire_dtype": "int8"}},
+     r"payload_wire_dtype=\"int8\" requires the privacy plane"),
 ]
 
 
@@ -548,6 +554,11 @@ def test_ported_config_block_is_accepted_and_its_typo_rejected(
             from rayfed_tpu_torch import checkpoint
 
             assert checkpoint.get_default_checkpoint_config().keep == 2
+        elif block in ("privacy", "wire_int8"):
+            from rayfed_tpu_torch.privacy import get_privacy_manager
+
+            assert get_privacy_manager().config.quantize == "int8"
+            assert fed.privacy_ledger() == {}
         else:
             from rayfed_tpu_torch import async_rounds
 

@@ -23,7 +23,9 @@ checkpoint restart runs twice: in plaintext, and secure as the JAX
 package's (masked offers, mask streams keyed by the restored round tags);
 a pending masked group rides a cut and folds bitwise after it, and the
 async dropout chaos of ``tests/test_privacy.py`` recovers bitwise. The
-DP-ledger restore waits for ROADMAP item 11b.
+DP ledger survives a restart: its snapshot reloads into a fresh ledger
+(the JAX package's snapshot too), and a job cut carries it into the
+restarted party's privacy manager.
 """
 
 import json
@@ -480,6 +482,61 @@ def test_job_checkpoint_cut_roundtrip(tmp_path):
         got_w = np.asarray(restored.current()["params"]["g"])
         assert got_w.tobytes() == control_w.tobytes()
     finally:
+        ar.reset_sessions()
+        checkpoint.reset_default_checkpoint_config()
+
+
+def test_privacy_ledger_restore():
+    from rayfed_tpu.privacy.dp import PrivacyLedger as JLedger
+
+    from rayfed_tpu_torch.privacy.dp import PrivacyLedger
+
+    led = PrivacyLedger(1e-5)
+    led.record_round(["alice", "bob"], 1.1)
+    led.record_round(["alice"], 1.1)
+    snap = led.snapshot()
+    fresh = PrivacyLedger(1e-5)
+    fresh.restore(snap)
+    assert fresh.snapshot() == snap
+    assert fresh.epsilon("alice") == led.epsilon("alice") > 0
+    # The JAX package's ledger accrues the same snapshot, and each
+    # package reloads the other's.
+    jled = JLedger(1e-5)
+    jled.record_round(["alice", "bob"], 1.1)
+    jled.record_round(["alice"], 1.1)
+    assert jled.snapshot() == snap
+    jfresh = JLedger(1e-5)
+    jfresh.restore(snap)
+    assert jfresh.snapshot() == snap
+
+
+def test_job_cut_carries_the_dp_ledger(tmp_path):
+    from rayfed_tpu_torch.privacy import PrivacyConfig, PrivacyManager
+    from rayfed_tpu_torch.privacy.manager import set_privacy_manager
+
+    cfg = PrivacyConfig(clip_norm=1.0, noise_multiplier=1.3)
+    mgr = PrivacyManager("ha-ledger", "alice", cfg)
+    mgr.apply_dp({"w": torch.zeros(4)}, ["alice", "bob"], 0)
+    mgr.apply_dp({"w": torch.zeros(4)}, ["alice", "bob", "carol"], 1)
+    snap = mgr.ledger_snapshot()
+    assert snap["alice"]["rounds"] == 2 and snap["carol"]["rounds"] == 1
+    try:
+        ar.reset_sessions()
+        set_privacy_manager(mgr)
+        fed.save_job_state(str(tmp_path), step=3)
+        # The restart: a fresh manager with an empty ledger.
+        fresh = PrivacyManager("ha-ledger", "alice", cfg)
+        set_privacy_manager(fresh)
+        assert fed.privacy_ledger() == {}
+        st = fed.restore_job_state(str(tmp_path))
+        assert st["control"]["privacy_ledger"] == snap
+        assert fresh.ledger_snapshot() == snap == fed.privacy_ledger()
+        # Later rounds keep accruing on the restored budget.
+        fresh.apply_dp({"w": torch.zeros(4)}, ["alice"], 2)
+        assert fresh.ledger.epsilon("alice") == \
+            snap["alice"]["epsilon"] + (snap["carol"]["epsilon"])
+    finally:
+        set_privacy_manager(None)
         ar.reset_sessions()
         checkpoint.reset_default_checkpoint_config()
 

@@ -21,8 +21,10 @@ secure FedAvg), held against the JAX package where the two meet: the
 same trees and seeds give the JAX package's envelopes word for word and
 its aggregate bit for bit, in process and in a spawned job whose alice
 runs the JAX package and whose bob and carol run the port, with a JAX
-root and a torch root. DP and the int8 quantizer are refused, naming
-ROADMAP item 11b; the same-mesh modular sum names item 12.
+root and a torch root. The DP and quantizer keys are accepted with the
+JAX package's validation (their layers are held by
+tests/test_torch_dp.py and tests/test_torch_quantize.py); the same-mesh
+modular sum names item 12.
 """
 
 import itertools
@@ -135,7 +137,7 @@ def _assert_trees_bitwise(a, b):
 
 
 # ---------------------------------------------------------------------------
-# config["privacy"]: strict validation, and what waits for item 11b
+# config["privacy"]: strict validation, the DP and quantizer keys
 # ---------------------------------------------------------------------------
 
 
@@ -149,10 +151,10 @@ def test_unknown_privacy_key_rejected_with_known_list():
 def test_noise_without_clip_rejected():
     with pytest.raises(ValueError, match="clip_norm"):
         PrivacyConfig(noise_multiplier=1.0)
-    # Clipping alone is legal in the JAX package; here it is the DP
-    # layer, which waits for item 11b.
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        PrivacyConfig(clip_norm=1.0)
+    # Clipping alone is legal, as in the JAX package, and so is noise
+    # with its clip.
+    assert PrivacyConfig(clip_norm=1.0).clip_norm == 1.0
+    assert PrivacyConfig(clip_norm=1.0, noise_multiplier=1.0).delta == 1e-5
 
 
 def test_fixedpoint_bits_bounds():
@@ -186,41 +188,78 @@ def test_init_rejects_privacy_typo_before_any_state():
 
 
 def test_init_rejects_int8_wire_naming_item_11b():
-    # The JAX package gates the int8 tier on privacy.quantize; here the
-    # tier itself waits for item 11b, with or without the knob.
+    # As the JAX package does, init gates the int8 tier on
+    # privacy.quantize (naming the knob) and takes it with the knob.
     from rayfed_tpu_torch._private.global_context import get_global_context
 
     addresses = get_addresses(["alice"])
     comm = dict(FAST_COMM_CONFIG, payload_wire_dtype="int8")
-    for privacy in (None, {"quantize": "int8"}):
+    for privacy in (None, {"secure_aggregation": True}):
         config = {"cross_silo_comm": comm}
         if privacy is not None:
             config["privacy"] = privacy
-        with pytest.raises(NotImplementedError, match="item 11b"):
+        with pytest.raises(ValueError, match=r'\["quantize"\] = "int8"'):
             fed.init(addresses=addresses, party="alice", config=config)
         assert get_global_context() is None
+    fed.init(addresses=addresses, party="alice", config={
+        "cross_silo_comm": comm, "privacy": {"quantize": "int8"}})
+    try:
+        from rayfed_tpu_torch.privacy import get_privacy_manager
+
+        assert get_privacy_manager().config.quantize == "int8"
+    finally:
+        fed.shutdown()
+    assert get_global_context() is None
 
 
 _DP_KEYS = [("clip_norm", 1.0), ("noise_multiplier", 0.0),
             ("noise_seed", 3), ("quantize", "int8"), ("error_feedback", False)]
 
 
+#: A value of each key the JAX package's validation refuses (None: the
+#: key takes any value of its type).
+_DP_BAD = {"clip_norm": (0.0, "clip_norm must be > 0"),
+           "noise_multiplier": (-1.0, "noise_multiplier must be >= 0"),
+           "noise_seed": None,
+           "quantize": ("int4", "quantize must be one of"),
+           "error_feedback": None}
+
+
 @pytest.mark.parametrize("key, value", _DP_KEYS, ids=[k for k, _ in _DP_KEYS])
 def test_dp_and_quantizer_keys_name_item_11b(key, value):
+    # Each DP and quantizer key is accepted, by the config and by init,
+    # and validated as the JAX package validates it.
+    from rayfed_tpu.privacy import PrivacyConfig as JConfig
+
     from rayfed_tpu_torch._private.global_context import get_global_context
+    from rayfed_tpu_torch.privacy import get_privacy_manager
     from rayfed_tpu_torch.tenancy import context as tenancy_context
 
-    with pytest.raises(NotImplementedError, match=f"privacy.{key}.*item 11b"):
-        PrivacyConfig.from_dict({"secure_aggregation": True, key: value})
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        fed.init(addresses=get_addresses(["alice"]), party="alice",
-                 config={"privacy": {key: value}})
-    assert get_global_context() is None and not tenancy_context.contexts()
-    # Each key's default is accepted.
-    PrivacyConfig.from_dict({key: PrivacyConfig().as_dict()[key]})
+    cfg = PrivacyConfig.from_dict({"secure_aggregation": True, key: value})
+    assert cfg.as_dict() == JConfig.from_dict(
+        {"secure_aggregation": True, key: value}).as_dict()
+    bad = _DP_BAD[key]
+    if bad is not None:
+        with pytest.raises(ValueError, match=bad[1]):
+            PrivacyConfig.from_dict({key: bad[0]})
+        with pytest.raises(ValueError, match=bad[1]):
+            JConfig.from_dict({key: bad[0]})
+        with pytest.raises(ValueError, match=bad[1]):
+            fed.init(addresses=get_addresses(["alice"]), party="alice",
+                     config={"privacy": {key: bad[0]}})
+        assert get_global_context() is None
+        assert not tenancy_context.contexts()
+    fed.init(addresses=get_addresses(["alice"]), party="alice",
+             config={"privacy": {key: value}})
+    try:
+        assert getattr(get_privacy_manager().config, key) == value
+    finally:
+        fed.shutdown()
 
 
 def test_restoring_a_dp_ledger_names_item_11b(tmp_path):
+    # A cut that holds a DP ledger restores it into the installed
+    # manager (the spent budget survives the restart).
     from rayfed_tpu_torch import checkpoint
 
     path = checkpoint.step_dir(str(tmp_path), 1)
@@ -229,11 +268,17 @@ def test_restoring_a_dp_ledger_names_item_11b(tmp_path):
     os.makedirs(path)
     with open(os.path.join(path, checkpoint._META_FILE), "w") as f:
         f.write('{"step": 1, "kind": "job", "has_arrays": []}')
+    ledger = {"alice": {"epsilon": 1.0, "delta": 1e-5, "rounds": 2}}
     checkpoint._save_tree(
         os.path.join(path, checkpoint._CONTROL_FILE),
-        {"privacy_ledger": {"alice": {"epsilon": 1.0}}})
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        checkpoint.restore_job_state(str(tmp_path), step=1, install=False)
+        {"privacy_ledger": ledger})
+    got = checkpoint.restore_job_state(str(tmp_path), step=1, install=False)
+    assert got["control"]["privacy_ledger"] == ledger
+    mgr = _manager("alice", clip_norm=1.0, noise_multiplier=1.0)
+    set_privacy_manager(mgr)
+    checkpoint.restore_job_state(str(tmp_path), step=1, install=True)
+    assert mgr.ledger_snapshot() == ledger
+    assert fed.privacy_ledger() == ledger
 
 
 def test_secure_aggregate_needs_the_privacy_plane():
@@ -694,6 +739,16 @@ def test_privacy_metrics_registered_and_bumped():
     root.store_recovery("carol", "bob", PAIR_SEEDS[("bob", "carol")])
     root.secure_reduce("mean", PARTIES3, "dom", 0, None, envs)
     assert _total("fed_privacy_dropout_recoveries_total") == rec0 + 1
+
+    saved0 = _total("fed_privacy_quantized_bytes_saved_total")
+    from rayfed_tpu_torch._private import serialization as ser
+
+    ser.encode_payload(
+        {"g": torch.zeros(256)},
+        wire_dtype=ser.wire_dtype_name("int8"),
+    )
+    assert _total("fed_privacy_quantized_bytes_saved_total") == \
+        saved0 + 256 * 3  # 4-byte leaves shipped as 1 byte
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,9 @@
 speculative.py``) on the CPU: the six unsharded cases of
 ``test_speculative.py`` on the JAX package's params carried over, plus
 greedy speculative output against the JAX package's greedy target
-decode, and the refusal of ``mesh=`` (ROADMAP Queue 1 item 8)."""
+decode, sampled speculative tokens against the JAX package's for the
+same threefry key, and the refusal of ``mesh=`` (ROADMAP Queue 1 item
+8)."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ import torch
 from rayfed_tpu.models import decode as jdecode
 from rayfed_tpu.models import transformer as jtfm
 from rayfed_tpu_torch.models import decode, speculative, transformer as tfm
+from rayfed_tpu_torch.privacy import threefry
 
 
 def _pair(seed, **kw):
@@ -115,10 +118,10 @@ def test_sampled_speculative_matches_exact_target_distribution():
     spec = speculative.make_speculative_generate_fn(
         cfg, dcfg, max_new_tokens=t_new, k_draft=k, temperature=temp)
     n_samples = 4096
-    gen = torch.Generator().manual_seed(7)
     emp = np.zeros_like(exact)
-    for _ in range(n_samples):
-        t1, t2 = spec(params, dparams, prompt, gen)[0, -t_new:].tolist()
+    for i in range(n_samples):
+        key = threefry.fold_in(threefry.prng_key(7), i)
+        t1, t2 = spec(params, dparams, prompt, key)[0, -t_new:].tolist()
         emp[t1, t2] += 1.0 / n_samples
     # Per-cell binomial sd <= sqrt(0.25/n) ~ 0.008; 3.5 sigma ~ 0.03.
     np.testing.assert_allclose(emp, exact, atol=0.03)
@@ -168,6 +171,32 @@ def test_greedy_speculative_matches_jax_greedy_target():
         cfg, dcfg, max_new_tokens=5, k_draft=3)(
         tp, dp, torch.from_numpy(prompt.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("temperature", [0.8, 1.3])
+def test_sampled_speculative_equals_the_jax_package_for_the_same_key(
+        temperature):
+    # fold_in per round position and per proposal, uniform acceptance
+    # and the residual's categorical: the JAX package's tokens.
+    jcfg, cfg, jp, tp = _pair(6, vocab=16, d_model=32, n_heads=4,
+                              n_layers=2, d_ff=64)
+    _, _, jd, td = _pair(9, vocab=16, d_model=32, n_heads=4,
+                         n_layers=2, d_ff=64)
+    from rayfed_tpu.models import speculative as jspec
+
+    prompt = np.random.default_rng(7).integers(0, 16, (2, 6))
+    jfn = jspec.make_speculative_generate_fn(
+        jcfg, jcfg, max_new_tokens=10, k_draft=3, temperature=temperature,
+        return_stats=True)
+    fn = speculative.make_speculative_generate_fn(
+        cfg, cfg, max_new_tokens=10, k_draft=3, temperature=temperature,
+        return_stats=True)
+    for seed in (1, 2, 5):
+        want, jrounds = jfn(jp, jd, jnp.asarray(prompt, jnp.int32),
+                            jax.random.PRNGKey(seed))
+        got, rounds = fn(tp, td, torch.from_numpy(prompt), seed)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert rounds == int(jrounds)
 
 
 def test_sharded_speculative_is_refused():

@@ -18,11 +18,15 @@ partitionable, x64 off): ``PRNGKey`` on seeds past 32 bits (whose high
 word JAX drops), ``fold_in`` chains, ``bits(dtype=uint32)`` on every
 shape class, any range of a stream from its counters alone, and the
 secure-aggregation mask streams built on them
-(``secagg.mask_stream``) against the JAX package's.
+(``secagg.mask_stream``) against the JAX package's; ``split`` and the
+float draws (``uniform``, ``normal``, ``gumbel``, ``categorical``) and
+XLA's CPU ``log``, ``log1p`` and ``erf_inv`` beneath them, bit for bit
+(special values included).
 """
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -131,3 +135,128 @@ def test_mask_stream_equals_the_jax_package(seed, domain, rnd, leaf):
     got = secagg.mask_stream(seed, domain, rnd, leaf, (5, 7))
     assert want.dtype == np.uint32
     assert got.numpy().astype(np.uint32).tobytes() == want.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# split and the float draws
+# ---------------------------------------------------------------------------
+
+
+def _f32_bits(x):
+    if isinstance(x, torch.Tensor):
+        x = x.numpy()
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**40 + 5])
+@pytest.mark.parametrize("num", [1, 2, 3, 5])
+def test_split_equals_jax(seed, num):
+    want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+    got = threefry.split(threefry.prng_key(seed), num)
+    assert [tuple(int(v) for v in row) for row in want] == got
+    # A split key chains like any key.
+    assert threefry.split(got[-1])[0] == _key_words(
+        jax.random.split(want[-1])[0])
+
+
+RANGES = [(0.0, 1.0), (-3.3, 7.1), (0.5, 0.75), (1.1754943508222875e-38, 1.0)]
+
+
+@pytest.mark.parametrize("shape", [(), (7,), (37, 53), (4099,)])
+@pytest.mark.parametrize("lo, hi", RANGES, ids=["unit", "wide", "narrow",
+                                                "tiny"])
+def test_uniform_equals_jax(shape, lo, hi):
+    jkey, tkey = _chain(11, 2)
+    want = jax.random.uniform(jkey, shape, minval=lo, maxval=hi)
+    got = threefry.uniform(tkey, shape, lo, hi)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(_f32_bits(got), _f32_bits(want))
+
+
+@pytest.mark.parametrize("seed", [7, 2**40 + 5])
+def test_normal_equals_jax(seed, monkeypatch):
+    # 2**16 draws reach both erf_inv branches (|z| > 2.9 is w >= 5);
+    # small chunks make the stream cross several of them.
+    monkeypatch.setattr(threefry, "CHUNK_WORDS", 10007)
+    jkey, tkey = _chain(seed, 1)
+    want = jax.random.normal(jkey, (256, 256))
+    got = threefry.normal(tkey, (256, 256))
+    assert (np.abs(np.asarray(want)) > 2.9).sum() > 50
+    np.testing.assert_array_equal(_f32_bits(got), _f32_bits(want))
+
+
+@pytest.mark.parametrize("shape", [(5,), (64, 129)])
+def test_gumbel_equals_jax(shape):
+    jkey, tkey = _chain(3, 3)
+    np.testing.assert_array_equal(
+        _f32_bits(threefry.gumbel(tkey, shape)),
+        _f32_bits(jax.random.gumbel(jkey, shape)))
+
+
+@pytest.mark.parametrize("shape", [(9,), (4, 1000), (2, 3, 50)])
+def test_categorical_equals_jax(shape):
+    rng = np.random.default_rng(sum(shape))
+    logits = (rng.standard_normal(shape) * 3).astype(np.float32)
+    logits[..., 1] = -np.inf  # a masked category is never drawn
+    for seed in range(4):
+        jkey, tkey = _chain(seed, 1)
+        want = np.asarray(jax.random.categorical(jkey, logits, axis=-1))
+        got = threefry.categorical(tkey, torch.from_numpy(logits))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (got != 1).all()
+    with pytest.raises(TypeError, match="float32"):
+        threefry.categorical(tkey, torch.zeros(3, dtype=torch.float64))
+
+
+_F32_MIN = np.finfo(np.float32).tiny
+
+
+def _log_inputs():
+    rng = np.random.default_rng(0)
+    wide = np.exp(rng.uniform(-87, 88, 1 << 16)).astype(np.float32)
+    unit = rng.uniform(0, 1, 1 << 16).astype(np.float32)
+    edges = np.array([0.0, -0.0, 1e-40, -1e-40, _F32_MIN, 1.0, 0.5,
+                      0.70710677, 0.7071068, 2.0, np.inf, 3.4e38],
+                     np.float32)
+    return np.concatenate([wide, unit, edges])
+
+
+def test_xla_log_equals_jax_log():
+    x = _log_inputs()
+    want = np.asarray(jax.jit(jnp.log)(x))
+    got = threefry.xla_log(torch.from_numpy(x))
+    np.testing.assert_array_equal(_f32_bits(got), _f32_bits(want))
+    # Outside the domain: NaN for a negative or NaN input.
+    bad = np.array([-1.0, -3e-30, np.nan], np.float32)
+    assert np.isnan(np.asarray(jax.jit(jnp.log)(bad))).all()
+    assert torch.isnan(threefry.xla_log(torch.from_numpy(bad))).all()
+
+
+def test_xla_log1p_equals_jax_log1p():
+    rng = np.random.default_rng(1)
+    x = np.concatenate([
+        rng.uniform(-0.999, 3.0, 1 << 16),
+        rng.uniform(-0.45, 0.45, 1 << 16),  # both sides of sqrt(2) - 1
+        np.exp(rng.uniform(-80, 80, 1 << 14)),
+        [0.0, -0.0, 1e-40, 0.41421354, 0.41421357, -0.41421357, -1.0,
+         np.inf]]).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.log1p)(x))
+    got = threefry.xla_log1p(torch.from_numpy(x))
+    np.testing.assert_array_equal(_f32_bits(got), _f32_bits(want))
+
+
+def test_xla_erf_inv_equals_jax_erf_inv():
+    rng = np.random.default_rng(2)
+    near_one = 1.0 - np.exp(rng.uniform(-16.5, -1, 1 << 15))
+    x = np.concatenate([
+        rng.uniform(-1, 1, 1 << 16), near_one, -near_one,
+        [0.0, -0.0, 1.0, -1.0, 0.99999994, -0.99999994]]).astype(np.float32)
+    want = np.asarray(jax.jit(jax.lax.erf_inv)(x))
+    got = threefry.xla_erf_inv(torch.from_numpy(x))
+    np.testing.assert_array_equal(_f32_bits(got), _f32_bits(want))
+
+
+def test_as_key_takes_keys_and_seeds():
+    assert threefry.as_key(5) == threefry.prng_key(5)
+    assert threefry.as_key(jax.random.PRNGKey(2**40 + 5)) == (0, 5)
+    assert threefry.as_key((1, 2)) == (1, 2)

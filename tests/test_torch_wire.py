@@ -98,7 +98,7 @@ def _pair_cases():
 
 
 _PAIRS = _pair_cases()
-_WIRE = [None, "bfloat16", "float16"]
+_WIRE = [None, "bfloat16", "float16", "int8"]
 
 
 def _buffers_bytes(buffers):
@@ -120,6 +120,10 @@ def _leaf_record(x):
     if isinstance(x, torch.Tensor):
         arr, name = ser._tensor_to_host(x)
         return name, tuple(arr.shape), arr.tobytes()
+    if isinstance(x, np.generic):
+        # The JAX package's int8-tier decode returns a 0-d leaf as a
+        # numpy scalar (``(arr * qs).astype(odt)`` on a 0-d array).
+        x = np.asarray(x)
     if isinstance(x, np.ndarray):
         native = np.ascontiguousarray(x, x.dtype.newbyteorder("="))
         return x.dtype.name, x.shape, native.tobytes()
@@ -430,8 +434,10 @@ def test_unknown_knob_rejected():
 
 
 def test_int8_knob_names_its_roadmap_item():
-    with pytest.raises(ValueError, match="item 11b"):
-        ser.wire_dtype_name("int8")
+    # The privacy plane's quantized tier: the knob names the int8 wire
+    # dtype in both packages (fed.init gates it on privacy.quantize).
+    assert ser.wire_dtype_name("int8") == "int8"
+    assert ser.wire_dtype_name("INT8") == jser.wire_dtype_name("int8")
 
 
 def test_off_by_default_bitwise_exact():
@@ -446,8 +452,9 @@ def test_big_endian_source_array_roundtrips_correctly():
 
 
 def test_int8_tier_frames_from_the_jax_package_decode():
-    # The quantized tier is the privacy plane's (item 11b), but its
-    # frames decode: the scale rides the meta and dequantizes to odt.
+    # The quantized tier's frames decode: the scale rides the meta and
+    # dequantizes to odt (tests/test_torch_quantize.py holds the port's
+    # own int8 frames byte for byte).
     x = np.linspace(-1.0, 1.0, 33, dtype=np.float32)
     meta, bufs = jser.try_encode_tree({"g": x}, wire_dtype="int8")
     ref = jser.decode_payload("tree", meta, jser.concat_buffers(bufs))["g"]
