@@ -20,6 +20,7 @@
     python3 chip_smoke.py --async-only     # phases 1, 2 and 8 alone
     python3 chip_smoke.py --family-only    # phases 1, 2 and 9 alone
     python3 chip_smoke.py --privacy-only   # phases 1, 2 and 10 alone
+    python3 chip_smoke.py --dma-only       # phases 1, 2 and 11 alone
 
 Phases:
 
@@ -204,6 +205,31 @@ Phases:
    bytes a quarter of the f32 bytes and ``quantized_bytes_saved`` up by
    three quarters. Prints the clip's, the noise's and the push's ms
    (beside phase 5's f32 push) and the moments.
+
+11. dma: the device-DMA push lane (``rayfed_tpu_torch/proxy/cuda/dma.py``),
+   two spawned party processes on the card with ``transport="cuda"`` and
+   ``cross_silo_comm.device_dma``: a pushed tree whose every leaf is on
+   the card is snapshotted there into one ``cudaMalloc`` buffer when it
+   resolves, only a descriptor crosses the socket, and the receiver
+   pulls it by CUDA IPC. (a) Phase 5's round program at its width, depth
+   and batch: its checks (a)-(g), and every params, aggregate and bf16
+   push pulled by the ``ipc`` engine, none by another; the root's
+   aggregate on the card bitwise the CPU fold of the two trees; each
+   sender's lane holds no snapshot after the pulls. (b) A 4 MiB tree
+   (bob's first pull, which brings up his CUDA context and the lane's
+   library), then one push of the flagship f32 tree at full depth and at
+   its initialization, alice to bob: bitwise, by ``ipc``; the card's
+   free memory after the pull, less what the parties' allocators took
+   meanwhile, within 64 MiB of before it (the snapshot is outside
+   PyTorch's allocator), and the owner's lane empty. (c)
+   ``examples/split_learning.py`` as on the card, 10 steps: the loss
+   falls, every activation and gradient push by ``ipc``. (d) A tree
+   with a string leaf rides the socket lane. Prints each push's ms
+   (from the owner's capture to the receiver's tensors on its card),
+   GB/s, its ``stage`` (the snapshot), ``send``
+   (the descriptor) and ``pull`` spans (the pull's request, allocation,
+   IPC open, copy and close) beside the bound of two device copies, the
+   split-learning ms a step, and phase 5's native push of the same run.
 
 Every phase prints its wall seconds. It needs a CUDA card and exits
 non-zero without one. The last two lines
@@ -1108,46 +1134,87 @@ def _span_ms(sp):
     return None if sp is None else 1e3 * sp.duration_s
 
 
-def _arrive(tree, device, t_sent=None):
+def _arrive(tree, device, t_sent=None, kind="decode"):
     """The receiving end of a push: the tree's leaves on ``device`` and
     what the push took. ``push_ms`` runs from ``t_sent`` (the owner's wall
     clock when its value resolved) to the leaves on the device: until the
-    frame finished decoding (its ``decode`` span), plus the timed copy to
-    the device. Also the digest of the bytes that arrived."""
+    frame finished decoding (its ``decode`` span; ``kind`` "pull": the
+    device-DMA lane's pull, whose leaves land on the card), plus the timed
+    copy to the device. ``arrived_at`` is that end on the wall clock. Also
+    the digest of the bytes that arrived and, for a pull, its engine."""
     import torch
 
     from rayfed_tpu_torch import tree_util
 
     nbytes = _tree_nbytes(tree)
-    dec = _last_span("decode", nbytes)
+    dec = _last_span(kind, nbytes)
     leaves, spec = tree_util.tree_flatten(tree)
     t = time.perf_counter()
     on_dev = [x.to(device) for x in leaves]
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     h2d_ms = 1e3 * (time.perf_counter() - t)
-    push_ms = None
-    if dec is not None and t_sent is not None:
-        decoded_at = dec.start_s + dec.duration_s + time.time() \
-            - time.perf_counter()
-        push_ms = 1e3 * (decoded_at - t_sent) + h2d_ms
+    push_ms = arrived_at = None
+    if dec is not None:
+        arrived_at = dec.start_s + dec.duration_s + time.time() \
+            - time.perf_counter() + h2d_ms / 1e3
+        if t_sent is not None:
+            push_ms = 1e3 * (arrived_at - t_sent)
     info = dict(nbytes=nbytes, push_ms=push_ms, h2d_ms=h2d_ms,
-                decode_ms=_span_ms(dec), digest=_tree_digest(tree))
+                arrived_at=arrived_at, digest=_tree_digest(tree),
+                **{f"{kind}_ms": _span_ms(dec)})
+    if kind == "pull":
+        extra = {} if dec is None else dec.extra
+        info["engine"] = extra.get("engine")
+        # The pull's request, and an IPC pull's alloc, open, copy, close.
+        info["pull_parts"] = {k[:-3]: v for k, v in extra.items()
+                              if k.endswith("_ms")}
     return tree_util.tree_unflatten(on_dev, spec), info
 
 
 def _sender_spans(nbytes):
-    """This process's host staging (``stage``) and socket send (``send``)
-    ms of its latest push of ``nbytes`` or more."""
-    return dict(stage_ms=_span_ms(_last_span("stage", nbytes)),
-                send_ms=_span_ms(_last_span("send", nbytes)))
+    """This process's capture (``stage``: host staging, or the device-DMA
+    lane's snapshot on the card) and socket send (``send``: of the frame
+    carrying that push, a descriptor on the DMA lane) ms of its latest push
+    of ``nbytes`` or more, and the capture's start on the wall clock."""
+    from rayfed_tpu_torch import tracing
+
+    stage = _last_span("stage", nbytes)
+    if stage is None:
+        return dict(stage_ms=None, send_ms=None, stage_start=None)
+    key = (stage.upstream_seq_id, stage.downstream_seq_id)
+    sends = [sp for sp in tracing.get_spans("send")
+             if (str(sp.upstream_seq_id), str(sp.downstream_seq_id)) == key]
+    return dict(stage_ms=_span_ms(stage),
+                send_ms=_span_ms(sends[-1] if sends else None),
+                stage_start=stage.start_s + time.time() - time.perf_counter())
+
+
+def _idle_lane_stats(timeout_s=30.0):
+    """This process's device-DMA lane stats once it holds no snapshot (a
+    sender frees one when its receiver says it is done), or at the
+    timeout."""
+    from rayfed_tpu_torch.proxy.cuda import dma
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        st = dma.stats()
+        if (st["device_snapshots"] == 0 and st["parked"] == 0) \
+                or time.monotonic() > deadline:
+            return st
+        time.sleep(0.02)
 
 
 def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
-                 local_steps, lr):
+                 local_steps, lr, dma=False):
     """Phase 5's driver: the same program runs in every party. Returns
     what the parent checks and prints; every value in it reached this
-    party through ``fed.get``, so both parties return the same."""
+    party through ``fed.get``, so both parties return the same. With
+    ``dma`` (phase 11) the parties run ``transport="cuda"`` with
+    ``device_dma``: the pushed values are the bare param trees (the
+    device-DMA lane takes a tree whose every leaf is on the card), the
+    receiver's ``pull`` span and engine are recorded, and the root holds
+    each aggregate against the CPU fold of the two trees."""
     import numpy as np
     import torch
 
@@ -1172,7 +1239,17 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
 
     tracing.enable()
     fed.init(addresses=addresses, party=party, logging_level="warning",
-             config={"cross_silo_comm": FED_COMM})
+             transport="cuda" if dma else "tcp",
+             config={"cross_silo_comm": dict(FED_COMM, device_dma=True)
+                     if dma else FED_COMM})
+    kind = "pull" if dma else "decode"
+
+    def wrap(tree):
+        """A pushed tree: with the owner's clock on the TCP lane."""
+        return tree if dma else {"params": tree, "t": time.time()}
+
+    def unwrap(value):
+        return (value, None) if dma else (value["params"], value["t"])
 
     @fed.remote
     class LocalTrainer:
@@ -1201,7 +1278,7 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
                 self._step(blk)
             # The owner's digest of what it pushes, then the push.
             self.sent = _tree_digest(self.params)
-            return {"params": self.params, "t": time.time()}
+            return wrap(self.params)
 
         def step_after_push(self, r):
             # The next opt.step() rewrites the pushed tensors in place
@@ -1214,9 +1291,9 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
 
         def load(self, agg):
             info = None
-            params = agg["params"]
+            params, t_sent = unwrap(agg)
             if self.name != root:
-                params, info = _arrive(params, device, agg["t"])
+                params, info = _arrive(params, device, t_sent, kind)
             with torch.no_grad():
                 for p, a in zip(tree_util.tree_flatten(self.params)[0],
                                 tree_util.tree_flatten(params)[0]):
@@ -1254,12 +1331,24 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
 
     @fed.remote
     def aggregate(mine, theirs):
-        params, info = _arrive(theirs["params"], device, theirs["t"])
+        tree, t_sent = unwrap(theirs)
+        params, info = _arrive(tree, device, t_sent, kind)
+        mine = unwrap(mine)[0]
         with torch.no_grad():
-            agg = tree_mean(mine["params"], params)
+            agg = tree_mean(mine, params)
+        if dma:
+            # As phase 6 (b): the fold on the card against the CPU's.
+            host = [tree_util.tree_map(lambda x: x.cpu(), t)
+                    for t in (mine, params, agg)]
+            want = tree_mean(host[0], host[1])
+            info["fold_mismatched"] = sum(
+                int((_int_view(a) != _int_view(b)).sum()) for a, b in zip(
+                    tree_util.tree_flatten(host[2])[0],
+                    tree_util.tree_flatten(want)[0]))
+            del host, want
         # The owner's digest of what it pushes, then the push.
         info["owner_digest_next"] = _tree_digest(agg)
-        return {"params": agg, "t": time.time()}, info
+        return wrap(agg), info
 
     @fed.remote
     def sender_spans(nbytes):
@@ -1268,6 +1357,10 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
     @fed.remote
     def received_digest(tree):
         return _arrive(tree, device)[1]["digest"]
+
+    @fed.remote
+    def lane_stats():
+        return _idle_lane_stats()
 
     if on_cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -1296,6 +1389,11 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
         params_push.update(spans[1], owner_digest=sent)
         aggregate_push.update(spans[0],
                               owner_digest=params_push.pop("owner_digest_next"))
+        if dma:
+            # From the owner's capture to the receiver's tensors on its card.
+            for push in (params_push, aggregate_push):
+                push["push_ms"] = 1e3 * (push["arrived_at"]
+                                         - push["stage_start"])
         evals.append(fed.get(trainers[root].eval_loss.remote()))
         rounds_out.append(dict(
             wall_s=time.perf_counter() - t0,
@@ -1305,9 +1403,12 @@ def _fed_program(party, addresses, device, cfg_kw, batch, seq, rounds,
     bf16 = fed.get([trainers[other].sent_digest.remote(),
                     received_digest.party(root).remote(bf)])
     reports = fed.get([trainers[n].report.remote() for n in names])
+    lane_states = fed.get([lane_stats.party(n).remote() for n in names]) \
+        if dma else None
     fed.shutdown()
     return dict(party=party, evals=evals, rounds=rounds_out,
-                bf16_digests=bf16, reports=dict(zip(names, reports)))
+                bf16_digests=bf16, reports=dict(zip(names, reports)),
+                lanes=lane_states and dict(zip(names, lane_states)))
 
 
 def _fed_program_python_io(party, addresses, *args):
@@ -1415,9 +1516,11 @@ def spawn_parties(program, args, timeout_s, names=None):
     return results, wall
 
 
-def check_fed(results, device, wall, label="", io_path="native"):
+def check_fed(results, device, wall, label="", io_path="native", dma=False):
     """Phase 5's checks (a)-(g) over both parties' results, and its
-    report: per round the wall time and each push's ms, GB/s and split."""
+    report: per round the wall time and each push's ms, GB/s and split
+    (with ``dma``, phase 11's: the snapshot, the descriptor's send and the
+    pull, beside the bound of two device copies)."""
     import torch
 
     root, other = (n for n, _ in PARTIES)
@@ -1448,9 +1551,10 @@ def check_fed(results, device, wall, label="", io_path="native"):
     def ms(v):
         return "not measured" if v is None else f"{v:.1f} ms"
 
-    print(f"[fed] {label} two party processes, {len(res['rounds'])} rounds "
+    tag = "[dma]" if dma else "[fed]"
+    print(f"{tag} {label} two party processes, {len(res['rounds'])} rounds "
           f"in {wall:.1f} s from spawn to exit; IO path {paths}")
-    print(f"[fed] {label} aggregate eval loss per round {res['evals']}")
+    print(f"{tag} {label} aggregate eval loss per round {res['evals']}")
     for r, rnd in enumerate(res["rounds"]):
         parts = [f"round {r}: wall {rnd['wall_s']:.2f} s"]
         for push in ("params_push", "aggregate_push"):
@@ -1460,14 +1564,23 @@ def check_fed(results, device, wall, label="", io_path="native"):
                     f", {got['nbytes'] / total / 1e6:.3f} GB/s")
             share = ("" if total is None or got["stage_ms"] is None else
                      f" ({100 * got['stage_ms'] / total:.1f}%)")
+            if dma:
+                parts.append(
+                    f"{push} {got['nbytes']} B by {got['engine']}: "
+                    f"{ms(total)}{rate}; snapshot on the card "
+                    f"{ms(got['stage_ms'])}{share}, descriptor send "
+                    f"{ms(got['send_ms'])}, pull {ms(got['pull_ms'])} "
+                    f"({_fmt_parts(got['pull_parts'])}); bound "
+                    f"{dma_bound_ms(got['nbytes']):.2f} ms")
+                continue
             parts.append(
                 f"{push} {got['nbytes']} B: {ms(total)}{rate}; host staging "
                 f"{ms(got['stage_ms'])}{share}, send {ms(got['send_ms'])}, "
                 f"decode {ms(got['decode_ms'])}, to the card "
                 f"{ms(got['h2d_ms'])}")
-        print(f"[fed] {label} " + "; ".join(parts))
+        print(f"{tag} {label} " + "; ".join(parts))
     for n, rep in res["reports"].items():
-        print(f"[fed] {label} party {n}: train launches {rep['launches']}, "
+        print(f"{tag} {label} party {n}: train launches {rep['launches']}, "
               f"evaluations {rep['eval_launches']}, max_memory_allocated "
               f"{rep['max_memory_allocated']}")
     return results
@@ -4390,6 +4503,268 @@ def run_privacy(smi, f32_push=None):
     _phase_wall(10, t, smi)
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 11: the device-DMA push lane
+# ---------------------------------------------------------------------------
+
+DMA_TIMEOUT_S = 300
+
+
+def _fmt_parts(parts):
+    if not parts:
+        return "not split"
+    return ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + " ms"
+
+
+def dma_bound_ms(nbytes):
+    """The least time a push of ``nbytes`` between two processes on one
+    card could take: two device copies (the sender's snapshot and the
+    receiver's pull), each reading and writing every byte once."""
+    return 1e3 * 2 * (2 * nbytes) / PEAK_BYTES_PER_S
+
+
+def _card_memory(dev):
+    """The card's free bytes (all processes) and this process's bytes in
+    PyTorch's allocator."""
+    import torch
+
+    return dict(free=torch.cuda.mem_get_info(dev)[0],
+                reserved=torch.cuda.memory_reserved(dev))
+
+
+def _dma_push_program(party, addresses, device, cfg_kw):
+    """Phase 11 (b) and (d): alice pushes a 4 MiB tree to bob over the
+    device-DMA lane (bob's first pull: his CUDA context and the lane's
+    library come up in it), then the flagship f32 tree at its
+    initialization, then a tree with a string leaf. The owner reads the
+    card's free memory before the warm-up push, before the big push and
+    after its pull; bob reports what his allocator holds after each
+    pull."""
+    import torch
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import mesh, tracing, tree_util
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.proxy.cuda import dma
+
+    cfg = tfm.TransformerConfig(**cfg_kw)
+    tracing.enable()
+    fed.init(addresses=addresses, party=party, logging_level="warning",
+             transport="cuda",
+             config={"cross_silo_comm": dict(FED_COMM, device_dma=True)})
+    dev = mesh.get_party_device()
+
+    @fed.remote
+    class Owner:
+        def __init__(self):
+            self.params = tfm.init_params(0, cfg, dev)
+            self.digest = _tree_digest(self.params)
+            self.memory = []
+
+        def warm(self):
+            self.memory.append(_card_memory(dev))
+            return {"w": torch.ones(1 << 20, device=dev)}
+
+        def push(self):
+            self.memory.append(_card_memory(dev))
+            return self.params
+
+        def after(self):
+            # Read once the lane freed the snapshot (the server frees it
+            # when bob says "done", before bob's receive ends).
+            lane = _idle_lane_stats()
+            return dict(digest=self.digest, lane=lane,
+                        memory=self.memory + [_card_memory(dev)])
+
+    @fed.remote
+    def receive(tree):
+        _, info = _arrive(tree, dev, kind="pull")
+        info["devices"] = sorted({str(x.device)
+                                  for x in tree_util.tree_flatten(tree)[0]})
+        del tree, _
+        # What bob holds on the card when the owner next reads its free
+        # memory: the pulled buffer (the runtime may still hold the tree).
+        torch.cuda.empty_cache()
+        info["reserved"] = torch.cuda.memory_reserved(dev)
+        return info
+
+    @fed.remote
+    def sender_spans(nbytes):
+        return _sender_spans(nbytes)
+
+    @fed.remote
+    def mixed():
+        return {"tag": "socket lane",
+                "w": torch.arange(1024, dtype=torch.float32, device=dev)}
+
+    @fed.remote
+    def receive_mixed(tree):
+        return dict(tag=tree["tag"], device=str(tree["w"].device),
+                    bitwise=bool(torch.equal(tree["w"].cpu(),
+                                             torch.arange(1024.0))),
+                    pulls=dma.stats()["pulls"])
+
+    owner = Owner.party("alice").remote()
+    first = fed.get(receive.party("bob").remote(owner.warm.remote()))
+    info = fed.get(receive.party("bob").remote(owner.push.remote()))
+    after = fed.get(owner.after.remote())
+    info.update(fed.get(sender_spans.party("alice").remote(info["nbytes"])))
+    info["push_ms"] = 1e3 * (info["arrived_at"] - info["stage_start"])
+    got_mixed = fed.get(receive_mixed.party("bob").remote(
+        mixed.party("alice").remote()))
+    fed.shutdown()
+    return dict(push=info, first=first, owner=after, mixed=got_mixed,
+                device=str(dev))
+
+
+def _split_program(party, addresses):
+    """Phase 11 (c): ``rayfed_tpu_torch/examples/split_learning.py`` as
+    its ``main`` runs it on the card (``transport="cuda"``,
+    ``device_dma``)."""
+    from rayfed_tpu_torch.examples import split_learning
+
+    step_ms = []
+    losses = split_learning.run(party, addresses, step_ms=step_ms)
+    return dict(losses=losses, step_ms=step_ms, lane=_idle_lane_stats(),
+                steps=split_learning.STEPS)
+
+
+def _require_ipc_only(lane, party, n, what):
+    require(lane["pulls"] == {"ipc": n, "local": 0, "socket": 0},
+            f"{what}: {party}'s pulls by engine {lane['pulls']}, not "
+            f"{n} by ipc and none by another engine")
+    require(lane["device_snapshots"] == 0 and lane["device_bytes"] == 0
+            and lane["parked"] == 0,
+            f"{what}: {party}'s lane still holds snapshots after the "
+            f"pulls: {lane}")
+
+
+def phase_dma(device, cfg, *, batch, seq, label="", fed_push=None,
+              timeout_s=DMA_TIMEOUT_S):
+    """Phase 11: the device-DMA lane between two party processes on the
+    card (``transport="cuda"``, ``device_dma``). (a) Phase 5's round
+    program at ``cfg``: its checks (a)-(g), and every params, aggregate
+    and bf16 push served by ``ipc``, none by another engine; the root's
+    aggregate on the card is bitwise the CPU fold of the two trees; each
+    sender's lane holds no snapshot after the pulls. (b) A 4 MiB tree
+    (the receiver's first pull), then one push of the flagship f32 tree at
+    full depth, at its initialization: bitwise, by ``ipc``; the card's free
+    memory after the pull, less what bob's allocator took in it, within
+    64 MiB of the free memory before the push (a snapshot that was not freed
+    would take its 3 GB), and the owner's lane empty. (c) The split-learning example, 10
+    steps: the loss falls, every activation and gradient push by ``ipc``.
+    (d) A tree with a string leaf rides the socket lane. Returns (a)'s
+    party results (their launches count in the kernel line)."""
+    import dataclasses
+
+    root, other = (n for n, _ in PARTIES)
+    results, wall = spawn_parties(
+        _fed_program, (device, dataclasses.asdict(cfg), batch, seq,
+                       FED_ROUNDS, 2, 1e-3, True), timeout_s)
+    check_fed(results, device, wall, f"{label} (a)", dma=True)
+    res = results[root]
+    lanes = res["lanes"]
+    for r, rnd in enumerate(res["rounds"]):
+        for push in ("params_push", "aggregate_push"):
+            require(rnd[push]["engine"] == "ipc",
+                    f"(a) round {r}: the {push} was pulled by "
+                    f"{rnd[push]['engine']}, not ipc")
+        require(rnd["params_push"]["fold_mismatched"] == 0,
+                f"(a) round {r}: the aggregate on the card differs from the "
+                f"CPU fold in {rnd['params_push']['fold_mismatched']} "
+                f"elements")
+    # The root pulls each round's params and the bf16 tree; the other
+    # party each round's aggregate.
+    _require_ipc_only(lanes[root], root, FED_ROUNDS + 1, "(a)")
+    _require_ipc_only(lanes[other], other, FED_ROUNDS, "(a)")
+
+    full = dataclasses.replace(cfg, n_layers=FLAGSHIP["n_layers"])
+    pushed, push_wall = spawn_parties(
+        _dma_push_program, (device, dataclasses.asdict(full)), timeout_s)
+    big, first, owner, mixed = (pushed[root][k]
+                                for k in ("push", "first", "owner", "mixed"))
+    require(all(pushed[other][k] == pushed[root][k]
+                for k in ("push", "first", "mixed")),
+            "(b) the parties disagree on values both fetched")
+    require(big["digest"] == owner["digest"],
+            "(b) the full-depth tree arrived with other bytes than its "
+            "owner's")
+    party_dev = pushed[other]["device"]
+    require(first["engine"] == "ipc" and first["devices"] == [party_dev],
+            f"(b) the first tree was pulled by {first['engine']} onto "
+            f"{first['devices']}")
+    require(big["engine"] == "ipc" and big["devices"] == [party_dev],
+            f"(b) the full-depth tree was pulled by {big['engine']} onto "
+            f"{big['devices']}")
+    _require_ipc_only(owner["lane"], root, 0, "(b)")
+    cold, before, after = owner["memory"]
+    drop = before["free"] - after["free"]
+    bobs = big["reserved"] - first["reserved"]
+    alices = after["reserved"] - before["reserved"]
+    require(drop - bobs - alices <= 64 << 20,
+            f"(b) the card's free memory fell by {drop} B over the push, of "
+            f"which bob's allocator took {bobs} B and alice's {alices} B: "
+            f"the snapshot was not freed")
+    require(mixed["tag"] == "socket lane" and mixed["bitwise"]
+            and mixed["device"] == party_dev
+            and mixed["pulls"] == {"ipc": 2, "local": 0, "socket": 0},
+            f"(d) the tree with a string leaf: {mixed}")
+
+    split, split_wall = spawn_parties(_split_program, (), timeout_s)
+    losses = split[root]["losses"]
+    require(split[other]["losses"] == losses,
+            "(c) the parties fetched different losses")
+    require(losses[-1] < losses[0], f"(c) the loss did not fall: {losses}")
+    for n, got in split.items():
+        # Alice pulls each step's gradient, bob its activation.
+        _require_ipc_only(got["lane"], n, got["steps"], "(c)")
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.1f} ms"
+
+    rate = big["nbytes"] / big["push_ms"] / 1e6
+    print(f"[dma] {label} (b) bob's first pull, {first['nbytes']} B by "
+          f"{first['engine']}: {ms(first['pull_ms'])} "
+          f"({_fmt_parts(first['pull_parts'])})")
+    print(f"[dma] {label} (b) full-depth f32 tree {big['nbytes']} B alice -> "
+          f"bob by {big['engine']}: {big['push_ms']:.1f} ms, {rate:.3f} GB/s; "
+          f"snapshot on the card {ms(big['stage_ms'])}, descriptor send "
+          f"{ms(big['send_ms'])}, pull {ms(big['pull_ms'])} "
+          f"({_fmt_parts(big['pull_parts'])}); bound "
+          f"{dma_bound_ms(big['nbytes']):.2f} ms; two processes in "
+          f"{push_wall:.1f} s from spawn to exit")
+    print(f"[dma] {label} (b) the card's free memory {cold['free']} B before "
+          f"the 4 MiB push, {before['free']} B before the big push, "
+          f"{after['free']} B after its pull; bob's allocator "
+          f"{first['reserved']} -> {big['reserved']} B, alice's "
+          f"{before['reserved']} -> {after['reserved']} B; unexplained "
+          f"{drop - bobs - alices} B")
+    print(f"[dma] {label} (d) a tree with a string leaf rode the socket lane "
+          f"(bob's pulls {mixed['pulls']})")
+    step_ms = split[root]["step_ms"]
+    print(f"[dma] {label} (c) split learning, {len(losses)} steps over ipc: "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; ms a step median "
+          f"{statistics.median(step_ms):.2f} (first {step_ms[0]:.2f}, "
+          f"range {min(step_ms):.2f}-{max(step_ms):.2f}); two processes in "
+          f"{split_wall:.1f} s from spawn to exit")
+    if fed_push:
+        print(f"[dma] {label} phase 5's native push of this run: "
+              f"{fed_push['nbytes']} B in {fed_push['push_ms']:.1f} ms, "
+              f"{fed_push['nbytes'] / fed_push['push_ms'] / 1e6:.3f} GB/s")
+    return results
+
+
+def run_dma(smi, fed_push=None):
+    """Phase 11 at the flagship width, depth cut as phase 4's for (a)."""
+    print("[dma] reduced " + json.dumps(
+        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
+    t = time.perf_counter()
+    out = phase_dma("cuda", _flagship_cfg(SMOKE_LAYERS),
+                    batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+                    label=f"on {smi}:", fed_push=fed_push)
+    _phase_wall(11, t, smi)
+    return out
+
 
 def _phase_wall(n, t0, smi):
     print(f"[phase {n}] {time.perf_counter() - t0:.1f} s on {smi}")
@@ -4422,6 +4797,16 @@ def main(argv):
     t0 = time.perf_counter()
     name, smi = phase_device()
     _phase_wall(1, t0, smi)
+    if argv == ["--dma-only"]:
+        # Phases 2 and 11 alone, in a fresh process (no kernel line).
+        t = time.perf_counter()
+        phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+        _phase_wall(2, t, smi)
+        run_dma(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if argv == ["--privacy-only"]:
         # Phases 2 and 10 alone, in a fresh process (no kernel line).
         t = time.perf_counter()
@@ -4466,8 +4851,8 @@ def main(argv):
             "count": torch.cuda.device_count()}}))
         return
     require(not argv, f"unknown arguments {argv}; the options are "
-                      "--serving-only, --async-only, --family-only and "
-                      "--privacy-only")
+                      "--serving-only, --async-only, --family-only, "
+                      "--privacy-only and --dma-only")
     t = time.perf_counter()
     phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
     _phase_wall(2, t, smi)
@@ -4546,15 +4931,21 @@ def main(argv):
     torch.cuda.empty_cache()
     push = fed["native"][PARTIES[0][0]]["rounds"][-1]["params_push"]
     privacy = run_privacy(smi, f32_push=push if push["push_ms"] else None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dma = run_dma(smi, fed_push=push if push["push_ms"] else None)
     # The bf16 kernels' launches: phase 4's train steps, phase 9's MoE
-    # steps (remat="attn") and phase 10's parties' steps in both of its
-    # jobs, each counted from zero.
+    # steps (remat="attn"), phase 10's parties' steps in both of its jobs
+    # and phase 11's parties' steps, each counted from zero.
+    dma_reports = dma[PARTIES[0][0]]["reports"].values()
     for kern_name in BF16_KERNELS:
         launches[kern_name] += family["launches"][kern_name]
         launches[kern_name] += sum(r["launches"][kern_name]
                                    for r in privacy.values())
         launches[kern_name] += sum(r["dp"]["launches"][kern_name]
                                    for r in privacy.values())
+        launches[kern_name] += sum(r["launches"][kern_name]
+                                   for r in dma_reports)
     print(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
 
     line = []

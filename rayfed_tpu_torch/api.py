@@ -74,7 +74,9 @@ _UNPORTED_BLOCKS = {
         "multi-process parties (torch.distributed over a TCPStore) are "
         "ROADMAP Queue 1 item 17"
     ),
-    "collective": "the cross-party collective lane is ROADMAP Queue 1 item 12",
+    "collective": (
+        "the cross-party collective lane is ROADMAP Queue 1 item 12b"
+    ),
     "telemetry": (
         "the telemetry agent and collector are ROADMAP Queue 1 item 18"
     ),
@@ -90,6 +92,15 @@ def _refuse_unported(config: Dict, transport: str) -> None:
                 f"config[{key!r}] is not supported by rayfed_tpu_torch yet: "
                 f"{why}"
             )
+    comm = config.get("cross_silo_comm") or {}
+    if isinstance(comm, dict) and comm.get("same_mesh_push"):
+        # The lane negotiation would report the meshref tier while every
+        # byte rode the socket.
+        raise NotImplementedError(
+            "cross_silo_comm.same_mesh_push is not supported by "
+            "rayfed_tpu_torch yet: the same-mesh push lane is ROADMAP "
+            "Queue 1 item 12b"
+        )
     if transport != "tcp":
         # The proxy table raises the item-naming ImportError for 'tpu'
         # and 'grpc' (ValueError for unknown names).

@@ -33,7 +33,7 @@ Division of labor:
   to (``ops.aggregate.reduce_by_plan`` stepwise, then ``tree_mix``), so
   replaying the same arrivals reproduces the aggregate bitwise, and the
   JAX package's aggregator given the same arrivals publishes the same
-  bits. The same-mesh ``psum_by_plan`` fold is ROADMAP Queue 1 item 12
+  bits. The same-mesh ``psum_by_plan`` fold is ROADMAP Queue 1 item 12b
   and is never taken here.
 - ``_async_offer`` / ``_async_current`` — ordinary ``@fed.remote`` POOL
   tasks executing at the aggregating (root) party. Deliberately not an

@@ -195,21 +195,23 @@ class CrossSiloMessageConfig:
     # WIRE_VERSION bump: that would reject all cross-version traffic,
     # including deployments that never enable this opt-in knob).
     payload_wire_dtype: Optional[str] = None
-    # Not ported (ROADMAP Queue 1 items 4 and 12): this package's senders
-    # never take the DMA or same-mesh lanes below, and its CUDA receiver
-    # refuses their frames; the fields stay so a JAX party's comm config
-    # parses unchanged.
-    # Device-DMA data plane on the TPU transport (opt-in): all-jax-Array
-    # payloads are pulled device-to-device through a per-party
-    # jax.experimental.transfer server; the ordinary socket frame carries
-    # only a descriptor (uuid + server address + avals). Non-array or
-    # sharded-leaf payloads, and every frame when the server cannot
-    # start, ride the socket lane unchanged. ``dma_listen_addr`` is the
-    # bind address ("host:0" picks a free port); the advertised address
-    # keeps the bound host, so cross-host deployments must bind a
-    # peer-reachable interface, not loopback.
+    # Device-DMA push lane on the CUDA transport (opt-in;
+    # proxy/cuda/dma.py): a tree whose every leaf is a tensor on the
+    # party's device is snapshotted on it when it resolves and parked on
+    # a per-process transfer server; the ordinary socket frame carries
+    # only a descriptor (uuid, server address, tree spec, shapes and
+    # dtypes, the sender's identity) and the receiver pulls the bytes
+    # once: CUDA IPC for a process on the same host and card, a direct
+    # copy in the same process, the socket engine otherwise. Any other
+    # value rides the socket lane unchanged. ``dma_listen_addr`` is the
+    # server's bind address ("host:0" picks a free port), advertised as
+    # bound, so cross-host deployments must bind a peer-reachable
+    # interface, not loopback. A JAX party cannot pull this lane's
+    # descriptors, nor this package the JAX lane's: mixed jobs keep it off.
     device_dma: bool = False
     dma_listen_addr: str = "127.0.0.1:0"
+    # Not ported (ROADMAP Queue 1 item 12b): fed.init refuses it; the
+    # field stays so a JAX party's comm config parses unchanged.
     # Same-mesh push fast path (opt-in; colocated deployments only):
     # when sender and receiver parties live in ONE process sharing a
     # composed party mesh (mesh.compose_party_mesh — the CPU simulator,

@@ -38,7 +38,7 @@ each contribution to the FedBuff aggregator at the root
 (``privacy/``): each contribution is encoded and pairwise-masked at its
 party and the root cancels the masks in the ``Z_{2^32}`` ring, with the
 JAX package's tasks and mask streams, so JAX and torch parties mask one
-round together. The same-mesh fast path is ROADMAP Queue 1 item 12 and
+round together. The same-mesh fast path is ROADMAP Queue 1 item 12b and
 is never taken.
 """
 

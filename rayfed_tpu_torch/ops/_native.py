@@ -12,7 +12,8 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Build and load the port's CUDA kernels (``rayfed_tpu_torch/csrc``).
+"""Build and load the port's CUDA kernels (``rayfed_tpu_torch/csrc``), with
+the device-DMA lane's CUDA IPC calls (``csrc/dma_ipc.cu``).
 
 ``nvcc`` compiles every ``csrc/*.cu`` (one compiler process per source, all
 started together) and links them into one shared library with a plain C
@@ -55,6 +56,20 @@ _SIGNATURES = {
 # The f32 kernels (csrc/flash_attention_f32.cu) take the same arguments.
 _SIGNATURES.update({name + "_f32": argtypes
                     for name, argtypes in list(_SIGNATURES.items())})
+# The device-DMA lane's CUDA IPC calls (csrc/dma_ipc.cu).
+_SIGNATURES.update({
+    "rf_dma_handle_size": [],
+    # device, bytes, void** out
+    "rf_dma_alloc": [ctypes.c_int, ctypes.c_ulonglong, _P],
+    "rf_dma_free": [ctypes.c_int, _P],
+    # pointer, 64-byte handle out
+    "rf_dma_ipc_handle": [_P, _P],
+    # device, handle, void** out
+    "rf_dma_ipc_open": [ctypes.c_int, _P, _P],
+    "rf_dma_ipc_close": [ctypes.c_int, _P],
+    # dst, src, bytes, stream
+    "rf_dma_copy": [_P, _P, ctypes.c_ulonglong, _P],
+})
 #: The kernels: the bf16 ones in the order the C entry
 #: ``rf_kernel_resources`` numbers them, then the f32 ones in the order of
 #: ``rf_kernel_resources_f32``.

@@ -23,7 +23,7 @@ a validated ``config["privacy"]`` block at ``fed.init``:
   ``prv:`` control frames (``protocol.py``), dropout recovery driven by
   the liveness view and membership eviction. ``fed_aggregate(...,
   secure=True)`` lowers through it on the stepwise and async buffered
-  paths; the same-mesh lane is ROADMAP Queue 1 item 12.
+  paths; the same-mesh lane is ROADMAP Queue 1 item 12b.
 - **Differential privacy** (``dp.py``): per-party clipping before a
   contribution leaves the party, aggregator-side Gaussian noise, and the
   per-party epsilon ledger ``fed.privacy_ledger()`` exposes.

@@ -370,7 +370,7 @@ class PrivacyManager:
         flat_qs = [secagg._leaves(envelopes[p]["q"])[0] for p in present]
         # The host fold. (The JAX package lowers it to one collective when
         # a composed party mesh covers exactly these parties, ROADMAP
-        # Queue 1 item 12; modular addition gives the same words.)
+        # Queue 1 item 12b; modular addition gives the same words.)
         words = secagg.modular_sum_host(flat_qs)
         device = words[0].device if words else None
         for dead in missing:

@@ -355,11 +355,11 @@ def modular_sum_host(
 def modular_sum_mesh(mesh, contributions):
     """The JAX package's same-mesh lowering of the secure fold (one
     collective across a composed party mesh) is the cross-party
-    collective lane, ROADMAP Queue 1 item 12."""
+    collective lane, ROADMAP Queue 1 item 12b."""
     raise NotImplementedError(
         "the same-mesh modular sum (one collective across a composed "
         "party mesh) is the cross-party collective lane, ROADMAP Queue 1 "
-        "item 12, not ported to rayfed_tpu_torch yet"
+        "item 12b, not ported to rayfed_tpu_torch yet"
     )
 
 

@@ -399,6 +399,7 @@ def send(
     data = _capture_for_send(
         dest_party, data, upstream_seq_id, downstream_seq_id,
         quantize=_int8_tier(sp, dest_party),
+        dma_device=_dma_device(sp, dest_party),
     )
     fut = sp.send(
         dest_party, data, upstream_seq_id, downstream_seq_id, is_error=is_error
@@ -417,6 +418,22 @@ def _int8_tier(sp, dest_party: str) -> bool:
         return False
     wire = getattr(cfg.for_dest(dest_party), "payload_wire_dtype", None)
     return wire is not None and str(wire).lower() == "int8"
+
+
+def _dma_device(sp, dest_party: str):
+    """The party's device when pushes to ``dest_party`` are captured for
+    the device-DMA lane (``device_dma`` on the CUDA transport, the lane's
+    sender side on and its server up), else None."""
+    cfg = getattr(sp, "_config", None)
+    if (getattr(sp, "_TRANSPORT", None) != "cuda" or cfg is None
+            or not hasattr(cfg, "for_dest")):
+        return None
+    cfg = cfg.for_dest(dest_party)
+    if not lanes.dma_enabled(cfg):
+        return None
+    from rayfed_tpu_torch.proxy.cuda import dma
+
+    return sp.dma_device() if dma.ready(cfg.dma_listen_addr) else None
 
 
 def _host_snapshot(value, quantize: bool = False):
@@ -455,7 +472,8 @@ def _host_snapshot(value, quantize: bool = False):
 
 
 def _capture_for_send(dest_party: str, data, upstream_seq_id="",
-                      downstream_seq_id="", quantize: bool = False):
+                      downstream_seq_id="", quantize: bool = False,
+                      dma_device=None):
     """Capture the pushed value at RESOLUTION time, Ray-object-store
     style: the reference snapshots a task's result into the object store
     when the task completes, so the producer may freely reuse its buffers
@@ -470,6 +488,12 @@ def _capture_for_send(dest_party: str, data, upstream_seq_id="",
     the producer's lane thread BEFORE that lane starts its next task. The
     ``stage`` span times the capture (the host staging of CUDA leaves).
 
+    With ``dma_device`` (the device-DMA lane, :func:`_dma_device`) a tree
+    whose every leaf is a tensor on that device is captured there instead,
+    into the lane's packed snapshot (``dma.snapshot``), which the sender
+    parks for the receiver's pull; the ``stage`` span then times the
+    device copy. The JAX package leaves such a value uncaptured.
+
     A push registered only after its value resolved is captured on the
     registering thread, and by then a task its producer ran since may
     have mutated the value in place. The tensor versions stamped at
@@ -483,9 +507,17 @@ def _capture_for_send(dest_party: str, data, upstream_seq_id="",
             "stage", dest_party, str(upstream_seq_id), str(downstream_seq_id)
         ) as sp:
             _check_unmutated(value, versions)
-            out = _host_snapshot(value, quantize)
+            out = None
+            if dma_device is not None:
+                from rayfed_tpu_torch.proxy.cuda import dma
+
+                out = dma.snapshot(value, dma_device)
+            if out is None:
+                out = _host_snapshot(value, quantize)
+                sp.set_nbytes(_tensor_nbytes(out))
+            else:
+                sp.set_nbytes(out.nbytes)
             _check_unmutated(value, versions)
-            sp.set_nbytes(_tensor_nbytes(out))
         return out
 
     if not isinstance(data, Future):

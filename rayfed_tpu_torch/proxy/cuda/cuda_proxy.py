@@ -29,18 +29,24 @@ reads); the bytes go through reused pinned host slots with non-blocking
 copies; and the side stream is synchronized before the value resolves.
 The slots are the only pinned memory: the receive buffer is never pinned.
 
-The JAX sender's other lanes — same-mesh reference frames and device DMA
-— are not ported; their frames raise here.
+With ``cross_silo_comm.device_dma: true`` a tree whose every leaf is a
+tensor on the party's device rides the device-DMA lane instead
+(:mod:`rayfed_tpu_torch.proxy.cuda.dma`): the sender parks a snapshot
+taken at resolution, only a descriptor frame crosses the socket, and the
+receiver's decode pulls the bytes onto its card (a ``pull`` span). The JAX
+sender's same-mesh reference frames are not ported (ROADMAP Queue 1 item
+12b); they raise here.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from rayfed_tpu_torch import tracing, tree_util
+from rayfed_tpu_torch.proxy import lanes
 from rayfed_tpu_torch.proxy.tcp.tcp_proxy import TcpReceiverProxy, TcpSenderProxy
 
 # Pinned host slots per receiver: two, so the host copy into one overlaps
@@ -101,26 +107,43 @@ class PinnedStaging:
         return outs
 
 
-def place_decoded(base_decode, staging: PinnedStaging):
+def place_decoded(base_decode, staging: Optional[PinnedStaging], *,
+                  device_dma: bool = False,
+                  max_decompressed_bytes: Optional[int] = None,
+                  pull_timeout_s: Optional[float] = None):
     """Wrap a rendezvous decode function: the decoded value with every CPU
-    tensor leaf placed on ``staging``'s card (a ``place`` tracing span);
-    other leaves as they are."""
+    tensor leaf placed on ``staging``'s card (a ``place`` tracing span;
+    ``staging`` None: a party whose device is the CPU, nothing is placed);
+    other leaves as they are. A device-DMA frame is pulled onto that
+    device (``dma.pull``, under ``device_dma`` only, within the receiver's
+    payload cap)."""
+    device = staging.device if staging is not None else None
 
     def decode(header, payload):
         kind = header.get("pkind")
         if kind == "meshref":
             raise NotImplementedError(
                 "received a same-mesh reference frame: the same-mesh push "
-                "lane is ROADMAP Queue 1 item 12, not ported to "
+                "lane is ROADMAP Queue 1 item 12b, not ported to "
                 "rayfed_tpu_torch yet"
             )
         if kind == "dma":
-            raise NotImplementedError(
-                "received a device-DMA frame: the DMA half of ROADMAP "
-                "Queue 1 item 4 (CUDA IPC / NCCL peer copies, with item "
-                "12) is not ported to rayfed_tpu_torch yet"
-            )
-        value = base_decode(header, payload)
+            if not device_dma:
+                raise ValueError(
+                    "received a device-DMA frame but device_dma is not "
+                    "enabled on this party's comm config"
+                )
+            from rayfed_tpu_torch.proxy.cuda import dma
+
+            value = dma.pull(
+                payload, max_bytes=max_decompressed_bytes, device=device,
+                timeout_s=pull_timeout_s, peer=header.get("src", ""),
+                upstream_seq_id=header.get("up", ""),
+                downstream_seq_id=header.get("down", ""))
+        else:
+            value = base_decode(header, payload)
+        if staging is None:
+            return value
         leaves, spec = tree_util.tree_flatten(value)
         idx = [i for i, x in enumerate(leaves)
                if isinstance(x, torch.Tensor) and x.device.type == "cpu"]
@@ -137,20 +160,57 @@ def place_decoded(base_decode, staging: PinnedStaging):
     return decode
 
 
+def _party_device(device) -> torch.device:
+    from rayfed_tpu_torch import mesh
+
+    return mesh.party_device() if device is None else torch.device(device)
+
+
 class CudaSenderProxy(TcpSenderProxy):
     """Sender side: the TCP sender. Tensors on a card are staged to host
     when the pushed value resolves (``proxy/barriers``), as on the TCP
-    lane."""
+    lane; under ``device_dma`` a tree whose every leaf is a tensor on the
+    party's device is snapshotted on it instead and pushed as a device-DMA
+    descriptor (the counterpart of the JAX ``TpuSenderProxy``'s
+    ``_try_encode_special``). Any other value takes the socket lane."""
 
     _TRANSPORT = "cuda"  # fed_transport_send_ops_total{transport="cuda"}
+    #: The party's device: None is the card ``fed.init`` bound (or the
+    #: current one); a test sets "cpu" to drive the lane on a host.
+    device = None
+
+    def dma_device(self) -> torch.device:
+        return _party_device(self.device)
+
+    def _try_encode_special(self, value, is_error: bool, cfg,
+                            dest_party=None):
+        if is_error or not lanes.dma_enabled(cfg):
+            return None
+        from rayfed_tpu_torch.proxy.cuda import dma
+
+        reg = dma.try_register(value, cfg.dma_listen_addr, self.dma_device())
+        if reg is None:
+            return None  # not all tensors on the device -> socket lane
+        header_fields, payload, on_done = reg
+        return header_fields["pkind"], payload, on_done
 
 
 class CudaReceiverProxy(TcpReceiverProxy):
     """Receiver side: the TCP receiver, placing received tensors on the
-    party's device (bound by ``fed.init``; the current card otherwise)."""
+    party's device (bound by ``fed.init``; the current card otherwise) and
+    pulling device-DMA frames onto it."""
+
+    #: As :attr:`CudaSenderProxy.device`.
+    device = None
 
     def _make_decode_fn(self):
-        from rayfed_tpu_torch import mesh
-
-        self._staging = PinnedStaging(mesh.party_device())
-        return place_decoded(super()._make_decode_fn(), self._staging)
+        device = _party_device(self.device)
+        self._staging = (PinnedStaging(device) if device.type == "cuda"
+                         else None)
+        cfg = self._config
+        timeout = cfg.recv_timeout_in_ms
+        return place_decoded(
+            super()._make_decode_fn(), self._staging,
+            device_dma=lanes.dma_enabled(cfg),
+            max_decompressed_bytes=cfg.effective_max_message_bytes(),
+            pull_timeout_s=None if timeout is None else timeout / 1000)

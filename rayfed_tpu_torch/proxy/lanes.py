@@ -226,7 +226,9 @@ def peer_capabilities(cfg, tls_config, transport: str = "tcp",
                       dest_addr: Optional[str] = None) -> PeerCapabilities:
     """Probe the capability snapshot for one peer from config + addresses."""
     return PeerCapabilities(
-        same_process=meshref_enabled(cfg),
+        # No meshref lane in this package (ROADMAP Queue 1 item 12b;
+        # fed.init refuses same_mesh_push): never negotiate that tier.
+        same_process=False,
         same_host=same_host(self_addr, dest_addr),
         plaintext=not bool(tls_config),
         shm=shm_enabled(cfg) and shm_available(),
@@ -251,14 +253,9 @@ def negotiate_for_dest(cfg, tls_config, transport: str,
 
 
 def dma_enabled(cfg) -> bool:
-    """Device-DMA lane gate (tpu_proxy encode hook, barriers capture,
-    tcp_proxy threaded-worker/fast-send checks)."""
+    """Device-DMA lane gate (cuda_proxy encode hook and decode, barriers
+    capture, tcp_proxy threaded-worker/fast-send checks)."""
     return bool(getattr(cfg, "device_dma", False))
-
-
-def meshref_enabled(cfg) -> bool:
-    """Same-process meshref-token lane gate (tpu_proxy encode hook)."""
-    return bool(getattr(cfg, "same_mesh_push", False))
 
 
 def shm_enabled(cfg) -> bool:

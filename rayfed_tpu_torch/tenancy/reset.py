@@ -118,6 +118,12 @@ def _hook_rendezvous() -> None:
         clear_evicted_fn(job)
 
 
+def _hook_dma() -> None:
+    from rayfed_tpu_torch.proxy.cuda import dma
+
+    dma.reset()
+
+
 def _hook_inject() -> None:
     from rayfed_tpu_torch.resilience.inject import reset_wire_taints, uninstall
 
@@ -249,6 +255,7 @@ RESET_HOOKS: Dict[str, List[Tuple[Callable[[], None], str]]] = {
     "rayfed_tpu_torch.tenancy.context": [(_hook_tenancy_registry, JOB)],
     "rayfed_tpu_torch.proxy.tcp.tcp_proxy": [(_hook_tcp_listeners, GLOBAL)],
     "rayfed_tpu_torch.mesh": [(_hook_mesh, GLOBAL)],
+    "rayfed_tpu_torch.proxy.cuda.dma": [(_hook_dma, GLOBAL)],
     "rayfed_tpu_torch.tracing": [(_hook_tracing, GLOBAL)],
 }
 
@@ -283,10 +290,12 @@ def load_inventory(path: Optional[str] = None) -> List[Dict]:
 
 def _ported(module: str) -> Optional[str]:
     """This package's name for an inventory module of the JAX package, or
-    None when this package has no such module yet."""
+    None when this package has no such module yet. The TPU transport's
+    modules (``proxy/tpu``) are the CUDA transport's (``proxy/cuda``)."""
     import importlib.util
 
     name = "rayfed_tpu_torch" + module[len("rayfed_tpu"):]
+    name = name.replace(".proxy.tpu.", ".proxy.cuda.", 1)
     try:
         return name if importlib.util.find_spec(name) is not None else None
     except ImportError:

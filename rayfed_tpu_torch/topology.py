@@ -70,7 +70,7 @@ In ``rayfed_tpu_torch`` this module is a copy of ``rayfed_tpu/topology.py``
 with the package renamed, so both packages plan the same schedule for the
 same arguments (a mixed-package job lays out one DAG). The same-mesh
 lowering that :func:`plan_is_flat` gates (``psum_by_plan``) is not ported
-yet (ROADMAP Queue 1 item 12).
+yet (ROADMAP Queue 1 item 12b).
 """
 
 from __future__ import annotations

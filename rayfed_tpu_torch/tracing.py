@@ -47,7 +47,7 @@ _request_events: Deque["RequestEvent"] = deque(maxlen=_MAX_REQUEST_EVENTS)  # fe
 
 @dataclass
 class Span:
-    kind: str                 # "send" | "recv" | "decode" | "place" | "task" | "stage"
+    kind: str                 # "send" | "recv" | "decode" | "place" | "task" | "stage" | "pull"
     peer: str                 # destination or source party ("" if n/a)
     upstream_seq_id: str
     downstream_seq_id: str
@@ -396,7 +396,7 @@ class span:
     """Context manager recording one span (no-op when tracing is off)."""
 
     __slots__ = ("_kind", "_peer", "_up", "_down", "_nbytes", "_t0",
-                 "_prof_ctx", "_active")
+                 "_prof_ctx", "_active", "_extra")
 
     def __init__(self, kind: str, peer: str = "", upstream_seq_id: str = "",
                  downstream_seq_id: str = "", nbytes: int = 0):
@@ -406,6 +406,7 @@ class span:
         self._down = downstream_seq_id
         self._nbytes = nbytes
         self._prof_ctx = None
+        self._extra = None
         # Latched at __enter__: a toggle of the global flag mid-span must
         # not make __exit__ disagree with __enter__.
         self._active = False
@@ -430,6 +431,11 @@ class span:
     def set_nbytes(self, n: int) -> None:
         self._nbytes = n
 
+    def set_extra(self, **kv) -> None:
+        """Annotate the span (its record's ``extra``), e.g. the engine
+        that served a device-DMA pull."""
+        self._extra = {**(self._extra or {}), **kv}
+
     def __exit__(self, exc_type, exc, tb):
         if not self._active:
             return False
@@ -445,6 +451,7 @@ class span:
             start_s=self._t0,
             duration_s=time.perf_counter() - self._t0,
             ok=exc_type is None,
+            extra=dict(self._extra or {}),
         )
         with _lock:
             record.idx = _span_seq

@@ -492,6 +492,7 @@ _REFUSED = [
     ({"jax_distributed": {"num_processes": 2, "process_id": 0}}, "item 17"),
     ({"party_mesh": {"device_ids": [0, 1]}}, "item 8"),
     ({"collective": {"coordinator": "127.0.0.1:1"}}, "item 12"),
+    ({"cross_silo_comm": {"same_mesh_push": True}}, "item 12b"),
     ({"telemetry": {"collector": "alice"}}, "item 18"),
     ({"transport": "tpu"}, "item 4"),
     ({"transport": "grpc"}, "item 15"),

@@ -273,9 +273,13 @@ def test_init_refuses_before_building_state(config, exc, match):
     assert mesh.get_party_device() is None
 
 
-@pytest.mark.parametrize("pkind, item", [("meshref", "item 12"),
-                                         ("dma", "item 4")])
-def test_cuda_lane_refuses_frames_of_unported_lanes(pkind, item):
+@pytest.mark.parametrize("pkind, exc, match", [
+    ("meshref", NotImplementedError, "item 12b"),
+    ("dma", ValueError, "device_dma is not enabled")], ids=["meshref", "dma"])
+def test_cuda_lane_refuses_frames_of_unported_lanes(pkind, exc, match):
+    """The same-mesh lane is not ported (item 12b); a device-DMA frame
+    at a party without ``device_dma`` is refused with the JAX package's
+    message."""
     from rayfed_tpu_torch.proxy.cuda.cuda_proxy import (
         PinnedStaging,
         place_decoded,
@@ -285,7 +289,7 @@ def test_cuda_lane_refuses_frames_of_unported_lanes(pkind, item):
         return {"step": 3, "tag": "x"}
 
     decode = place_decoded(base, PinnedStaging("cuda:0"))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         decode({"pkind": pkind}, b"")
     # A value without tensor leaves passes through without the card.
     assert decode({"pkind": "tree"}, b"") == {"step": 3, "tag": "x"}
