@@ -21,15 +21,17 @@
     python3 chip_smoke.py --family-only    # phases 1, 2 and 9 alone
     python3 chip_smoke.py --privacy-only   # phases 1, 2 and 10 alone
     python3 chip_smoke.py --dma-only       # phases 1, 2 and 11 alone
+    python3 chip_smoke.py --wide-only      # phases 1, 2 and 12 alone
 
 Phases:
 
 1. device: the card's name, count, power limit; TF32 off.
 2. build: the Hopper kernels from ``rayfed_tpu_torch/csrc`` (nvcc, one
    process per source); each kernel's registers, spills, shared memory
-   and resident blocks per SM at the flagship head dim (no kernel may
-   spill), and, where the toolkit's ``cuobjdump`` runs, the tensor-core
-   (HMMA, HGMMA) and FFMA instructions in each kernel's SASS.
+   and resident blocks per SM at the flagship head dim, and the bf16
+   ones' at D = 256, their own tile plan (no kernel may spill), and,
+   where the toolkit's ``cuobjdump`` runs, the tensor-core (HMMA, HGMMA)
+   and FFMA instructions in each kernel's SASS.
 3. kernels: each flash kernel against its plain PyTorch version on the
    card, the bf16 ones and the f32 ones, at the flagship attention shape
    and at small shapes (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every
@@ -231,9 +233,23 @@ Phases:
    IPC open, copy and close) beside the bound of two device copies, the
    split-learning ms a step, and phase 5's native push of the same run.
 
+12. wide: the flagship width in 8 heads of 256 (``WIDE``, Gemma 2B's
+   query layout), depth cut as phase 4's, through the bf16 kernels' D =
+   256 tile plan. (b) Each D = 256 kernel against its plain version at
+   D = 136, 160 and 192 (zero-padded to 256) and 256, with ``q_offset >
+   0``, ``Sq < Sk``, ragged tiles and B*H = 65536, then at B=12, S=2048,
+   H=8, D=256 timed beside its plain version and SDPA (its backend
+   named), with FLOPs, bytes and the bound. (c) Phase 4's round loop at
+   ``WIDE``: its checks, and the train steps launch every D = 256 kernel
+   and no D <= 128 one. (d) Phase 6's transformer program at ``WIDE`` in
+   two party processes with ``transport="cuda"``: its checks (a)-(f), the
+   root's aggregate bitwise the CPU fold of the two pushed trees, each
+   party's steps on the D = 256 kernels alone. Prints each part's wall.
+
 Every phase prints its wall seconds. It needs a CUDA card and exits
-non-zero without one. The last two lines
-are the kernel table and ``{"ok": true, "device": {...}}`` as JSON.
+non-zero without one. The last two lines are the kernel table (nine
+kernels: K1-K3 in bf16 up to D = 128, at D = 256, and in f32) and
+``{"ok": true, "device": {...}}`` as JSON.
 """
 
 from __future__ import annotations
@@ -257,6 +273,12 @@ FLAGSHIP = dict(vocab=32768, d_model=2048, n_heads=16, n_layers=12,
                 d_ff=5632, seq=2048, batch=12)
 # What this run cuts to stay well inside its time limit: depth only.
 SMOKE_LAYERS = 4
+# Phase 12: the flagship width in 8 heads of 256, Gemma 2B's query layout
+# (hidden_size 2048, num_attention_heads 8, head_dim 256 in Google's
+# published gemma-2b config; only the shape is taken). H*D is the
+# flagship's, so each flash kernel does the flagship's FLOPs at D = 256.
+WIDE = dict(FLAGSHIP, n_heads=8)
+WIDE_HEAD_DIM = WIDE["d_model"] // WIDE["n_heads"]
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -305,18 +327,21 @@ ATTN_LOSS_TOL = 2e-2
 # The federation of phase 4: each party's name and data seed.
 PARTIES = (("alice", 1), ("bob", 2))
 
-# Each TPU kernel (rayfed_tpu/ops/flash_attention.py) takes bf16 or f32;
-# the port has a Hopper kernel for each dtype.
+# Each TPU kernel (rayfed_tpu/ops/flash_attention.py) takes bf16 or f32
+# and any head dim; the port has a Hopper kernel for each dtype, the bf16
+# one in two tile plans (head dims up to 128, and 256), each counted apart
+# (``flash_attention.LAUNCHES``).
 KERNELS = [
     dict(name=name + sfx, route="cuda",
-         source=f"rayfed_tpu_torch/csrc/flash_attention{sfx}.cu",
+         source=f"rayfed_tpu_torch/csrc/flash_attention{src}.cu",
          replaces=f"rayfed_tpu/ops/flash_attention.py:{line}")
-    for sfx in ("", "_f32")
+    for sfx, src in (("", ""), ("_d256", ""), ("_f32", "_f32"))
     for name, line in (("flash_fwd", 51), ("flash_bwd_dq", 151),
                        ("flash_bwd_dkv", 200))
 ]
-BF16_KERNELS = [k["name"] for k in KERNELS if not k["name"].endswith("_f32")]
-F32_KERNELS = [k["name"] for k in KERNELS if k["name"].endswith("_f32")]
+BF16_KERNELS = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+WIDE_KERNELS = [n + "_d256" for n in BF16_KERNELS]
+F32_KERNELS = [n + "_f32" for n in BF16_KERNELS]
 
 
 class SmokeError(RuntimeError):
@@ -362,8 +387,9 @@ def phase_device():
 
 def phase_build(head_dim):
     """Build the kernels; print the compiler's report and, for each kernel
-    at ``head_dim``, the resources the card gives it. Fails if any kernel
-    spills registers there."""
+    at ``head_dim`` and each bf16 kernel at ``WIDE_HEAD_DIM`` (its own
+    tile plan), the resources the card gives it. Fails if any of them
+    spills registers."""
     from rayfed_tpu_torch.ops import _native
 
     t0 = time.perf_counter()
@@ -375,23 +401,24 @@ def phase_build(head_dim):
         log = f.read()
     for line in ptxas_report(log):
         print(f"[build] {line}")
-    resources = kernel_resources(log, head_dim)
-    for name, res in resources.items():
-        print(f"[build] {name}<{head_dim}>: {res['registers']} registers, "
-              f"{res['spill_bytes']} spill bytes, {res['smem_bytes']} B "
-              f"dynamic shared memory, {res['threads']} threads, "
-              f"{res['blocks_per_sm']} resident blocks per SM")
-    print(json.dumps({"resources": {"head_dim": head_dim, **resources}}))
-    for name in _native.KERNEL_NAMES:
-        require(resources[name]["spill_bytes"] == 0,
-                f"{name}<{head_dim}> spills: {resources[name]}")
     counts = sass_counts(path)
     if counts is None:
         print("[build] SASS instruction counts: no cuobjdump in the toolkit")
-    else:
-        for name in _native.KERNEL_NAMES:
-            c = counts.get(f"{name}<{head_dim}>", {})
-            print(f"[build] {name}<{head_dim}> SASS: " + ", ".join(
+    for d, names in ((head_dim, _native.KERNEL_NAMES),
+                     (WIDE_HEAD_DIM, _native.KERNEL_NAMES[:3])):
+        resources = kernel_resources(log, d, names)
+        for name, res in resources.items():
+            print(f"[build] {name}<{d}>: {res['registers']} registers, "
+                  f"{res['spill_bytes']} spill bytes, {res['smem_bytes']} B "
+                  f"dynamic shared memory, {res['threads']} threads, "
+                  f"{res['blocks_per_sm']} resident blocks per SM")
+        print(json.dumps({"resources": {"head_dim": d, **resources}}))
+        for name in names:
+            require(resources[name]["spill_bytes"] == 0,
+                    f"{name}<{d}> spills: {resources[name]}")
+        for name in names if counts is not None else ():
+            c = counts.get(f"{name}<{d}>", {})
+            print(f"[build] {name}<{d}> SASS: " + ", ".join(
                 f"{c.get(op, 0)} {op}" for op in SASS_OPS))
     return secs
 
@@ -434,16 +461,16 @@ def parse_sass_counts(sass):
     return counts
 
 
-def kernel_resources(log, head_dim):
-    """{kernel: resources at ``head_dim``}: what the card gives it
-    (``_native.kernel_resources``) and its spill bytes from the compiler's
-    report ``log``."""
+def kernel_resources(log, head_dim, names=None):
+    """{kernel: resources at ``head_dim``} for ``names`` (every kernel by
+    default): what the card gives it (``_native.kernel_resources``) and
+    its spill bytes from the compiler's report ``log``."""
     from rayfed_tpu_torch.ops import _native
 
     spills = ptxas_spills(log)
     return {name: dict(_native.kernel_resources(name, head_dim),
                        spill_bytes=spills.get(f"{name}<{head_dim}>"))
-            for name in _native.KERNEL_NAMES}
+            for name in names or _native.KERNEL_NAMES}
 
 
 def ptxas_report(log):
@@ -582,12 +609,13 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
     dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta_ref, q_offset)
     torch.cuda.synchronize()
 
+    kd = fa.kernel_head_dim(d, getattr(torch, dtype))
     if dtype == "bfloat16":
-        tag, sfx = "", ""
+        tag = " d256" if kd == 256 else ""
         out = grad = (tile_rel_err, BF16_TILE_REL_TOL)
         stat_tol = F32_STAT_TOL
     else:
-        tag, sfx = " f32", "_f32"
+        tag = " f32"
         out, grad = (abs_err, F32_OUT_TOL), (abs_err, F32_GRAD_TOL)
         stat_tol = F32_KERNEL_STAT_TOL
 
@@ -622,6 +650,7 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
                                     ("K3 f32 dv", dv, dv_tf, dv_ref)):
             readings[name + " exact"] = (
                 abs_err(got, want), EXACT_F32_FRACTION * abs_err(tf, want))
+    sfx = fa._launch_key(fa._KERNEL_DTYPES[q.dtype], kd)
     errs = {
         "flash_fwd" + sfx: abs_err(o, o_ref),
         "flash_bwd_dq" + sfx: abs_err(dq, dq_ref),
@@ -682,7 +711,9 @@ def profiled_kernels(fn):
 
 def sdpa_backend(kernel_names):
     """Which ``scaled_dot_product_attention`` backend launched these
-    device kernels."""
+    device kernels; "not measured" when the profiler saw none."""
+    if not kernel_names:
+        return "not measured (no kernel in the profile)"
     names = " ".join(kernel_names).lower()
     # cuDNN's kernel names contain "flash" too: it is matched first.
     for backend, marks in (("cudnn", ("cudnn",)),
@@ -723,7 +754,8 @@ def time_kernels(device, b, s, h, d, dtype, smi):
 
     from rayfed_tpu_torch.ops import flash_attention as fa
 
-    sfx = "" if dtype == "bfloat16" else "_f32"
+    sfx = fa._launch_key(fa._KERNEL_DTYPES[getattr(torch, dtype)],
+                         fa.kernel_head_dim(d, getattr(torch, dtype)))
     errs, (q, k, v, do, o, lse, delta, bq, bk) = check_kernels(
         device, b, s, s, h, d, 0, dtype=dtype,
         exact_f32=dtype == "float32")
@@ -1818,7 +1850,8 @@ def pushes(reports):
 
 def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
                    local_steps=2, lr=1e-3, label="",
-                   timeout_s=FED_JOIN_TIMEOUT_S):
+                   timeout_s=FED_JOIN_TIMEOUT_S, kernels=BF16_KERNELS,
+                   cnn=True):
     """Phase 6: the JAX package's FedAvg programs on the port, each in
     two spawned party processes: the transformer program (``fed_aggregate``
     mean) at ``cfg``'s width, checked: (a) every received tree is on the
@@ -1826,9 +1859,10 @@ def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
     aggregate on its device is bitwise the CPU fold of the two pushed
     trees, (c) both parties' ``fed.get`` of the final aggregate hash the
     same, (d) the aggregate's loss falls, (e) each party's steps launched
-    every bf16 kernel, (f) both parties ran the native IO path; then the
-    CNN program (``FedAvgTrainer``, wmean), whose two digests must agree.
-    Returns the transformer program's results."""
+    every one of ``kernels`` and no other bf16 flash kernel, (f) both
+    parties ran the native IO path; then, with ``cnn``, the CNN program
+    (``FedAvgTrainer``, wmean), whose two digests must agree. Returns the
+    transformer program's results."""
     import dataclasses
 
     import torch
@@ -1863,16 +1897,16 @@ def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
     require(res["evals"][-1] < res["evals"][0],
             f"(d) the aggregate's loss did not fall: {res['evals']}")
     if on_cuda:
+        others = [k for k in BF16_KERNELS + WIDE_KERNELS if k not in kernels]
         for n, rep in res["reports"].items():
-            require(all(rep["launches"][k] > 0 for k in BF16_KERNELS),
+            require(all(rep["launches"][k] > 0 for k in kernels)
+                    and not any(rep["launches"][k] for k in others),
                     f"(e) party {n}'s train steps did not launch every "
-                    f"kernel: {rep['launches']}")
+                    f"kernel of {kernels} and none of {others}: "
+                    f"{rep['launches']}")
     paths = {n: rep["io_path"] for n, rep in res["reports"].items()}
     require(set(paths.values()) == {"native"},
             f"(f) the parties ran IO paths {paths}, not the native one")
-    cnn, cnn_wall = spawn_parties(_cnn_program, (device, rounds), timeout_s)
-    require(cnn[root]["digest"] == cnn[other]["digest"],
-            "the CNN program's parties hold different final aggregates")
 
     def ms(v):
         return "not measured" if v is None else f"{v:.1f} ms"
@@ -1898,11 +1932,17 @@ def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
         print(f"[programs] {label} party {n}: train launches "
               f"{rep['launches']}, evaluations {rep['eval_launches']}, "
               f"max_memory_allocated {rep['max_memory_allocated']}")
-    print(f"[programs] {label} fedavg_cnn: {rounds} rounds (wmean) in "
-          f"{cnn_wall:.1f} s from spawn to exit, digests equal, local "
-          f"losses {cnn[root]['loss']:.4f} / {cnn[other]['loss']:.4f}")
-    return dict(results=results, pushes=push_list, wall_s=wall,
-                cnn_wall_s=cnn_wall)
+    out = dict(results=results, pushes=push_list, wall_s=wall)
+    if cnn:
+        got, out["cnn_wall_s"] = spawn_parties(_cnn_program,
+                                               (device, rounds), timeout_s)
+        require(got[root]["digest"] == got[other]["digest"],
+                "the CNN program's parties hold different final aggregates")
+        print(f"[programs] {label} fedavg_cnn: {rounds} rounds (wmean) in "
+              f"{out['cnn_wall_s']:.1f} s from spawn to exit, digests "
+              f"equal, local losses {got[root]['loss']:.4f} / "
+              f"{got[other]['loss']:.4f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4766,17 +4806,93 @@ def run_dma(smi, fed_push=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: wide heads (the D = 256 tile plan)
+# ---------------------------------------------------------------------------
+
+# Phase 12 (b): the D = 256 kernels against their plain versions. D = 136,
+# 160 and 192 run zero-padded to 256; K1 tiles 128 queries x 64 keys, K2
+# 128 queries x 32 keys, K3 128 keys x 32 queries.
+WIDE_SHAPES = [
+    (1, 256, 256, 2, 256, 0),
+    (2, 96, 160, 3, 136, 64),     # ragged tiles, Sq < Sk, q_offset
+    (1, 200, 200, 2, 160, 0),     # S not a multiple of 128, 64 or 32
+    (1, 136, 328, 3, 192, 150),   # Sq < Sk, q_offset off a tile boundary
+    (1, 136, 328, 3, 256, 192),   # q_offset on a tile boundary
+    (2, 64, 64, 2, 256, 0),       # a block's second warpgroup has no row
+    (1, 100, 90, 2, 256, 20),     # queries past the last key
+    (4096, 32, 32, 16, 256, 0),   # B*H = 65536 on the grid's x dimension
+]
+
+
+def phase_wide(smi):
+    """Phase 12: the flagship width in 8 heads of 256 (``WIDE``), depth cut
+    as phase 4's. (b) the bf16 D = 256 kernels against their plain
+    versions at ``WIDE_SHAPES`` and timed at the main path's shape beside
+    SDPA; (c) phase 4's round loop at ``WIDE``, whose train steps must
+    launch every D = 256 kernel and no D <= 128 one; (d) phase 6's
+    transformer program at ``WIDE`` in two party processes (its checks
+    (a)-(f), the D = 256 kernels in (e)). Returns ({kernel: results},
+    {kernel: launches of (c)'s and (d)'s train steps})."""
+    import gc
+
+    import torch
+
+    t = time.perf_counter()
+    for shape in WIDE_SHAPES:
+        check_kernels("cuda", *shape, seed=1)
+    kern = time_kernels("cuda", WIDE["batch"], WIDE["seq"], WIDE["n_heads"],
+                        WIDE_HEAD_DIM, "bfloat16", smi)
+    print(f"[wide] (b) kernels in {time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = _flagship_cfg(SMOKE_LAYERS, WIDE)
+    print("[wide] reduced " + json.dumps(
+        {"n_layers": [WIDE["n_layers"], SMOKE_LAYERS]}))
+    t = time.perf_counter()
+    summary = phase_slice("cuda", cfg, batch=WIDE["batch"], seq=WIDE["seq"],
+                          label=f"8 heads of 256 on {smi}:")
+    require(all(summary["launches"][k] > 0 for k in WIDE_KERNELS)
+            and not any(summary["launches"][k] for k in BF16_KERNELS),
+            f"(c) the train steps at D = {WIDE_HEAD_DIM} did not launch every "
+            f"D = 256 kernel and none of the D <= 128 ones: "
+            f"{summary['launches']}")
+    print(f"[wide] (c) round loop in {time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    prog = phase_programs("cuda", cfg, batch=WIDE["batch"], seq=WIDE["seq"],
+                          label=f"8 heads of 256 on {smi}:",
+                          kernels=WIDE_KERNELS, cnn=False)
+    print(f"[wide] (d) engine round in {time.perf_counter() - t:.1f} s")
+    root = PARTIES[0][0]
+    launches = {k: summary["launches"][k] + sum(
+        rep["launches"][k]
+        for rep in prog["results"][root]["reports"].values())
+        for k in WIDE_KERNELS}
+    return kern, launches
+
+
+def run_wide(smi):
+    """Phase 12 with its wall."""
+    t = time.perf_counter()
+    out = phase_wide(smi)
+    _phase_wall(12, t, smi)
+    return out
+
+
 def _phase_wall(n, t0, smi):
     print(f"[phase {n}] {time.perf_counter() - t0:.1f} s on {smi}")
 
 
-def _flagship_cfg(n_layers):
+def _flagship_cfg(n_layers, shape=FLAGSHIP):
     from rayfed_tpu_torch.models import transformer as tfm
 
     return tfm.TransformerConfig(
-        vocab=FLAGSHIP["vocab"], d_model=FLAGSHIP["d_model"],
-        n_heads=FLAGSHIP["n_heads"], n_layers=n_layers,
-        d_ff=FLAGSHIP["d_ff"])
+        vocab=shape["vocab"], d_model=shape["d_model"],
+        n_heads=shape["n_heads"], n_layers=n_layers, d_ff=shape["d_ff"])
 
 
 def run_family(smi):
@@ -4797,6 +4913,16 @@ def main(argv):
     t0 = time.perf_counter()
     name, smi = phase_device()
     _phase_wall(1, t0, smi)
+    if argv == ["--wide-only"]:
+        # Phases 2 and 12 alone, in a fresh process (no kernel line).
+        t = time.perf_counter()
+        phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+        _phase_wall(2, t, smi)
+        run_wide(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if argv == ["--dma-only"]:
         # Phases 2 and 11 alone, in a fresh process (no kernel line).
         t = time.perf_counter()
@@ -4852,7 +4978,7 @@ def main(argv):
         return
     require(not argv, f"unknown arguments {argv}; the options are "
                       "--serving-only, --async-only, --family-only, "
-                      "--privacy-only and --dma-only")
+                      "--privacy-only, --dma-only and --wide-only")
     t = time.perf_counter()
     phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
     _phase_wall(2, t, smi)
@@ -4946,6 +5072,13 @@ def main(argv):
                                    for r in privacy.values())
         launches[kern_name] += sum(r["launches"][kern_name]
                                    for r in dma_reports)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The D = 256 kernels: phase 12's train steps, in one process and in
+    # the two parties.
+    wide_kern, wide_launches = run_wide(smi)
+    kern.update(wide_kern)
+    launches.update(wide_launches)
     print(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
 
     line = []

@@ -19,17 +19,20 @@ other, on one card:
     python3 chip_tile_sweep.py base kFwdN=64 kDqWG=1 kDkvWG=1,kDkvM=32 base
     python3 chip_tile_sweep.py base kDqF32W=4,kDqF32N=64 base
     python3 chip_tile_sweep.py base kFwdF32N=64 kFwdF32W=4,kFwdF32N=64 base
+    python3 chip_tile_sweep.py base kFwdN256=32 kDkvWG256=1 base
 
 Each argument sets tile constants (``TILE_CONSTANTS``; comma-separated
 ``name=value``) of ``rayfed_tpu_torch/csrc/flash_attention.cu`` (bf16)
 or, for the f32 K1-K3 (``F32_TILE_CONSTANTS``: warps a block and rows a
 ring stage), ``flash_attention_f32.cu``; or is ``base``, the
-sources as committed. Per argument, in that order, it copies the port
-into ``build/tile_sweep/<i>/``, sets the constants, and in a fresh
-process builds the copy, prints each kernel's resources at the flagship
-head dim, holds the kernels of both dtypes to ``chip_smoke.py``'s limits
-at the main-path shape (the f32 ones with the exact-f32 reading) and
-times the six kernels there (CUDA events, 20 launches after 2 warm-ups,
+sources as committed. The bf16 constants ending in 256 are the D=256
+plan's. Per argument, in that order, it copies the port into
+``build/tile_sweep/<i>/``, sets the constants, and in a fresh process
+builds the copy, prints each kernel's resources at the flagship head dim
+and the bf16 ones' at D=256, holds the kernels of both dtypes to
+``chip_smoke.py``'s limits at the main-path shape (the f32 ones with the
+exact-f32 reading) and the bf16 D=256 ones at phase 12's (``WIDE``), and
+times the nine kernels there (CUDA events, 20 launches after 2 warm-ups,
 twice). Put ``base`` first and last to read the spread. The last line is
 every setting's readings and times as JSON.
 """
@@ -48,19 +51,25 @@ ROOT = os.path.join(fc.REPO, "build", "tile_sweep")
 F32_TILE_CONSTANTS = ("kFwdF32W", "kFwdF32N", "kDqF32W", "kDqF32N",
                       "kDkvF32W", "kDkvF32N")
 TILE_CONSTANTS = ("kFwdWG", "kFwdN", "kDqWG", "kDqN", "kDkvWG",
-                  "kDkvM") + F32_TILE_CONSTANTS
+                  "kDkvM", "kFwdWG256", "kFwdN256", "kDqWG256", "kDqN256",
+                  "kDkvWG256", "kDkvM256") + F32_TILE_CONSTANTS
 
 RUN = """
 import json, chip_smoke as cs
 from rayfed_tpu_torch.ops import _native, flash_attention as fa
-f = cs.FLAGSHIP
+f, w = cs.FLAGSHIP, cs.WIDE
 d = f["d_model"] // f["n_heads"]
 with open(_native.build() + ".log") as log:
-    res = cs.kernel_resources(log.read(), d)
+    text = log.read()
+res = cs.kernel_resources(text, d)
+res.update({n + "<256>": r for n, r in cs.kernel_resources(
+    text, cs.WIDE_HEAD_DIM, _native.KERNEL_NAMES[:3]).items()})
 readings, ms = {}, {}
-for dtype, sfx in (("bfloat16", ""), ("float32", "_f32")):
+for dtype, sfx, s in (("bfloat16", "", f), ("bfloat16", "_d256", w),
+                      ("float32", "_f32", f)):
     got, _, (q, k, v, do, o, lse, delta, _, _) = cs.kernel_errors(
-        "cuda", f["batch"], f["seq"], f["seq"], f["n_heads"], d, 0,
+        "cuda", s["batch"], s["seq"], s["seq"], s["n_heads"],
+        s["d_model"] // s["n_heads"], 0,
         dtype=dtype, exact_f32=dtype == "float32")
     readings.update(got)
     fns = {

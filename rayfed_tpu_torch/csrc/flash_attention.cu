@@ -53,6 +53,13 @@
 // quad), and the bf16 probabilities or dS are fed straight back as the
 // register A operand of the next wgmma: no score, probability, dS or
 // partial output tile goes through shared memory.
+//
+// Those tiles are the plan for head dims 16, 32, 64 and 128. D = 256 has a
+// plan of its own (kFwdWG256 .. kDkvM256): a 64-row f32 accumulator 256
+// wide is 128 registers a thread and a 256-wide tile twice the bytes, so
+// K1 streams 64-key tiles and K2 32-key tiles, and K3, which cannot hold
+// dK and dV at once (256 registers), sweeps its 32-query tiles twice,
+// accumulating dV in the first sweep and dK in the second.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -341,6 +348,52 @@ struct Wgmma<128> {
   }
 };
 
+// The D = 256 accumulators (P V, dS K, P^T dO, dS^T Q): one m64n256 product,
+// 128 accumulator registers a thread.
+template <>
+struct Wgmma<256> {
+  // D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers, B MN-major in shared memory.
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
 // ---------------------------------------------------------------------------
 // K1: the forward
 // ---------------------------------------------------------------------------
@@ -362,6 +415,11 @@ struct FwdCfg {
 // n128 shape. 255 registers, no spills at D = 128; one block per SM.
 constexpr int kFwdWG = 2;
 constexpr int kFwdN = 128;
+// D = 256: O alone is 128 registers a thread and a 128-key stage of K and V
+// is 128 KiB, so the ring steps 64 keys (S and P then take 48 registers);
+// Q and the ring take 192 KiB of shared memory.
+constexpr int kFwdWG256 = 2;
+constexpr int kFwdN256 = 64;
 
 // One block per (b * h, q tile), the heaviest (last) q tiles first. Online
 // softmax over the key tiles at or below the block's last query row.
@@ -544,6 +602,10 @@ struct DqCfg {
 // stages.
 constexpr int kDqWG = 2;
 constexpr int kDqN = 64;
+// D = 256: resident Q and dO take 128 KiB, so the ring steps 32 keys (64
+// KiB); dQ is 128 registers a thread, S, dP and dS 40 more.
+constexpr int kDqWG256 = 2;
+constexpr int kDqN256 = 32;
 
 // One block per (b * h, q tile), the heaviest (last) q tiles first. Per key
 // stage each warpgroup forms S = Q K^T and dP = dO V^T for its 64 rows,
@@ -747,11 +809,23 @@ struct DkvCfg {
 // with two it does not: 255 registers at D = 128, one block per SM.
 constexpr int kDkvWG = 2;
 constexpr int kDkvM = 64;
+// D = 256: dK and dV would be 256 registers a thread, past the 255 a
+// thread may hold, so the kernel sweeps the query tiles twice, dV first,
+// then dK (recomputing S^T, 5 products where one sweep does 4). Resident K
+// and V take 128 KiB, so the ring steps 32 queries (64 KiB).
+constexpr int kDkvWG256 = 2;
+constexpr int kDkvM256 = 32;
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
 
 // One block per (b * h, k tile), k tiles in order (the first keys see the
 // most queries, so the heaviest blocks start first). Streams the q tiles
 // from the diagonal on, in the transposed orientation (rows are keys): the
-// warpgroup holds dK and dV for its 64 keys in f32 registers throughout.
+// warpgroup holds dK and dV for its 64 keys in f32 registers throughout,
+// or, where both do not fit (D = 256), one of them per sweep.
 template <int D, int kWG, int kM>
 __global__ void __launch_bounds__(kWgThreads * kWG)
 flash_bwd_dkv_kernel(const Params p) {
@@ -801,134 +875,170 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   };
 
+  // K and V join the first sweep's first copy group.
   if (qt_start < n_qt) {
     load_sw_tile<D, C::kN, C::kThreads>(sK, kb, p.k_ss, k0, p.Sk);
     load_sw_tile<D, C::kN, C::kThreads>(sV, vb, p.v_ss, k0, p.Sk);
-    load_stage(0, qt_start);
-    cp_async_commit();
   }
 
   // This thread's two key rows (see acc_col).
   const int r0 = wg * 64 + warp * 16 + lane / 4;
   const int k_pos0 = k0 + r0;
   const float scale_log2 = p.scale * kLog2e;
-  float dk[kDp / 2];
-  float dv[kDp / 2];
-#pragma unroll
-  for (int i = 0; i < kDp / 2; ++i) {
-    dk[i] = 0.0f;
-    dv[i] = 0.0f;
-  }
 
-  for (int qt = qt_start; qt < n_qt; ++qt) {
-    const int st = (qt - qt_start) & 1;
-    const uint32_t sQ = sQ0 + 2 * st * C::kQBytes;
-    const uint32_t sDO = sQ + C::kQBytes;
-    const float* lse = stat + 2 * st * C::kM;
-    const float* delta = lse + C::kM;
-    if (qt + 1 < n_qt) {
-      load_stage(st ^ 1, qt + 1);
+  // One sweep over the q tiles: dV (with_dv) and/or dK (with_dk)
+  // accumulated in registers, then written.
+  auto sweep = [&](auto with_dv, auto with_dk) {
+    constexpr bool kDV = decltype(with_dv)::value;
+    constexpr bool kDK = decltype(with_dk)::value;
+    if (qt_start < n_qt) {
+      load_stage(0, qt_start);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    fence_proxy_async();
-    const int q0 = qt * C::kM;
-    __syncthreads();  // query tile qt has landed in stage st
+    float dk[kDK ? kDp / 2 : 1];
+    float dv[kDV ? kDp / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < kDp / 2; ++i) {
+      if constexpr (kDK) dk[i] = 0.0f;
+      if constexpr (kDV) dv[i] = 0.0f;
+    }
 
-    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys.
-    float s[C::kM / 2];
-    float dp[C::kM / 2];
-#pragma unroll
-    for (int i = 0; i < C::kM / 2; ++i) {
-      s[i] = 0.0f;
-      dp[i] = 0.0f;
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      Wgmma<C::kM>::ss(s, kmajor_desc<C::kN>(sK, wg * 64, kk),
-                       kmajor_desc<C::kM>(sQ, 0, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      Wgmma<C::kM>::ss(dp, kmajor_desc<C::kN>(sV, wg * 64, kk),
-                       kmajor_desc<C::kM>(sDO, 0, kk), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-    fence_regs(dp);
+    for (int qt = qt_start; qt < n_qt; ++qt) {
+      const int st = (qt - qt_start) & 1;
+      const uint32_t sQ = sQ0 + 2 * st * C::kQBytes;
+      const uint32_t sDO = sQ + C::kQBytes;
+      const float* lse = stat + 2 * st * C::kM;
+      const float* delta = lse + C::kM;
+      if (qt + 1 < n_qt) {
+        load_stage(st ^ 1, qt + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      fence_proxy_async();
+      const int q0 = qt * C::kM;
+      __syncthreads();  // query tile qt has landed in stage st
 
-    // P^T = exp(S^T scale - lse) (no running max: lse is given) and
-    // dS^T = P^T (dP^T - delta) scale, both into bf16 A fragments. Mask
-    // only a tile that crosses the diagonal or the end of the queries.
-    const bool masked = wg_k0 + 63 > p.q_offset + q0 || q0 + C::kM > p.Sq;
-    uint32_t pa[C::kM / 16][4];
-    uint32_t da[C::kM / 16][4];
+      // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys (dP^T
+      // for dK alone).
+      float s[C::kM / 2];
+      float dp[kDK ? C::kM / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < C::kM / 8; ++i) {
+      for (int i = 0; i < C::kM / 2; ++i) {
+        s[i] = 0.0f;
+        if constexpr (kDK) dp[i] = 0.0f;
+      }
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        float pr[2], ds[2];
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<C::kM>::ss(s, kmajor_desc<C::kN>(sK, wg * 64, kk),
+                         kmajor_desc<C::kM>(sQ, 0, kk), kk > 0);
+      }
+      if constexpr (kDK) {
 #pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int c = acc_col(i, e + x, lane);
-          float v = exp2f(s[4 * i + e + x] * scale_log2 - lse[c] * kLog2e);
-          if (masked) {
-            const int q_row = q0 + c;
-            if (q_row >= p.Sq || p.q_offset + q_row < k_pos0 + 8 * (e / 2)) {
-              v = 0.0f;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<C::kM>::ss(dp, kmajor_desc<C::kN>(sV, wg * 64, kk),
+                           kmajor_desc<C::kM>(sDO, 0, kk), kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      if constexpr (kDK) fence_regs(dp);
+
+      // P^T = exp(S^T scale - lse) (no running max: lse is given) and
+      // dS^T = P^T (dP^T - delta) scale, both into bf16 A fragments. Mask
+      // only a tile that crosses the diagonal or the end of the queries.
+      const bool masked = wg_k0 + 63 > p.q_offset + q0 || q0 + C::kM > p.Sq;
+      uint32_t pa[kDV ? C::kM / 16 : 1][4];
+      uint32_t da[kDK ? C::kM / 16 : 1][4];
+#pragma unroll
+      for (int i = 0; i < C::kM / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          float pr[2], ds[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int c = acc_col(i, e + x, lane);
+            float v = exp2f(s[4 * i + e + x] * scale_log2 - lse[c] * kLog2e);
+            if (masked) {
+              const int q_row = q0 + c;
+              if (q_row >= p.Sq || p.q_offset + q_row < k_pos0 + 8 * (e / 2)) {
+                v = 0.0f;
+              }
+            }
+            pr[x] = v;
+            if constexpr (kDK) {
+              ds[x] = v * (dp[4 * i + e + x] - delta[c]) * p.scale;
             }
           }
-          pr[x] = v;
-          ds[x] = v * (dp[4 * i + e + x] - delta[c]) * p.scale;
-        }
-        pa[i / 2][2 * (i % 2) + e / 2] = pack_bf16(pr[0], pr[1]);
-        da[i / 2][2 * (i % 2) + e / 2] = pack_bf16(ds[0], ds[1]);
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q, the A operands from registers.
-    fence_regs(dv);
-    fence_regs(dk);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C::kM / 16; ++kk) {
-      Wgmma<kDp>::rs(dv, pa[kk], mnmajor_desc<C::kM>(sDO, kk));
-    }
-#pragma unroll
-    for (int kk = 0; kk < C::kM / 16; ++kk) {
-      Wgmma<kDp>::rs(dk, da[kk], mnmajor_desc<C::kM>(sQ, kk));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(dv);
-    fence_regs(dk);
-    fence_regs(pa);
-    fence_regs(da);
-    __syncthreads();  // stage st is free for tile qt + 2
-  }
-
-  const long long o_ss = (long long)p.H * D;
-  const long long base = (long long)b * p.Sk * o_ss + (long long)h * D;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int row = k0 + r0 + 8 * j;
-    if (row < p.Sk) {
-#pragma unroll
-      for (int i = 0; i < kDp / 8; ++i) {
-        const int c = acc_col(i, 0, lane);
-        if (c < D) {
-          const long long at = base + row * o_ss + c;
-          *reinterpret_cast<__nv_bfloat162*>(p.out0 + at) =
-              __floats2bfloat162_rn(dk[4 * i + 2 * j], dk[4 * i + 2 * j + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(p.out1 + at) =
-              __floats2bfloat162_rn(dv[4 * i + 2 * j], dv[4 * i + 2 * j + 1]);
+          if constexpr (kDV) {
+            pa[i / 2][2 * (i % 2) + e / 2] = pack_bf16(pr[0], pr[1]);
+          }
+          if constexpr (kDK) {
+            da[i / 2][2 * (i % 2) + e / 2] = pack_bf16(ds[0], ds[1]);
+          }
         }
       }
+
+      // dV += P^T dO and dK += dS^T Q, the A operands from registers.
+      if constexpr (kDV) fence_regs(dv);
+      if constexpr (kDK) fence_regs(dk);
+      wgmma_fence();
+      if constexpr (kDV) {
+#pragma unroll
+        for (int kk = 0; kk < C::kM / 16; ++kk) {
+          Wgmma<kDp>::rs(dv, pa[kk], mnmajor_desc<C::kM>(sDO, kk));
+        }
+      }
+      if constexpr (kDK) {
+#pragma unroll
+        for (int kk = 0; kk < C::kM / 16; ++kk) {
+          Wgmma<kDp>::rs(dk, da[kk], mnmajor_desc<C::kM>(sQ, kk));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      if constexpr (kDV) fence_regs(dv);
+      if constexpr (kDK) fence_regs(dk);
+      if constexpr (kDV) fence_regs(pa);
+      if constexpr (kDK) fence_regs(da);
+      __syncthreads();  // stage st is free for tile qt + 2
     }
+
+    const long long o_ss = (long long)p.H * D;
+    const long long base = (long long)b * p.Sk * o_ss + (long long)h * D;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = k0 + r0 + 8 * j;
+      if (row < p.Sk) {
+#pragma unroll
+        for (int i = 0; i < kDp / 8; ++i) {
+          const int c = acc_col(i, 0, lane);
+          if (c < D) {
+            const long long at = base + row * o_ss + c;
+            if constexpr (kDK) {
+              *reinterpret_cast<__nv_bfloat162*>(p.out0 + at) =
+                  __floats2bfloat162_rn(dk[4 * i + 2 * j],
+                                        dk[4 * i + 2 * j + 1]);
+            }
+            if constexpr (kDV) {
+              *reinterpret_cast<__nv_bfloat162*>(p.out1 + at) =
+                  __floats2bfloat162_rn(dv[4 * i + 2 * j],
+                                        dv[4 * i + 2 * j + 1]);
+            }
+          }
+        }
+      }
+    }
+  };
+
+  if constexpr (kDp <= 128) {
+    sweep(Flag<true>(), Flag<true>());
+  } else {
+    sweep(Flag<true>(), Flag<false>());
+    sweep(Flag<false>(), Flag<true>());
   }
 }
 
@@ -950,29 +1060,40 @@ Params make_params(const long long* dims, float scale) {
   return p;
 }
 
-// A kernel instantiation with its launch shape.
+// A kernel instantiation with its launch shape: threads and shared memory
+// a block, and the rows of the tiled sequence (Sq for K1 and K2, Sk for
+// K3) a block owns.
 struct Kernel {
   const void* fn;
   int threads;
+  int rows;
   size_t smem;
 };
 
+// Each kernel's tile plan at head dim D: the D <= 128 plan, or the D = 256
+// one.
 template <int D>
 Kernel fwd_kernel() {
-  using C = FwdCfg<D, kFwdWG, kFwdN>;
-  return {(const void*)flash_fwd_kernel<D, kFwdWG, kFwdN>, C::kThreads,
+  constexpr int kWG = D > 128 ? kFwdWG256 : kFwdWG;
+  constexpr int kN = D > 128 ? kFwdN256 : kFwdN;
+  using C = FwdCfg<D, kWG, kN>;
+  return {(const void*)flash_fwd_kernel<D, kWG, kN>, C::kThreads, C::kM,
           C::kSmem};
 }
 template <int D>
 Kernel dq_kernel() {
-  using C = DqCfg<D, kDqWG, kDqN>;
-  return {(const void*)flash_bwd_dq_kernel<D, kDqWG, kDqN>, C::kThreads,
+  constexpr int kWG = D > 128 ? kDqWG256 : kDqWG;
+  constexpr int kN = D > 128 ? kDqN256 : kDqN;
+  using C = DqCfg<D, kWG, kN>;
+  return {(const void*)flash_bwd_dq_kernel<D, kWG, kN>, C::kThreads, C::kM,
           C::kSmem};
 }
 template <int D>
 Kernel dkv_kernel() {
-  using C = DkvCfg<D, kDkvWG, kDkvM>;
-  return {(const void*)flash_bwd_dkv_kernel<D, kDkvWG, kDkvM>, C::kThreads,
+  constexpr int kWG = D > 128 ? kDkvWG256 : kDkvWG;
+  constexpr int kM = D > 128 ? kDkvM256 : kDkvM;
+  using C = DkvCfg<D, kWG, kM>;
+  return {(const void*)flash_bwd_dkv_kernel<D, kWG, kM>, C::kThreads, C::kN,
           C::kSmem};
 }
 
@@ -987,7 +1108,7 @@ Kernel pick(int which) {
     case 1: return dq_kernel<D>();
     case 2: return dkv_kernel<D>();
   }
-  return {nullptr, 0, 0};
+  return {nullptr, 0, 0, 0};
 }
 
 int find_kernel(int which, long long head_dim, Kernel* out) {
@@ -996,18 +1117,10 @@ int find_kernel(int which, long long head_dim, Kernel* out) {
     case 32: *out = pick<32>(which); break;
     case 64: *out = pick<64>(which); break;
     case 128: *out = pick<128>(which); break;
+    case 256: *out = pick<256>(which); break;
     default: return kBadHeadDim;
   }
   return out->fn ? 0 : kBadKernel;
-}
-
-// Row tiles of the sequence each kernel's blocks own.
-int rows_per_block(int which) {
-  switch (which) {
-    case 0: return FwdCfg<16, kFwdWG, kFwdN>::kM;
-    case 1: return DqCfg<16, kDqWG, kDqN>::kM;
-    default: return DkvCfg<16, kDkvWG, kDkvM>::kN;
-  }
 }
 
 int launch(int which, const Params& p, long long head_dim, void* stream) {
@@ -1017,8 +1130,7 @@ int launch(int which, const Params& p, long long head_dim, void* stream) {
   err = (int)cudaFuncSetAttribute(
       k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.smem);
   if (err) return err;
-  const int rows = rows_per_block(which);
-  const int n_tiles = ((which == 2 ? p.Sk : p.Sq) + rows - 1) / rows;
+  const int n_tiles = ((which == 2 ? p.Sk : p.Sq) + k.rows - 1) / k.rows;
   // b * h first, so that the heaviest tiles of every head run in the
   // first wave.
   const dim3 grid(p.B * p.H, n_tiles);
@@ -1101,8 +1213,21 @@ int rf_kernel_resources(int which, int head_dim, int* out) {
   return 0;
 }
 
+// Rows of the tiled sequence one block of kernel `which` owns at head dim
+// `head_dim` (the launch grid's y dimension counts these tiles).
+int rf_kernel_rows(int which, int head_dim, int* rows) {
+  Kernel k;
+  int err = find_kernel(which, head_dim, &k);
+  if (err) return err;
+  *rows = k.rows;
+  return 0;
+}
+
 const char* rf_error_string(int code) {
-  if (code == kBadHeadDim) return "head dim not in (16, 32, 64, 128)";
+  if (code == kBadHeadDim) {
+    return "no kernel at this head dim (bf16: 16, 32, 64, 128, 256; f32: 16, "
+           "32, 64, 128)";
+  }
   if (code == kBadKernel) return "no such kernel";
   return cudaGetErrorString((cudaError_t)code);
 }

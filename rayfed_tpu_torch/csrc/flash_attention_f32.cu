@@ -851,4 +851,14 @@ int rf_kernel_resources_f32(int which, int head_dim, int* out) {
   return 0;
 }
 
+// Rows of the tiled sequence one block of f32 kernel `which` owns at head
+// dim `head_dim` (the launch grid's y dimension counts these tiles).
+int rf_kernel_rows_f32(int which, int head_dim, int* rows) {
+  Kernel k;
+  int err = find_kernel(which, head_dim, &k);
+  if (err) return err;
+  *rows = k.rows;
+  return 0;
+}
+
 }  // extern "C"

@@ -27,6 +27,7 @@ library already there.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "rf_flash_bwd_dkv": [_P] * 9 + [ctypes.c_float, _P],
     # kernel (0 = K1, 1 = K2, 2 = K3), head dim, int[4] out
     "rf_kernel_resources": [ctypes.c_int, ctypes.c_int, _P],
+    # kernel, head dim, int* rows out
+    "rf_kernel_rows": [ctypes.c_int, ctypes.c_int, _P],
 }
 # The f32 kernels (csrc/flash_attention_f32.cu) take the same arguments.
 _SIGNATURES.update({name + "_f32": argtypes
@@ -174,6 +177,19 @@ def kernel_resources(name: str, head_dim: int) -> dict:
     check(code, f"resources of {name}<{head_dim}>")
     return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"),
                     out))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_rows(name: str, head_dim: int) -> int:
+    """Rows of the tiled sequence (Sq for K1 and K2, Sk for K3) one block
+    of kernel ``name`` owns at ``head_dim``: its tile plan's, as the
+    launch grid counts them."""
+    out = ctypes.c_int()
+    which = KERNEL_NAMES.index(name)
+    entry = lib().rf_kernel_rows if which < 3 else lib().rf_kernel_rows_f32
+    check(entry(which % 3, head_dim, ctypes.addressof(out)),
+          f"rows of {name}<{head_dim}>")
+    return out.value
 
 
 def check(code: int, what: str) -> None:

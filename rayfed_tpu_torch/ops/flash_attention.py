@@ -39,21 +39,26 @@ launches the kernel, or raises on a dtype, head dim or layout the kernel
 does not take. There is no fallback between the two. ``LAUNCHES`` counts
 kernel launches, so a run can show that it went through the kernels.
 
-The kernels are built for head dims 16, 32, 64 and 128. Any other head
-dim up to 128 runs zero-padded to the next of them (q, k, v and dO padded
-along D, the scale kept at the true ``D**-0.5``, the outputs sliced back),
-as the Pallas kernels take any D; a zero column adds nothing to a score,
-so O, lse and the gradients are those of the true D, at the padded D's
-work (D=80 on the D=128 kernel: 1.6x the products). Head dims above 128
-raise: a D=256 instantiation needs its own register plan (ROADMAP Queue
-2, "head dims above 128").
+The bf16 kernels are built for head dims 16, 32, 64, 128 and 256, the
+f32 ones for 16, 32, 64 and 128 (``KERNEL_HEAD_DIMS``). Any other head
+dim up to a dtype's largest runs zero-padded to the next of them (q, k, v
+and dO padded along D, the scale kept at the true ``D**-0.5``, the outputs
+sliced back), as the Pallas kernels take any D; a zero column adds
+nothing to a score, so O, lse and the gradients are those of the true D,
+at the padded D's work (D=80 on the D=128 kernel: 1.6x the products;
+D=160 on the D=256 one: 1.6x). Past that the wrappers raise
+NotImplementedError: f32 above 128 (ROADMAP Queue 2, "f32 head dims
+above 128") and any dtype above 256 (Queue 2, "head dims above 256").
 
-The kernels choose their own tiles (bf16: K1 128 queries x 128 keys, K2
-128 queries x 64 keys, K3 128 keys x 64 queries; f32: K1 and K2 128
-queries x 32 keys, K3 128 keys x 32 queries) and mask ragged edges,
-whatever ``block_q``/``block_k`` say; the block sizes drive the plain
-versions. The launch grid is (B·H, row tiles): B·H may reach 2^31-1, the
-row tiles of the tiled sequence (Sq for K1 and K2, Sk for K3) 65535. Both dQ kernels also compute ``delta =
+The kernels choose their own tiles (bf16 up to D=128: K1 128 queries x
+128 keys, K2 128 queries x 64 keys, K3 128 keys x 64 queries; bf16 at
+D=256: K1 128 x 64, K2 128 x 32, K3 128 keys x 32 queries in two sweeps;
+f32: K1 and K2 128 queries x 32 keys, K3 128 keys x 32 queries) and mask
+ragged edges, whatever ``block_q``/``block_k`` say; the block sizes drive
+the plain versions. The launch grid is (B·H, row tiles): B·H may reach
+2^31-1, the row tiles of the tiled sequence (Sq for K1 and K2, Sk for K3;
+each kernel's own tile height at its head dim, read from the kernel
+library) 65535. Both dQ kernels also compute ``delta =
 rowsum(dO * O)``, which the reference left to XLA between its two backward
 passes. The entry points take the reference's arguments in its order;
 its ``interpret`` flag is accepted and ignored, since the tensors' device
@@ -68,18 +73,19 @@ from typing import Dict, Optional
 import torch
 
 _NEG_BIG = -1e30
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-#: Sequence rows each kernel's block owns, every kernel and both dtypes
-#: (csrc: bf16 ``FwdCfg``/``DqCfg::kM`` and ``DkvCfg::kN``, 64 x 2
-#: warpgroups; f32 ``kM``, 16 x 8 warps). The grid's y dimension counts
-#: these tiles and may not pass 65535; its x dimension (B·H) 2^31-1.
-_TILE_ROWS = 128
+#: The head dims each dtype's kernels are built for.
+KERNEL_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
+                    torch.float32: (16, 32, 64, 128)}
+#: The launch grid's limits: its y dimension counts a kernel's row tiles
+#: (``_native.kernel_rows``), its x dimension is B·H.
 _GRID_Y_MAX = 65535
 _GRID_X_MAX = 2**31 - 1
 
-#: Launches of each CUDA kernel; a wrapper adds one where it launches.
+#: Launches of each CUDA kernel; a wrapper adds one where it launches. The
+#: bf16 kernels' D=256 instantiations count under ``*_d256``.
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "flash_fwd_d256": 0, "flash_bwd_dq_d256": 0, "flash_bwd_dkv_d256": 0,
     "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
 }
 #: The dtypes the kernels take, with the suffix of their C entry points
@@ -262,18 +268,25 @@ def _dims(q, k, v, o, do, q_offset):
                                     *strides)
 
 
-def kernel_head_dim(d: int) -> int:
-    """The head dim the kernels run a head dim ``d`` at: ``d`` itself, or
-    the next of ``KERNEL_HEAD_DIMS`` with q, k, v and dO zero-padded."""
-    for kd in KERNEL_HEAD_DIMS:
-        if d <= kd:
-            return kd
-    raise NotImplementedError(
-        f"head dim {d}: the CUDA flash kernels take D <= "
-        f"{KERNEL_HEAD_DIMS[-1]} (zero-padded up to one of "
-        f"{KERNEL_HEAD_DIMS}); a D=256 instantiation needs its own register "
-        f"plan — ROADMAP Queue 2, 'head dims above 128'"
-    )
+def kernel_head_dim(d: int, dtype=torch.bfloat16) -> int:
+    """The head dim the kernels of ``dtype`` run a head dim ``d`` at:
+    ``d`` itself, or the next of ``KERNEL_HEAD_DIMS[dtype]`` with q, k, v
+    and dO zero-padded."""
+    if dtype not in KERNEL_HEAD_DIMS:
+        raise TypeError(f"the CUDA flash kernels take bfloat16 or float32; "
+                        f"got {dtype}")
+    if d > KERNEL_HEAD_DIMS[torch.bfloat16][-1]:
+        raise NotImplementedError(
+            f"head dim {d}: the CUDA flash kernels take D <= 256 in bf16 "
+            f"and D <= 128 in f32; a kernel past D=256 needs a tile plan of "
+            f"its own — ROADMAP Queue 2, 'head dims above 256'")
+    dims = KERNEL_HEAD_DIMS[dtype]
+    if d > dims[-1]:
+        raise NotImplementedError(
+            f"head dim {d}: the f32 CUDA flash kernels take D <= {dims[-1]} "
+            f"(the bf16 ones D <= 256); an f32 D=256 plan is still to port "
+            f"— ROADMAP Queue 2, 'f32 head dims above 128'")
+    return next(kd for kd in dims if d <= kd)
 
 
 def _pad_head(x, kd):
@@ -281,10 +294,13 @@ def _pad_head(x, kd):
         x, (0, kd - x.shape[-1]))
 
 
-def _geometry(q, k, q_offset, tiled):
-    """(B, Sq, Sk, H, D, the kernel head dim) of a launch whose grid
-    tiles ``tiled`` ("q" for K1 and K2, "k" for K3); raises where the
-    kernels cannot run it."""
+def _geometry(q, k, q_offset, kernel):
+    """(B, Sq, Sk, H, D, the kernel head dim, the kernel's C name without
+    ``_kernel``) of a launch of ``kernel`` ("flash_fwd", "flash_bwd_dq" or
+    "flash_bwd_dkv") for q's dtype; raises where the kernels cannot run
+    it. The grid tiles Sq for K1 and K2, Sk for K3."""
+    from rayfed_tpu_torch.ops import _native
+
     if not q.is_cuda:
         raise ValueError(
             f"the CUDA flash kernels need CUDA tensors, got {q.device}")
@@ -292,20 +308,28 @@ def _geometry(q, k, q_offset, tiled):
         raise ValueError(f"q must be (B, S, H, D), got shape {tuple(q.shape)}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    kd = kernel_head_dim(d)
+    kd = kernel_head_dim(d, q.dtype)
+    kind = kernel + _KERNEL_DTYPES[q.dtype]
     if sq < 1 or sk < 1 or b * h < 1 or q_offset < 0:
         raise ValueError(f"unsupported geometry B={b} Sq={sq} Sk={sk} H={h} "
                          f"q_offset={q_offset}")
     if b * h > _GRID_X_MAX:
         raise ValueError(f"B·H = {b * h} passes the launch grid's x limit "
                          f"{_GRID_X_MAX}")
-    s = sq if tiled == "q" else sk
-    tiles = -(-s // _TILE_ROWS)
+    tiled, s = ("k", sk) if kernel == "flash_bwd_dkv" else ("q", sq)
+    rows = _native.kernel_rows(kind + "_kernel", kd)
+    tiles = -(-s // rows)
     if tiles > _GRID_Y_MAX:
         raise ValueError(
-            f"S{tiled} = {s} is {tiles} tiles of {_TILE_ROWS} rows, past the "
+            f"S{tiled} = {s} is {tiles} tiles of {rows} rows, past the "
             f"launch grid's y limit {_GRID_Y_MAX}")
-    return b, sq, sk, h, d, kd
+    return b, sq, sk, h, d, kd, kind
+
+
+def _launch_key(kind, kd):
+    """The ``LAUNCHES`` key of C kernel ``kind`` launched at kernel head
+    dim ``kd``."""
+    return kind + ("_d256" if kd == 256 else "")
 
 
 def _stream(device):
@@ -317,12 +341,11 @@ def _flash_fwd_cuda(q, k, v, q_offset):
     (f32); returns (O, lse)."""
     from rayfed_tpu_torch.ops import _native
 
-    b, sq, sk, h, d, kd = _geometry(q, k, q_offset, "q")
+    b, sq, sk, h, d, kd, kind = _geometry(q, k, q_offset, "flash_fwd")
     padded = kd != d
     for name, x, s in (("q", q, sq), ("k", k, sk), ("v", v, sk)):
         _check_qkv(name, x, b, s, h, d, q.device, q.dtype, padded)
     q, k, v = (_pad_head(x, kd) for x in (q, k, v))
-    kind = "flash_fwd" + _KERNEL_DTYPES[q.dtype]
     o = torch.empty((b, sq, h, kd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     dims = _dims(q, k, v, None, None, q_offset)
@@ -334,7 +357,7 @@ def _flash_fwd_cuda(q, k, v, q_offset):
             _stream(q.device),
         )
     _native.check(code, kind + "_kernel")
-    LAUNCHES[kind] += 1
+    LAUNCHES[_launch_key(kind, kd)] += 1
     return o[..., :d], lse
 
 
@@ -343,14 +366,14 @@ def _flash_bwd_dq_cuda(q, k, v, o, lse, do, q_offset):
     ``flash_bwd_dq_f32_kernel`` (f32); returns (dq, delta)."""
     from rayfed_tpu_torch.ops import _native
 
-    b, sq, sk, h, d, kd = _geometry(q, k, q_offset, "q")
+    b, sq, sk, h, d, kd, kind = _geometry(q, k, q_offset,
+                                          "flash_bwd_dq")
     padded = kd != d
     for name, x, s in (("q", q, sq), ("k", k, sk), ("v", v, sk),
                        ("o", o, sq), ("do", do, sq)):
         _check_qkv(name, x, b, s, h, d, q.device, q.dtype, padded)
     _check_stat("lse", lse, b, sq, h, q.device)
     q, k, v, o, do = (_pad_head(x, kd) for x in (q, k, v, o, do))
-    kind = "flash_bwd_dq" + _KERNEL_DTYPES[q.dtype]
     dq = torch.empty((b, sq, h, kd), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     dims = _dims(q, k, v, o, do, q_offset)
@@ -362,7 +385,7 @@ def _flash_bwd_dq_cuda(q, k, v, o, lse, do, q_offset):
             ctypes.addressof(dims), d**-0.5, _stream(q.device),
         )
     _native.check(code, kind + "_kernel")
-    LAUNCHES[kind] += 1
+    LAUNCHES[_launch_key(kind, kd)] += 1
     return dq[..., :d], delta
 
 
@@ -371,7 +394,8 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_offset):
     ``flash_bwd_dkv_f32_kernel`` (f32); returns (dk, dv)."""
     from rayfed_tpu_torch.ops import _native
 
-    b, sq, sk, h, d, kd = _geometry(q, k, q_offset, "k")
+    b, sq, sk, h, d, kd, kind = _geometry(q, k, q_offset,
+                                          "flash_bwd_dkv")
     padded = kd != d
     for name, x, s in (("q", q, sq), ("k", k, sk), ("v", v, sk),
                        ("do", do, sq)):
@@ -379,7 +403,6 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_offset):
     _check_stat("lse", lse, b, sq, h, q.device)
     _check_stat("delta", delta, b, sq, h, q.device)
     q, k, v, do = (_pad_head(x, kd) for x in (q, k, v, do))
-    kind = "flash_bwd_dkv" + _KERNEL_DTYPES[q.dtype]
     dk = torch.empty((b, sk, h, kd), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, kd), dtype=v.dtype, device=q.device)
     dims = _dims(q, k, v, None, do, q_offset)
@@ -391,7 +414,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_offset):
             ctypes.addressof(dims), d**-0.5, _stream(q.device),
         )
     _native.check(code, kind + "_kernel")
-    LAUNCHES[kind] += 1
+    LAUNCHES[_launch_key(kind, kd)] += 1
     return dk[..., :d], dv[..., :d]
 
 

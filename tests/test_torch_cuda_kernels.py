@@ -23,7 +23,7 @@ package, so it runs on a machine that has only the port:
 import pytest
 import torch
 
-from chip_smoke import BF16_TILE_REL_TOL, tile_rel_err
+from chip_smoke import BF16_TILE_REL_TOL, WIDE_SHAPES, tile_rel_err
 from rayfed_tpu_torch.ops import flash_attention as fa
 
 
@@ -72,6 +72,41 @@ SHAPES = [
 
 def _max_abs(got, want):
     return float((got - want).abs().max())
+
+
+# bf16 head dims past 128 run on the D=256 plan, D below 256 zero-padded
+# to it: chip_smoke.py's phase 12 shapes.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d,q_offset", WIDE_SHAPES)
+def test_wide_head_dim_kernels_match_plain_on_card(cuda_device, b, sq, sk, h,
+                                                   d, q_offset):
+    from chip_smoke import kernel_errors
+
+    fa.reset_launch_counts()
+    readings, errs, _ = kernel_errors(cuda_device, b, sq, sk, h, d, q_offset)
+    assert sorted(errs) == ["flash_bwd_dkv_d256", "flash_bwd_dq_d256",
+                            "flash_fwd_d256"]
+    for name, (err, limit) in readings.items():
+        assert err <= limit, (name, err, limit)
+    # The D=256 plan ran, not the D <= 128 one.
+    assert all(fa.LAUNCHES[k + "_d256"] == 1
+               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    assert not any(fa.LAUNCHES[k]
+                   for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+@pytest.mark.cuda
+def test_wide_head_dim_kernels_do_not_spill(cuda_device):
+    from chip_smoke import kernel_resources
+    from rayfed_tpu_torch.ops import _native
+
+    with open(_native.build() + ".log") as f:
+        log = f.read()
+    res = kernel_resources(log, 256, _native.KERNEL_NAMES[:3])
+    for name, r in res.items():
+        assert r["spill_bytes"] == 0, (name, r)
+        assert r["blocks_per_sm"] >= 1, (name, r)
+        assert r["registers"] <= 255, (name, r)
 
 
 @pytest.mark.cuda
@@ -155,10 +190,16 @@ def test_kernel_wrappers_raise_on_untaken_inputs(cuda_device):
         fa._flash_bwd_dq_cuda(x, x, x, x.float(),
                               torch.zeros((1, 64, 2), device=cuda_device),
                               x, 0)
-    y = torch.zeros((1, 64, 2, 160), device=cuda_device,
-                    dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="head dims above 128"):
+    # f32 past D=128 and any dtype past D=256 raise, naming their rows.
+    y = torch.zeros((1, 64, 2, 160), device=cuda_device)
+    with pytest.raises(NotImplementedError,
+                       match="Queue 2, 'f32 head dims above 128'"):
         fa._flash_fwd_cuda(y, y, y, 0)
+    z = torch.zeros((1, 64, 2, 320), device=cuda_device,
+                    dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError,
+                       match="Queue 2, 'head dims above 256'"):
+        fa._flash_fwd_cuda(z, z, z, 0)
     # The grid's y dimension counts 128-row tiles, at most 65535.
     w = torch.zeros((1, 128 * 65535 + 1, 1, 16), device=cuda_device,
                     dtype=torch.bfloat16)

@@ -569,21 +569,33 @@ def test_ported_config_block_is_accepted_and_its_typo_rejected(
     assert get_global_context() is None
 
 
-def _head_dim_256():
+def _f32_head_dim_256():
+    import torch
+
     from rayfed_tpu_torch.ops.flash_attention import kernel_head_dim
 
-    kernel_head_dim(256)
+    kernel_head_dim(256, torch.float32)
+
+
+def _bf16_head_dim_320():
+    import torch
+
+    from rayfed_tpu_torch.ops.flash_attention import kernel_head_dim
+
+    kernel_head_dim(320, torch.bfloat16)
 
 
 # Refusals that are calls, not config blocks: each names where its work
 # stands in the ROADMAP.
 _REFUSED_CALLS = [
-    (_head_dim_256, "Queue 2, 'head dims above 128'"),
+    (_f32_head_dim_256, "Queue 2, 'f32 head dims above 128'"),
+    (_bf16_head_dim_320, "Queue 2, 'head dims above 256'"),
 ]
 
 
 @pytest.mark.parametrize("call, item", _REFUSED_CALLS,
-                         ids=["head_dim_over_128"])
+                         ids=["f32_head_dim_over_128",
+                              "bf16_head_dim_over_256"])
 def test_unported_call_is_refused(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()

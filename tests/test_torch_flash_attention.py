@@ -116,6 +116,77 @@ def test_padded_head_dim_plain_path_matches_pallas():
     assert fa.kernel_head_dim(80) == 128 and fa.kernel_head_dim(64) == 64
 
 
+# Head dims past 128: the bf16 kernels run them on their D=256 plan, D
+# below 256 zero-padded to it.
+WIDE_HEAD_DIMS = [136, 160, 192, 256]
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_wide_head_dim_plain_path_matches_pallas(d):
+    """The plain path at D > 128 against the Pallas kernels in interpret
+    mode, f32: the forward and both backward passes, Sq < Sk with the
+    queries at q_offset > 0 (a ring step's shape)."""
+    sq, sk, q_offset = 32, 64, 32
+    arrs = _inputs(9, [(1, sq, 2, d), (1, sk, 2, d), (1, sk, 2, d),
+                       (1, sq, 2, d)])
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(arrs)
+    jo, jl = jfa._flash_fwd_raw(jq, jk, jv, 16, 16, True, q_offset)
+    to, tl = fa._flash_fwd_raw(tq, tk, tv, 16, 16, True, q_offset)
+    _close(to, jo, 2e-5)
+    _close(tl, jl, 2e-5)
+    jgrads = jfa._flash_bwd_pallas(jq, jk, jv, jo, jl, jdo, 16, 16, True,
+                                   q_offset)
+    tgrads = fa._flash_bwd_raw(tq, tk, tv, torch.from_numpy(np.array(jo)),
+                               torch.from_numpy(np.array(jl)), tdo, 16, 16,
+                               True, q_offset)
+    for got, want in zip(tgrads, jgrads):
+        _close(got, want, 3e-4)
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_wide_head_dim_bf16_matches_pallas(d):
+    """bf16 at D > 128, as ``test_bf16_matches_pallas`` holds D=16: the
+    differentiable entry point's output and its gradients through the
+    custom VJP, against the JAX package's, to the bf16 tolerance."""
+    arrs = _inputs(10, [(1, 64, 2, d)] * 3)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, jnp.bfloat16, torch.bfloat16)
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention(q, k, v, block_q=16, block_k=16)
+        return (o.astype(jnp.float32) ** 2).sum(), o
+
+    (_, jo), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                         has_aux=True)(jq, jk, jv)
+    tq, tk, tv = (x.requires_grad_(True) for x in (tq, tk, tv))
+    to = fa.flash_attention(tq, tk, tv, block_q=16, block_k=16)
+    (to.float() ** 2).sum().backward()
+    assert to.dtype == torch.bfloat16
+    _close(to, jo, 3e-2)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        _close(got, want, 3e-2)
+
+
+@pytest.mark.parametrize("d,want", [(16, 16), (80, 128), (128, 128),
+                                    (129, 256), (200, 256), (256, 256)])
+def test_kernel_head_dim_in_bf16(d, want):
+    assert fa.kernel_head_dim(d) == want
+    assert fa.kernel_head_dim(d, torch.bfloat16) == want
+
+
+def test_kernel_head_dim_refusals_name_their_roadmap_rows():
+    assert fa.kernel_head_dim(128, torch.float32) == 128
+    assert fa.kernel_head_dim(80, torch.float32) == 128
+    with pytest.raises(NotImplementedError,
+                       match="Queue 2, 'f32 head dims above 128'"):
+        fa.kernel_head_dim(160, torch.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(NotImplementedError,
+                           match="Queue 2, 'head dims above 256'"):
+            fa.kernel_head_dim(257, dtype)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.kernel_head_dim(64, torch.float16)
+
+
 def test_autograd_matches_jax_grad():
     """The autograd.Function's backward against jax.grad through the
     custom_vjp, and the forward's value too."""
@@ -178,8 +249,10 @@ def test_plain_path_launches_no_kernel():
     tq.requires_grad_(True)
     fa.flash_attention(tq, tk, tv, block_q=16, block_k=16).sum().backward()
     assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                           "flash_bwd_dkv": 0, "flash_fwd_f32": 0,
-                           "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
+                           "flash_bwd_dkv": 0, "flash_fwd_d256": 0,
+                           "flash_bwd_dq_d256": 0, "flash_bwd_dkv_d256": 0,
+                           "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0,
+                           "flash_bwd_dkv_f32": 0}
 
 
 @pytest.mark.parametrize("q_offset", [0, 5])

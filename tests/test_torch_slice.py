@@ -55,20 +55,22 @@ PARTIES = chip_smoke.PARTIES
 BATCH, SEQ, ROUNDS, LOCAL_STEPS = 2, 32, 2, 2
 
 
-def _jax_rounds(jcfg, init):
-    """The same loop as ``chip_smoke.fedavg_rounds`` in the JAX package."""
+def _jax_rounds(jcfg, init, seq=SEQ, rounds=ROUNDS, local_steps=LOCAL_STEPS):
+    """The same loop as ``chip_smoke.fedavg_rounds`` in the JAX package;
+    returns each party's losses, the final aggregate and the party trees
+    it folded."""
     mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
     init_fn, step_fn = j_make_step(jcfg, mesh, party_axis=None,
                                    data_axis="data", attn="flash", lr=LR,
                                    donate=False)
     data = {n: jdata.synthetic_lm_dataset(
-        jcfg.vocab, BATCH * LOCAL_STEPS * (SEQ + 1), SEQ, seed=s)
+        jcfg.vocab, BATCH * local_steps * (seq + 1), seq, seed=s)
         for n, s in PARTIES}
     params0, opt0 = init_fn(jax.random.PRNGKey(0), None)
     params0 = jax.tree_util.tree_map(jnp.asarray, init)
     state = {n: (params0, opt0) for n in data}
     losses = {n: [] for n in data}
-    for r in range(ROUNDS):
+    for r in range(rounds):
         for n in data:
             params, opt = state[n]
             for blk in data[n].batches(BATCH, epoch=r):
@@ -76,9 +78,11 @@ def _jax_rounds(jcfg, init):
                                             jnp.asarray(blk[:, 1:]))
                 losses[n].append(float(loss))
             state[n] = (params, opt)
+        folded = [jax.tree_util.tree_map(np.asarray, state[n][0])
+                  for n in data]
         agg = jagg.tree_mean(*[state[n][0] for n in data])
         state = {n: (agg, state[n][1]) for n in data}
-    return losses, jax.tree_util.tree_map(np.asarray, agg)
+    return losses, jax.tree_util.tree_map(np.asarray, agg), folded
 
 
 def test_two_party_rounds_match_reference():
@@ -86,7 +90,7 @@ def test_two_party_rounds_match_reference():
     tcfg = tfm.tiny_config(compute_dtype=torch.float32)
     init = jax.tree_util.tree_map(
         np.asarray, jtfm.init_params(jax.random.PRNGKey(0), jcfg))
-    jlosses, jagg_params = _jax_rounds(jcfg, init)
+    jlosses, jagg_params, _ = _jax_rounds(jcfg, init)
     run = chip_smoke.fedavg_rounds(tcfg, "cpu", batch=BATCH, seq=SEQ,
                                    rounds=ROUNDS, local_steps=LOCAL_STEPS,
                                    lr=LR, init=init)
@@ -108,6 +112,49 @@ def test_two_party_rounds_match_reference():
         key = jax.tree_util.keystr(path)
         assert np.linalg.norm(diff) <= PARAM_NORM_TOL * np.linalg.norm(want), key
         assert np.abs(diff).max() <= LR, key
+
+
+def test_head_dim_256_round_matches_reference():
+    """A tiny config at head dim 256 (d_model 512 in 2 heads, the head dim
+    of chip_smoke's phase 12): the JAX init carried across, one FedAvg
+    round of two parties' local steps against the JAX package (every
+    party's loss, and the aggregate's, to 1e-5), and the port's
+    ``tree_mean`` of the JAX parties' trees bitwise the JAX package's
+    aggregate. The aggregates' params are not held entry by entry: at this
+    width a few hundred of the 1.4M entries of a leaf have first-step
+    gradients of the order of AdamW's eps, whose steps then differ by up
+    to 16% of the learning rate (the gradients themselves agree to 1e-5,
+    ``test_torch_train.py``)."""
+    from rayfed_tpu_torch.ops.aggregate import tree_mean
+
+    wide = dict(vocab=256, d_model=512, n_heads=2, n_layers=2, d_ff=1408)
+    seq = 64
+    jcfg = jtfm.tiny_config(compute_dtype=jnp.float32, **wide)
+    tcfg = tfm.tiny_config(compute_dtype=torch.float32, **wide)
+    assert tcfg.head_dim == 256
+    init = jax.tree_util.tree_map(
+        np.asarray, jtfm.init_params(jax.random.PRNGKey(0), jcfg))
+    jlosses, jagg_params, folded = _jax_rounds(jcfg, init, seq=seq,
+                                               rounds=1, local_steps=1)
+    run = chip_smoke.fedavg_rounds(tcfg, "cpu", batch=BATCH, seq=seq,
+                                   rounds=1, local_steps=1, lr=LR, init=init)
+    assert run["starts_identical"] == [True]
+    for name, _ in PARTIES:
+        np.testing.assert_allclose(run["losses"][name], jlosses[name],
+                                   rtol=LOSS_TOL, atol=LOSS_TOL)
+    blk = run["eval_block"].numpy()
+    want_eval = jtfm.lm_loss_pair(
+        jax.tree_util.tree_map(jnp.asarray, jagg_params),
+        jnp.asarray(blk[:, :-1]), jnp.asarray(blk[:, 1:]), jcfg)
+    np.testing.assert_allclose(run["eval"][-1], float(want_eval),
+                               rtol=LOSS_TOL, atol=LOSS_TOL)
+    # The fold itself, on the same two trees: bitwise.
+    ours = dict(jax.tree_util.tree_leaves_with_path(tfm.params_to_numpy(
+        tree_mean(*[tfm.params_from_numpy(t, device="cpu") for t in folded]))))
+    for path, want in jax.tree_util.tree_leaves_with_path(jagg_params):
+        assert ours[path].dtype == want.dtype
+        np.testing.assert_array_equal(ours[path], want,
+                                      err_msg=jax.tree_util.keystr(path))
 
 
 def test_party_data_matches_reference_windows():
@@ -281,6 +328,7 @@ def test_sdpa_backend_reads_the_kernel_names():
         ["void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits>"]) \
         == "flash"
     assert chip_smoke.sdpa_backend(["void at::native::softmax_warp"]) == "math"
+    assert chip_smoke.sdpa_backend([]).startswith("not measured")
 
 
 def test_parse_sass_counts_reads_each_kernels_instructions():

@@ -102,6 +102,68 @@ def test_train_steps_match_reference(n_steps):
     _assert_params_close(tparams, jparams)
 
 
+# Head dim 256 (d_model 512 in 2 heads), which the bf16 kernels run on their
+# D=256 tile plan on the card; here both packages take their flash paths
+# (Pallas in interpret mode, the port's plain versions) at that head dim.
+WIDE_CFG = dict(vocab=256, d_model=512, n_heads=2, n_layers=2, d_ff=1408)
+WIDE_SEQ = 64
+
+
+def test_head_dim_256_step_loss_and_grads_match_reference():
+    """The gradients of the loss through flash attention, and two steps of
+    each package's ``make_fed_train_step`` (the second step's loss reads
+    the first's update), at head dim 256. The params themselves are held
+    end to end by ``test_torch_slice.py``'s round at this head dim: at this
+    width a few of the 131072 embedding entries have gradients of the
+    order of AdamW's eps, which turns a last-bit gradient difference into
+    more than 1% of their step."""
+    from rayfed_tpu.ops.flash_attention import make_flash_attn_fn as j_flash
+    from rayfed_tpu_torch.ops.flash_attention import make_flash_attn_fn
+
+    jcfg = jtfm.tiny_config(compute_dtype=jnp.float32, **WIDE_CFG)
+    tcfg = _torch_cfg(**WIDE_CFG)
+    assert jcfg.head_dim == tcfg.head_dim == 256
+    jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
+    init = jax.tree_util.tree_map(np.asarray, jparams)
+    blocks = [np.random.default_rng(seed).integers(
+        0, jcfg.vocab, size=(2, WIDE_SEQ + 1)).astype(np.int32)
+        for seed in (4, 5)]
+    x, y = blocks[0][:, :-1], blocks[0][:, 1:]
+
+    # Gradients of the loss through flash attention.
+    jgrads = jax.grad(jtfm.lm_loss_pair)(jparams, jnp.asarray(x),
+                                         jnp.asarray(y), jcfg, j_flash())
+    tparams = tfm.params_from_numpy(init, device="cpu")
+    tree_util.tree_map(lambda p: p.requires_grad_(True), tparams)
+    tfm.lm_loss_pair(tparams, torch.from_numpy(x).long(),
+                     torch.from_numpy(y).long(), tcfg,
+                     make_flash_attn_fn()).backward()
+    got = dict(jax.tree_util.tree_leaves_with_path(
+        tree_util.tree_map(lambda p: p.grad.numpy(), tparams)))
+    for path, want in jax.tree_util.tree_leaves_with_path(jgrads):
+        np.testing.assert_allclose(got[path], np.asarray(want),
+                                   rtol=LOSS_TOL, atol=LOSS_TOL,
+                                   err_msg=jax.tree_util.keystr(path))
+
+    # Two steps of each package's make_fed_train_step.
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    jinit, jstep = j_make_step(jcfg, mesh, party_axis=None, data_axis="data",
+                               attn="flash", lr=LR)
+    jp, jopt = jinit(jax.random.PRNGKey(0), jnp.asarray(x))
+    jp = jax.tree_util.tree_map(jnp.asarray, init)
+    tinit, tstep = make_fed_train_step(tcfg, device="cpu", attn="flash",
+                                       lr=LR)
+    tp, topt = tinit(init)
+    jlosses, tlosses = [], []
+    for blk in blocks:
+        jp, jopt, jloss = jstep(jp, jopt, jnp.asarray(blk[:, :-1]),
+                                jnp.asarray(blk[:, 1:]))
+        tp, topt, tloss = tstep(tp, topt, blk[:, :-1], blk[:, 1:])
+        jlosses.append(float(jloss))
+        tlosses.append(float(tloss))
+    np.testing.assert_allclose(tlosses, jlosses, rtol=LOSS_TOL, atol=LOSS_TOL)
+
+
 def test_grad_accumulation_matches_reference():
     init, jlosses, jparams, batches = _run_jax(1, accum_steps=2)
     tlosses, tparams = _run_torch(init, batches, accum_steps=2)
