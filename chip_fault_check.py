@@ -21,20 +21,21 @@ kernel, on one card:
 It copies the port into ``build/fault_check/`` twice, each time with
 one kind of planted fault (``planted_source`` does the patching), builds
 the copy, and reads ``chip_smoke.kernel_errors`` for the sound and the
-faulted kernels on the same inputs at the main-path shape, in both
-dtypes, the f32 ones with the exact-f32 reading:
+faulted kernels on the same inputs at the main-path shape and at phase
+12's (``WIDE``, the D = 256 tile plans), in both dtypes, the f32 ones
+with the exact-f32 reading:
 
-- "skip", one fault in each flash kernel, bf16 and f32: K1 and K2 skip
-  the keys of 64-row tile SKIP_KT, K3 the queries of 64-row tile
-  SKIP_QT (a mid-sequence tile dropped for the late rows or the early
-  keys). Every output (O, dq, dk, dv) of every kernel must be past its
-  limit.
+- "skip", one fault in each flash kernel, bf16 and f32 (each loop serves
+  both of its dtype's tile plans): K1 and K2 skip the keys of 64-row
+  tile SKIP_KT, K3 the queries of 64-row tile SKIP_QT (a mid-sequence
+  tile dropped for the late rows or the early keys). Every output (O,
+  dq, dk, dv) of every kernel at both head dims must be past its limit.
 - "split", one fault in the f32 split helper: ``lo`` is zeroed, so each
   product of the f32 K1, K2 and K3 is one TF32 product. Their exact-f32
   readings (O, lse, dq, dk, dv against a tenth of the TF32 plain
-  version's error) must be past their limits; the script also prints
-  whether the plain limits alone (2e-5 on O, 1e-4 on lse, 3e-4 on the
-  gradients) would have caught it.
+  version's error), at both head dims, must be past their limits; the
+  script also prints whether the plain limits alone (2e-5 on O, 1e-4 on
+  lse, 3e-4 on the gradients) would have caught it.
 
 It exits 0 when every sound reading is within its limit and every
 faulted reading named above is past it. The last line is the readings as
@@ -58,10 +59,10 @@ SKIP_QT = 24  # queries 1536..1599 at a 64-row tile
 # kind)]}. Every kernel has a copy ring: the skip goes after the barrier
 # at which a tile has landed and keeps the barrier that frees its stage,
 # so the ring runs on. K1 and K2 skip the key steps within SKIP_KT (bf16
-# K1 steps 128 keys, so keys 1024..1151; bf16 K2 steps 64, exactly
-# SKIP_KT; f32 K1 and K2 step kN = 32, two steps); K3 the query steps
-# within SKIP_QT. The split fault zeroes the low TF32 part of every split
-# value, K1's Q too (split once, as it lands).
+# K1 steps 128 keys, so keys 1024..1151, 64 at D = 256; bf16 K2 steps 64,
+# exactly SKIP_KT, 32 at D = 256; f32 K1 and K2 step kN = 32, two steps,
+# 16 at D = 256, four); K3 the query steps within SKIP_QT. The split
+# fault zeroes the low TF32 part of every split value.
 FAULTS = {
     "flash_attention.cu": [
         # K1: the key-tile loop, once tile kt is in shared memory.
@@ -97,18 +98,20 @@ FAULTS = {
 }
 FAULT_KINDS = ("skip", "split")
 # The readings the split fault must push past their limits.
-SPLIT_CAUGHT_BY = ("K1 f32 O exact", "K1 f32 lse exact", "K2 f32 dq exact",
-                   "K3 f32 dk exact", "K3 f32 dv exact")
+SPLIT_CAUGHT_BY = tuple(
+    f"{k} f32{tag} {out} exact" for tag in ("", " d256")
+    for k, out in (("K1", "O"), ("K1", "lse"), ("K2", "dq"), ("K3", "dk"),
+                   ("K3", "dv")))
 
 READ = """
 import json, chip_smoke as cs
-f = cs.FLAGSHIP
 readings = {}
-for dtype in ("bfloat16", "float32"):
-    readings.update(cs.kernel_errors(
-        "cuda", f["batch"], f["seq"], f["seq"], f["n_heads"],
-        f["d_model"] // f["n_heads"], 0, dtype=dtype,
-        exact_f32=dtype == "float32")[0])
+for s in (cs.FLAGSHIP, cs.WIDE):
+    for dtype in ("bfloat16", "float32"):
+        readings.update(cs.kernel_errors(
+            "cuda", s["batch"], s["seq"], s["seq"], s["n_heads"],
+            s["d_model"] // s["n_heads"], 0, dtype=dtype,
+            exact_f32=dtype == "float32")[0])
 print(json.dumps(readings))
 """
 

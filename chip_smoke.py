@@ -28,8 +28,8 @@ Phases:
 1. device: the card's name, count, power limit; TF32 off.
 2. build: the Hopper kernels from ``rayfed_tpu_torch/csrc`` (nvcc, one
    process per source); each kernel's registers, spills, shared memory
-   and resident blocks per SM at the flagship head dim, and the bf16
-   ones' at D = 256, their own tile plan (no kernel may spill), and,
+   and resident blocks per SM at the flagship head dim and at D = 256,
+   their own tile plan (no kernel may spill), and,
    where the toolkit's ``cuobjdump`` runs, the tensor-core (HMMA, HGMMA)
    and FFMA instructions in each kernel's SASS.
 3. kernels: each flash kernel against its plain PyTorch version on the
@@ -234,22 +234,26 @@ Phases:
    split-learning ms a step, and phase 5's native push of the same run.
 
 12. wide: the flagship width in 8 heads of 256 (``WIDE``, Gemma 2B's
-   query layout), depth cut as phase 4's, through the bf16 kernels' D =
-   256 tile plan. (b) Each D = 256 kernel against its plain version at
-   D = 136, 160 and 192 (zero-padded to 256) and 256, with ``q_offset >
-   0``, ``Sq < Sk``, ragged tiles and B*H = 65536, then at B=12, S=2048,
-   H=8, D=256 timed beside its plain version and SDPA (its backend
-   named), with FLOPs, bytes and the bound. (c) Phase 4's round loop at
-   ``WIDE``: its checks, and the train steps launch every D = 256 kernel
-   and no D <= 128 one. (d) Phase 6's transformer program at ``WIDE`` in
-   two party processes with ``transport="cuda"``: its checks (a)-(f), the
-   root's aggregate bitwise the CPU fold of the two pushed trees, each
-   party's steps on the D = 256 kernels alone. Prints each part's wall.
+   query layout), depth cut as phase 4's, through the kernels' D = 256
+   tile plans. (b) Each D = 256 kernel, bf16 and f32, against its plain
+   version at D = 136, 160 and 192 (zero-padded to 256) and 256, with
+   ``q_offset > 0``, ``Sq < Sk``, ragged tiles and B*H = 65536, then at
+   B=12, S=2048, H=8, D=256 (f32 with the exact-f32 reading) timed beside
+   its plain version and SDPA (its backend named), with FLOPs, bytes and
+   the bound. (c) Phase 4's round loop at ``WIDE``: its checks, and the
+   train steps launch every bf16 D = 256 kernel and no D <= 128 one. (d)
+   Phase 6's transformer program at ``WIDE`` in two party processes with
+   ``transport="cuda"``: its checks (a)-(f), the root's aggregate bitwise
+   the CPU fold of the two pushed trees, each party's steps on the D =
+   256 kernels alone. (e) Phase 4b at ``WIDE`` (f32 steps, the batch-1
+   loss and gradients against the dense attention's), then one round of
+   phase 4's loop in f32: their steps launch every f32 D = 256 kernel and
+   no f32 D <= 128 one. Prints each part's wall.
 
 Every phase prints its wall seconds. It needs a CUDA card and exits
-non-zero without one. The last two lines are the kernel table (nine
-kernels: K1-K3 in bf16 up to D = 128, at D = 256, and in f32) and
-``{"ok": true, "device": {...}}`` as JSON.
+non-zero without one. The last two lines are the kernel table (twelve
+kernels: K1-K3 in bf16 and in f32, each up to D = 128 and at D = 256)
+and ``{"ok": true, "device": {...}}`` as JSON.
 """
 
 from __future__ import annotations
@@ -328,20 +332,22 @@ ATTN_LOSS_TOL = 2e-2
 PARTIES = (("alice", 1), ("bob", 2))
 
 # Each TPU kernel (rayfed_tpu/ops/flash_attention.py) takes bf16 or f32
-# and any head dim; the port has a Hopper kernel for each dtype, the bf16
-# one in two tile plans (head dims up to 128, and 256), each counted apart
+# and any head dim; the port has a Hopper kernel for each dtype, each in
+# two tile plans (head dims up to 128, and 256), each counted apart
 # (``flash_attention.LAUNCHES``).
 KERNELS = [
     dict(name=name + sfx, route="cuda",
          source=f"rayfed_tpu_torch/csrc/flash_attention{src}.cu",
          replaces=f"rayfed_tpu/ops/flash_attention.py:{line}")
-    for sfx, src in (("", ""), ("_d256", ""), ("_f32", "_f32"))
+    for sfx, src in (("", ""), ("_d256", ""), ("_f32", "_f32"),
+                     ("_f32_d256", "_f32"))
     for name, line in (("flash_fwd", 51), ("flash_bwd_dq", 151),
                        ("flash_bwd_dkv", 200))
 ]
 BF16_KERNELS = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
 WIDE_KERNELS = [n + "_d256" for n in BF16_KERNELS]
 F32_KERNELS = [n + "_f32" for n in BF16_KERNELS]
+F32_WIDE_KERNELS = [n + "_f32_d256" for n in BF16_KERNELS]
 
 
 class SmokeError(RuntimeError):
@@ -387,9 +393,8 @@ def phase_device():
 
 def phase_build(head_dim):
     """Build the kernels; print the compiler's report and, for each kernel
-    at ``head_dim`` and each bf16 kernel at ``WIDE_HEAD_DIM`` (its own
-    tile plan), the resources the card gives it. Fails if any of them
-    spills registers."""
+    at ``head_dim`` and at ``WIDE_HEAD_DIM`` (its own tile plan), the
+    resources the card gives it. Fails if any of them spills registers."""
     from rayfed_tpu_torch.ops import _native
 
     t0 = time.perf_counter()
@@ -404,19 +409,18 @@ def phase_build(head_dim):
     counts = sass_counts(path)
     if counts is None:
         print("[build] SASS instruction counts: no cuobjdump in the toolkit")
-    for d, names in ((head_dim, _native.KERNEL_NAMES),
-                     (WIDE_HEAD_DIM, _native.KERNEL_NAMES[:3])):
-        resources = kernel_resources(log, d, names)
+    for d in (head_dim, WIDE_HEAD_DIM):
+        resources = kernel_resources(log, d)
         for name, res in resources.items():
             print(f"[build] {name}<{d}>: {res['registers']} registers, "
                   f"{res['spill_bytes']} spill bytes, {res['smem_bytes']} B "
                   f"dynamic shared memory, {res['threads']} threads, "
                   f"{res['blocks_per_sm']} resident blocks per SM")
         print(json.dumps({"resources": {"head_dim": d, **resources}}))
-        for name in names:
+        for name in resources:
             require(resources[name]["spill_bytes"] == 0,
                     f"{name}<{d}> spills: {resources[name]}")
-        for name in names if counts is not None else ():
+        for name in resources if counts is not None else ():
             c = counts.get(f"{name}<{d}>", {})
             print(f"[build] {name}<{d}> SASS: " + ", ".join(
                 f"{c.get(op, 0)} {op}" for op in SASS_OPS))
@@ -589,9 +593,10 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
     err}, inputs); a reading of NaN is a failure. bf16 outputs are read
     by :func:`tile_rel_err`, f32 ones by their largest absolute error.
     With ``exact_f32`` (f32 only) the plain version runs once more with
-    TF32 on, and each output's reading "<kernel> f32 <output> exact" is
-    its error against a limit of ``EXACT_F32_FRACTION`` times that TF32
-    run's error; TF32 is off again before anything else runs."""
+    TF32 on, and each output's reading "<kernel> f32 <output> exact"
+    ("<kernel> f32 d256 <output> exact" on the D = 256 plan) is its error
+    against a limit of ``EXACT_F32_FRACTION`` times that TF32 run's error;
+    TF32 is off again before anything else runs."""
     import torch
 
     from rayfed_tpu_torch.ops import flash_attention as fa
@@ -610,12 +615,12 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
     torch.cuda.synchronize()
 
     kd = fa.kernel_head_dim(d, getattr(torch, dtype))
+    tag = (" f32" if dtype == "float32" else "") + (" d256" if kd == 256
+                                                     else "")
     if dtype == "bfloat16":
-        tag = " d256" if kd == 256 else ""
         out = grad = (tile_rel_err, BF16_TILE_REL_TOL)
         stat_tol = F32_STAT_TOL
     else:
-        tag = " f32"
         out, grad = (abs_err, F32_OUT_TOL), (abs_err, F32_GRAD_TOL)
         stat_tol = F32_KERNEL_STAT_TOL
 
@@ -643,11 +648,11 @@ def kernel_errors(device, b, sq, sk, h, d, q_offset, seed=0,
             torch.cuda.synchronize()
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
-        for name, got, tf, want in (("K1 f32 O", o, o_tf, o_ref),
-                                    ("K1 f32 lse", lse, lse_tf, lse_ref),
-                                    ("K2 f32 dq", dq, dq_tf, dq_ref),
-                                    ("K3 f32 dk", dk, dk_tf, dk_ref),
-                                    ("K3 f32 dv", dv, dv_tf, dv_ref)):
+        for name, got, tf, want in ((f"K1{tag} O", o, o_tf, o_ref),
+                                    (f"K1{tag} lse", lse, lse_tf, lse_ref),
+                                    (f"K2{tag} dq", dq, dq_tf, dq_ref),
+                                    (f"K3{tag} dk", dk, dk_tf, dk_ref),
+                                    (f"K3{tag} dv", dv, dv_tf, dv_ref)):
             readings[name + " exact"] = (
                 abs_err(got, want), EXACT_F32_FRACTION * abs_err(tf, want))
     sfx = fa._launch_key(fa._KERNEL_DTYPES[q.dtype], kd)
@@ -4807,42 +4812,74 @@ def run_dma(smi, fed_push=None):
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: wide heads (the D = 256 tile plan)
+# Phase 12: wide heads (the D = 256 tile plans)
 # ---------------------------------------------------------------------------
 
-# Phase 12 (b): the D = 256 kernels against their plain versions. D = 136,
-# 160 and 192 run zero-padded to 256; K1 tiles 128 queries x 64 keys, K2
-# 128 queries x 32 keys, K3 128 keys x 32 queries.
+# Phase 12 (b): the D = 256 kernels of both dtypes against their plain
+# versions. D = 136, 160 and 192 run zero-padded to 256; bf16 K1 tiles 128
+# queries x 64 keys, K2 128 queries x 32 keys, K3 128 keys x 32 queries;
+# f32 K1 128 queries x 16 keys, K2 64 queries x 16 keys, K3 64 keys x 16
+# queries.
 WIDE_SHAPES = [
     (1, 256, 256, 2, 256, 0),
     (2, 96, 160, 3, 136, 64),     # ragged tiles, Sq < Sk, q_offset
-    (1, 200, 200, 2, 160, 0),     # S not a multiple of 128, 64 or 32
+    (1, 200, 200, 2, 160, 0),     # S not a multiple of 128, 64, 32 or 16
     (1, 136, 328, 3, 192, 150),   # Sq < Sk, q_offset off a tile boundary
     (1, 136, 328, 3, 256, 192),   # q_offset on a tile boundary
-    (2, 64, 64, 2, 256, 0),       # a block's second warpgroup has no row
-    (1, 100, 90, 2, 256, 20),     # queries past the last key
+    (2, 64, 64, 2, 256, 0),       # a block's second half has no row
+                                  # (bf16 warpgroup, f32 K1 warps 4-7)
+    (1, 100, 90, 2, 256, 20),     # queries past the last key; f32 K2:
+                                  # the block's last row group has no row
     (4096, 32, 32, 16, 256, 0),   # B*H = 65536 on the grid's x dimension
 ]
 
 
+def phase_wide_f32(device, cfg, *, batch, seq, label=""):
+    """Phase 12 (e): phase 4b at ``cfg`` (its f32 steps at ``batch``, then
+    the batch-1 loss and gradients, flash against dense), then one round
+    of phase 4's loop with ``cfg`` in f32. Returns {kernel: launches of
+    the f32 steps and of the round's train steps}."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from rayfed_tpu_torch.ops import flash_attention as fa
+
+    f32 = phase_f32(device, cfg, batch=batch, seq=seq, label=label)
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    rnd = phase_slice(device, dataclasses.replace(
+        cfg, compute_dtype=torch.float32), batch=batch, seq=seq, rounds=1,
+        label=label + " f32")
+    return {k: f32["launches"][k] + rnd["launches"][k] for k in fa.LAUNCHES}
+
+
 def phase_wide(smi):
     """Phase 12: the flagship width in 8 heads of 256 (``WIDE``), depth cut
-    as phase 4's. (b) the bf16 D = 256 kernels against their plain
-    versions at ``WIDE_SHAPES`` and timed at the main path's shape beside
-    SDPA; (c) phase 4's round loop at ``WIDE``, whose train steps must
-    launch every D = 256 kernel and no D <= 128 one; (d) phase 6's
-    transformer program at ``WIDE`` in two party processes (its checks
-    (a)-(f), the D = 256 kernels in (e)). Returns ({kernel: results},
-    {kernel: launches of (c)'s and (d)'s train steps})."""
+    as phase 4's. (b) the D = 256 kernels of both dtypes against their
+    plain versions at ``WIDE_SHAPES`` and timed at the main path's shape
+    beside SDPA (f32 with the exact-f32 reading); (c) phase 4's round loop
+    at ``WIDE``, whose train steps must launch every bf16 D = 256 kernel
+    and no D <= 128 one; (d) phase 6's transformer program at ``WIDE`` in
+    two party processes (its checks (a)-(f), the D = 256 kernels in (e));
+    (e) the same in f32: :func:`phase_wide_f32`, whose steps must launch
+    every f32 D = 256 kernel and no f32 D <= 128 one. Returns ({kernel:
+    results}, {kernel: launches of (c)'s, (d)'s and (e)'s train steps})."""
     import gc
 
     import torch
 
     t = time.perf_counter()
-    for shape in WIDE_SHAPES:
-        check_kernels("cuda", *shape, seed=1)
-    kern = time_kernels("cuda", WIDE["batch"], WIDE["seq"], WIDE["n_heads"],
-                        WIDE_HEAD_DIM, "bfloat16", smi)
+    kern = {}
+    for dtype in ("bfloat16", "float32"):
+        for shape in WIDE_SHAPES:
+            check_kernels("cuda", *shape, seed=1, dtype=dtype)
+        kern.update(time_kernels("cuda", WIDE["batch"], WIDE["seq"],
+                                 WIDE["n_heads"], WIDE_HEAD_DIM, dtype, smi))
+        gc.collect()
+        torch.cuda.empty_cache()
     print(f"[wide] (b) kernels in {time.perf_counter() - t:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4872,6 +4909,20 @@ def phase_wide(smi):
         rep["launches"][k]
         for rep in prog["results"][root]["reports"].values())
         for k in WIDE_KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[wide] f32 reduced " + json.dumps(
+        {"n_layers": [WIDE["n_layers"], SMOKE_LAYERS]}))
+    t = time.perf_counter()
+    f32 = phase_wide_f32("cuda", cfg, batch=WIDE["batch"], seq=WIDE["seq"],
+                         label=f"8 heads of 256 on {smi}:")
+    require(all(f32[k] > 0 for k in F32_WIDE_KERNELS)
+            and not any(f32[k] for k in F32_KERNELS),
+            f"(e) the f32 steps at D = {WIDE_HEAD_DIM} did not launch every "
+            f"f32 D = 256 kernel and none of the f32 D <= 128 ones: {f32}")
+    print(f"[wide] (e) f32 steps and round in {time.perf_counter() - t:.1f} s")
+    launches.update({k: f32[k] for k in F32_WIDE_KERNELS})
     return kern, launches
 
 
@@ -5074,8 +5125,8 @@ def main(argv):
                                    for r in dma_reports)
     gc.collect()
     torch.cuda.empty_cache()
-    # The D = 256 kernels: phase 12's train steps, in one process and in
-    # the two parties.
+    # The D = 256 kernels: phase 12's train steps, bf16 in one process and
+    # in the two parties, f32 in one process.
     wide_kern, wide_launches = run_wide(smi)
     kern.update(wide_kern)
     launches.update(wide_launches)

@@ -20,21 +20,22 @@ other, on one card:
     python3 chip_tile_sweep.py base kDqF32W=4,kDqF32N=64 base
     python3 chip_tile_sweep.py base kFwdF32N=64 kFwdF32W=4,kFwdF32N=64 base
     python3 chip_tile_sweep.py base kFwdN256=32 kDkvWG256=1 base
+    python3 chip_tile_sweep.py base kFwdF32W256=4,kFwdF32C256=2 kDqF32C256=1 base
 
 Each argument sets tile constants (``TILE_CONSTANTS``; comma-separated
 ``name=value``) of ``rayfed_tpu_torch/csrc/flash_attention.cu`` (bf16)
-or, for the f32 K1-K3 (``F32_TILE_CONSTANTS``: warps a block and rows a
-ring stage), ``flash_attention_f32.cu``; or is ``base``, the
-sources as committed. The bf16 constants ending in 256 are the D=256
-plan's. Per argument, in that order, it copies the port into
-``build/tile_sweep/<i>/``, sets the constants, and in a fresh process
-builds the copy, prints each kernel's resources at the flagship head dim
-and the bf16 ones' at D=256, holds the kernels of both dtypes to
-``chip_smoke.py``'s limits at the main-path shape (the f32 ones with the
-exact-f32 reading) and the bf16 D=256 ones at phase 12's (``WIDE``), and
-times the nine kernels there (CUDA events, 20 launches after 2 warm-ups,
-twice). Put ``base`` first and last to read the spread. The last line is
-every setting's readings and times as JSON.
+or, for the f32 K1-K3 (``F32_TILE_CONSTANTS``: row groups a block, rows
+a ring stage and, at D=256, warps a row group), ``flash_attention_f32.cu``;
+or is ``base``, the sources as committed. The constants ending in 256
+are the D=256 plans'. Per argument, in that order, it copies the port
+into ``build/tile_sweep/<i>/``, sets the constants, and in a fresh
+process builds the copy, prints each kernel's resources at the flagship
+head dim and at D=256, holds the kernels of both dtypes to
+``chip_smoke.py``'s limits at the main-path shape and the D=256 ones at
+phase 12's (``WIDE``; the f32 ones with the exact-f32 reading), and
+times the twelve kernels there (CUDA events, 20 launches after 2
+warm-ups, twice). Put ``base`` first and last to read the spread. The
+last line is every setting's readings and times as JSON.
 """
 
 from __future__ import annotations
@@ -49,7 +50,10 @@ import chip_fault_check as fc
 
 ROOT = os.path.join(fc.REPO, "build", "tile_sweep")
 F32_TILE_CONSTANTS = ("kFwdF32W", "kFwdF32N", "kDqF32W", "kDqF32N",
-                      "kDkvF32W", "kDkvF32N")
+                      "kDkvF32W", "kDkvF32N", "kFwdF32W256", "kFwdF32N256",
+                      "kFwdF32C256", "kDqF32W256", "kDqF32N256",
+                      "kDqF32C256", "kDkvF32W256", "kDkvF32N256",
+                      "kDkvF32C256")
 TILE_CONSTANTS = ("kFwdWG", "kFwdN", "kDqWG", "kDqN", "kDkvWG",
                   "kDkvM", "kFwdWG256", "kFwdN256", "kDqWG256", "kDqN256",
                   "kDkvWG256", "kDkvM256") + F32_TILE_CONSTANTS
@@ -63,10 +67,10 @@ with open(_native.build() + ".log") as log:
     text = log.read()
 res = cs.kernel_resources(text, d)
 res.update({n + "<256>": r for n, r in cs.kernel_resources(
-    text, cs.WIDE_HEAD_DIM, _native.KERNEL_NAMES[:3]).items()})
+    text, cs.WIDE_HEAD_DIM).items()})
 readings, ms = {}, {}
 for dtype, sfx, s in (("bfloat16", "", f), ("bfloat16", "_d256", w),
-                      ("float32", "_f32", f)):
+                      ("float32", "_f32", f), ("float32", "_f32_d256", w)):
     got, _, (q, k, v, do, o, lse, delta, _, _) = cs.kernel_errors(
         "cuda", s["batch"], s["seq"], s["seq"], s["n_heads"],
         s["d_model"] // s["n_heads"], 0,

@@ -1225,8 +1225,7 @@ int rf_kernel_rows(int which, int head_dim, int* rows) {
 
 const char* rf_error_string(int code) {
   if (code == kBadHeadDim) {
-    return "no kernel at this head dim (bf16: 16, 32, 64, 128, 256; f32: 16, "
-           "32, 64, 128)";
+    return "no kernel at this head dim (16, 32, 64, 128 or 256)";
   }
   if (code == kBadKernel) return "no such kernel";
   return cudaGetErrorString((cudaError_t)code);

@@ -74,14 +74,15 @@
 // addressing), and splits them in registers.
 //
 // A block of kW warps owns 16 kW resident rows, 16 a warp (the m16 of its
-// products): queries in K1; queries with their dO, lse and delta in K2;
-// keys with their values in K3. Every tile is raw f32, split at every
-// read (K1's Q split once, as it lands, into {hi, lo} pairs, was slower:
-// PERF.md). The other side streams through a two-stage cp.async ring of
-// kN-row tiles (K1 and K2: K and V; K3: Q, dO, lse and delta), 16-byte
-// copies that zero-fill ragged rows, so the copy of step i+1 runs under
-// the products of step i, with one barrier when a stage lands and one
-// when it is free. S and dP come out
+// products; in K2 and K3 at D = 256, below, kC = 2 warps to each 16):
+// queries in K1; queries with their dO, lse and delta in K2; keys with
+// their values in K3. Every tile is raw f32, split at every read (K1's Q
+// split once, as it lands, into {hi, lo} pairs, was slower: PERF.md).
+// The other side streams through a two-stage cp.async ring of kN-row
+// tiles (K1 and K2: K and V; K3: Q, dO, lse and delta), 16-byte copies
+// that zero-fill ragged rows, so the copy of step i+1 runs under the
+// products of step i, with one barrier when a stage lands and one when
+// it is free. S and dP come out
 // of the mma in registers; the online softmax (K1: the running max and
 // sum of a row over the 4 lanes of a quad, two shuffles each), P and dS
 // are formed there and go straight back as the A operand of the second
@@ -99,6 +100,22 @@
 // warp skips a step that lies wholly on the masked side of its diagonal;
 // K1 and K2 mask only a step that crosses the warp's diagonal or the end
 // of the keys.
+//
+// That is the plan for head dims 16, 32, 64 and 128. D = 256 has one of
+// its own (kFwdF32W256 .. kDkvF32C256): a 16-row f32 accumulator 256 wide
+// is 128 registers a thread, K3's dK and dV 256, past the 255 a thread
+// has, and a 128-row tile at row stride 260 floats is 133,120 B, so two
+// of them and a ring of 32-row stages pass the 232,448 B a block has. K1
+// keeps one warp a row group, 8 warps (128 queries, 128-register O
+// accumulators, 255 registers, no spill) against 16-row stages, 199,680
+// B. In K2 and K3, kC = 2 warps share each 16-row group, each owning half
+// of the output columns (its accumulators are then those of D = 128), and
+// each computes the group's whole S and dP itself: the second warp's
+// scores repeat the first's (K2 5/3x the products, K3 1.5x), with no
+// exchange through shared memory. Their blocks hold 4 row groups (64
+// resident rows) in 8 warps against 16-row stages: K2 199,680 B, K3
+// 199,936 B. chip_tile_sweep.py timed the others (PERF.md): K1 with two
+// warps a group is 1.35x slower, K2 and K3 on 4 warps slower still.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,13 +156,15 @@ struct Params {
 // Each f32 product as three TF32 mma.sync products
 // ---------------------------------------------------------------------------
 
-// kW warps, 16 resident rows each, against kN-row ring stages; every tile
-// has a row stride of D + 4 floats.
-template <int D, int kW, int kN_>
+// kW groups of 16 resident rows, kC warps a group (each owning D / kC of
+// the output columns), against kN-row ring stages; every tile has a row
+// stride of D + 4 floats.
+template <int D, int kW, int kN_, int kC>
 struct TcCfg {
   static constexpr int kM = 16 * kW;          // resident rows per block
   static constexpr int kN = kN_;              // streamed rows per stage
-  static constexpr int kThreads = 32 * kW;
+  static constexpr int kDC = D / kC;          // output columns a warp owns
+  static constexpr int kThreads = 32 * kW * kC;
   static constexpr int kResident = kM * Cfg<D>::kLD;  // floats, resident tile
   static constexpr int kStream = kN * Cfg<D>::kLD;    // floats, streamed tile
   // A two-stage ring of two streamed tiles, and the resident tiles: K1 Q;
@@ -155,6 +174,7 @@ struct TcCfg {
   static constexpr size_t kSmemDq = sizeof(float) * 2 * kResident + kRing;
   static constexpr size_t kSmemDkv = kSmemDq + sizeof(float) * 4 * kN;
   static_assert(kN % 8 == 0 && 2 * kN <= kThreads, "ring stage rows");
+  static_assert(kDC % 8 == 0 && kDC * kC == D, "output column split");
 };
 // 8 warps (128 resident rows) against 32-row stages: two warps a scheduler
 // and ~135 KB (K1) or ~203 KB (K2, K3) of shared memory, one block per SM.
@@ -166,6 +186,18 @@ constexpr int kDqF32W = 8;
 constexpr int kDqF32N = 32;
 constexpr int kDkvF32W = 8;
 constexpr int kDkvF32N = 32;
+// D = 256, all against 16-row stages, 8 warps, one block per SM: K1 8
+// row groups of one warp (128 queries), K2 and K3 4 row groups of two
+// warps (64 queries or keys).
+constexpr int kFwdF32W256 = 8;
+constexpr int kFwdF32N256 = 16;
+constexpr int kFwdF32C256 = 1;
+constexpr int kDqF32W256 = 4;
+constexpr int kDqF32N256 = 16;
+constexpr int kDqF32C256 = 2;
+constexpr int kDkvF32W256 = 4;
+constexpr int kDkvF32N256 = 16;
+constexpr int kDkvF32C256 = 2;
 
 // x as hi + lo for the TF32 products. hi is x rounded to TF32 (10
 // mantissa bits, to nearest, ties away from zero, low 13 bits clear):
@@ -273,22 +305,22 @@ __device__ __forceinline__ void scores_tc(const float* A, int r0,
   }
 }
 
-// acc[i] += P M[:, 8 i .. 8 i + 7] (i < D / 8): P a warp's 16 x N
-// accumulator tiles (p[j] holds its columns 8 j .. 8 j + 7), M the N x D
-// streamed tile; one k8 slice per accumulator tile. acc sums over the
-// whole sequence, so the step's products go into a fresh accumulator and
-// join acc by an f32 add: chained into acc on the tensor core, whose
-// accumulation does not round to nearest, the error grows with the
-// sequence (PERF.md).
-template <int D, int N>
+// acc[i] += P M[:, 8 i .. 8 i + 7] (i < DC / 8): P a warp's 16 x N
+// accumulator tiles (p[j] holds its columns 8 j .. 8 j + 7), M the first
+// of the DC columns the warp owns in an N x D streamed tile; one k8 slice
+// per accumulator tile. acc sums over the whole sequence, so the step's
+// products go into a fresh accumulator and join acc by an f32 add:
+// chained into acc on the tensor core, whose accumulation does not round
+// to nearest, the error grows with the sequence (PERF.md).
+template <int D, int N, int DC>
 __device__ __forceinline__ void pv_tc(const float (&p)[N / 8][4],
-                                      const float* M, float (&acc)[D / 8][4]) {
+                                      const float* M, float (&acc)[DC / 8][4]) {
   constexpr int kLD = Cfg<D>::kLD;
   uint32_t a_hi[N / 8][4], a_lo[N / 8][4];
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) frag_acc(p[j], a_hi[j], a_lo[j]);
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < DC / 8; ++i) {
     float part[4] = {};
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
@@ -337,15 +369,16 @@ __device__ __forceinline__ void load_kv(float* ring, int st, int kt,
 
 // ---------------------------------------------------------------------------
 // K1: the forward. One block per (b, h) and 16 kW-query tile; per kN-key
-// step S = Q K^T, the online softmax in registers (running max m, l = l
-// alpha + rowsum P), acc = acc alpha + P V; then O = acc / max(l, 1e-30)
-// and lse = m + log(max(l, 1e-30)).
+// step S = Q K^T (each of a group's kC warps the group's whole S), the
+// online softmax in registers (running max m, l = l alpha + rowsum P),
+// acc = acc alpha + P V; then O = acc / max(l, 1e-30) and lse = m +
+// log(max(l, 1e-30)).
 // ---------------------------------------------------------------------------
 
-template <int D, int kW, int kN>
-__global__ void __launch_bounds__(32 * kW, 1)
+template <int D, int kW, int kN, int kC>
+__global__ void __launch_bounds__(32 * kW * kC, 1)
     flash_fwd_f32_kernel(const Params p) {
-  using C = TcCfg<D, kW, kN>;
+  using C = TcCfg<D, kW, kN, kC>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* ring = Qs + C::kResident;  // stage s: K, then V
@@ -353,7 +386,8 @@ __global__ void __launch_bounds__(32 * kW, 1)
   // The last query tiles see the most keys: they go in the first wave.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kM;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = threadIdx.x / 32 * 16;  // this warp's first row
+  const int r0 = threadIdx.x / 32 / kC * 16;     // this warp's first row
+  const int c0 = threadIdx.x / 32 % kC * C::kDC;  // and output column
   const float* q = p.q + b * p.q_sb + h * p.q_sh;
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
   const float* v = p.v + b * p.v_sb + h * p.v_sh;
@@ -368,7 +402,7 @@ __global__ void __launch_bounds__(32 * kW, 1)
   const int n_kt = min(block_last / kN + 1, (p.Sk + kN - 1) / kN);
   // Rows r0 + g (index 0) and r0 + g + 8 (index 1) of this thread.
   float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4] = {};
+  float acc[C::kDC / 8][4] = {};
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int st = kt & 1;
@@ -428,11 +462,11 @@ __global__ void __launch_bounds__(32 * kW, 1)
         l[r] = l[r] * alpha[r] + rs[r];
       }
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < C::kDC / 8; ++i) {
 #pragma unroll
         for (int x = 0; x < 4; ++x) acc[i][x] *= alpha[x >> 1];
       }
-      pv_tc<D, kN>(s, Vs, acc);
+      pv_tc<D, kN, C::kDC>(s, Vs + c0, acc);
     }
     __syncthreads();  // stage st is free for step kt + 2
   }
@@ -445,11 +479,11 @@ __global__ void __launch_bounds__(32 * kW, 1)
     if (row < p.Sq) {
       const float l_safe = fmaxf(l[e], 1e-30f);
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        *reinterpret_cast<float2*>(ob + row * o_ss + 8 * i + 2 * t) =
+      for (int i = 0; i < C::kDC / 8; ++i) {
+        *reinterpret_cast<float2*>(ob + row * o_ss + c0 + 8 * i + 2 * t) =
             make_float2(acc[i][2 * e] / l_safe, acc[i][2 * e + 1] / l_safe);
       }
-      if (t == 0) {
+      if (t == 0 && c0 == 0) {
         p.stat_out[((long long)b * p.Sq + row) * p.H + h] =
             m[e] + logf(l_safe);
       }
@@ -463,10 +497,10 @@ __global__ void __launch_bounds__(32 * kW, 1)
 // scale - lse) and dS = P (dP - delta) scale in registers, dQ += dS K.
 // ---------------------------------------------------------------------------
 
-template <int D, int kW, int kN>
-__global__ void __launch_bounds__(32 * kW, 1)
+template <int D, int kW, int kN, int kC>
+__global__ void __launch_bounds__(32 * kW * kC, 1)
     flash_bwd_dq_f32_kernel(const Params p) {
-  using C = TcCfg<D, kW, kN>;
+  using C = TcCfg<D, kW, kN, kC>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* DOs = Qs + C::kResident;
@@ -475,7 +509,8 @@ __global__ void __launch_bounds__(32 * kW, 1)
   // The last query tiles see the most keys: they go in the first wave.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kM;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = threadIdx.x / 32 * 16;  // this warp's first row
+  const int r0 = threadIdx.x / 32 / kC * 16;     // this warp's first row
+  const int c0 = threadIdx.x / 32 % kC * C::kDC;  // and output column
   const float* q = p.q + b * p.q_sb + h * p.q_sh;
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
   const float* v = p.v + b * p.v_sb + h * p.v_sh;
@@ -509,7 +544,7 @@ __global__ void __launch_bounds__(32 * kW, 1)
     const long long at = ((long long)b * p.Sq + row) * p.H + h;
     delta[e] = sum;
     lse[e] = valid ? p.lse_in[at] : 0.f;
-    if (valid && t == 0) p.stat_out[at] = sum;
+    if (valid && t == 0 && c0 == 0) p.stat_out[at] = sum;
   }
 
   // This warp's first and last query positions.
@@ -517,7 +552,7 @@ __global__ void __launch_bounds__(32 * kW, 1)
   const int q_last = p.q_offset + min(q0 + r0 + 15, p.Sq - 1);
   const int block_last = p.q_offset + min(q0 + C::kM, p.Sq) - 1;
   const int n_kt = min(block_last / kN + 1, (p.Sk + kN - 1) / kN);
-  float dq[D / 8][4] = {};
+  float dq[C::kDC / 8][4] = {};
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int st = kt & 1;
@@ -552,7 +587,7 @@ __global__ void __launch_bounds__(32 * kW, 1)
           s[j][e] = pr * (dp[j][e] - delta[e >> 1]) * p.scale;  // dS
         }
       }
-      pv_tc<D, kN>(s, Ks, dq);
+      pv_tc<D, kN, C::kDC>(s, Ks + c0, dq);
     }
     __syncthreads();  // stage st is free for tile kt + 2
   }
@@ -564,8 +599,8 @@ __global__ void __launch_bounds__(32 * kW, 1)
     const int row = q0 + r0 + g + 8 * e;
     if (row < p.Sq) {
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        *reinterpret_cast<float2*>(dqb + row * o_ss + 8 * i + 2 * t) =
+      for (int i = 0; i < C::kDC / 8; ++i) {
+        *reinterpret_cast<float2*>(dqb + row * o_ss + c0 + 8 * i + 2 * t) =
             make_float2(dq[i][2 * e], dq[i][2 * e + 1]);
       }
     }
@@ -579,10 +614,10 @@ __global__ void __launch_bounds__(32 * kW, 1)
 // P^T and dS^T in registers, dV += P^T dO, dK += dS^T Q.
 // ---------------------------------------------------------------------------
 
-template <int D, int kW, int kN>
-__global__ void __launch_bounds__(32 * kW, 1)
+template <int D, int kW, int kN, int kC>
+__global__ void __launch_bounds__(32 * kW * kC, 1)
     flash_bwd_dkv_f32_kernel(const Params p) {
-  using C = TcCfg<D, kW, kN>;
+  using C = TcCfg<D, kW, kN, kC>;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + C::kResident;
@@ -592,7 +627,8 @@ __global__ void __launch_bounds__(32 * kW, 1)
   // The first key tiles see the most queries, and run in the first wave.
   const int k0 = blockIdx.y * C::kM;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = threadIdx.x / 32 * 16;  // this warp's first row
+  const int r0 = threadIdx.x / 32 / kC * 16;     // this warp's first row
+  const int c0 = threadIdx.x / 32 % kC * C::kDC;  // and output column
   const int k_first = k0 + r0;           // and its first key
   const float* q = p.q + b * p.q_sb + h * p.q_sh;
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
@@ -625,7 +661,7 @@ __global__ void __launch_bounds__(32 * kW, 1)
     load_stage(0, qt0);
     cp_async_commit();
   }
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  float dk[C::kDC / 8][4] = {}, dv[C::kDC / 8][4] = {};
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int st = (qt - qt0) & 1;
@@ -666,7 +702,7 @@ __global__ void __launch_bounds__(32 * kW, 1)
           s[j][e] = pr;  // P^T
         }
       }
-      pv_tc<D, kN>(s, DOs, dv);
+      pv_tc<D, kN, C::kDC>(s, DOs + c0, dv);
       float dp[kN / 8][4] = {};
       scores_tc<D, kN>(Vs, r0, DOs, dp);  // dP^T
 #pragma unroll
@@ -677,7 +713,7 @@ __global__ void __launch_bounds__(32 * kW, 1)
           dp[j][e] = s[j][e] * (dp[j][e] - delta[c]) * p.scale;  // dS^T
         }
       }
-      pv_tc<D, kN>(dp, Qs, dk);
+      pv_tc<D, kN, C::kDC>(dp, Qs + c0, dk);
     }
     __syncthreads();  // stage st is free for tile qt + 2
   }
@@ -689,8 +725,8 @@ __global__ void __launch_bounds__(32 * kW, 1)
     const int row = k0 + r0 + g + 8 * e;
     if (row < p.Sk) {
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const long long at = base + row * o_ss + 8 * i + 2 * t;
+      for (int i = 0; i < C::kDC / 8; ++i) {
+        const long long at = base + row * o_ss + c0 + 8 * i + 2 * t;
         *reinterpret_cast<float2*>(p.out0 + at) =
             make_float2(dk[i][2 * e], dk[i][2 * e + 1]);
         *reinterpret_cast<float2*>(p.out1 + at) =
@@ -728,22 +764,43 @@ struct Kernel {
   size_t smem;
 };
 
+// Each kernel's tile plan at head dim D: the D <= 128 plan (one warp a
+// row group), or the D = 256 one.
+template <int D>
+Kernel fwd_kernel() {
+  constexpr int kW = D > 128 ? kFwdF32W256 : kFwdF32W;
+  constexpr int kN = D > 128 ? kFwdF32N256 : kFwdF32N;
+  constexpr int kC = D > 128 ? kFwdF32C256 : 1;
+  using C = TcCfg<D, kW, kN, kC>;
+  return {(const void*)flash_fwd_f32_kernel<D, kW, kN, kC>, C::kThreads,
+          C::kM, C::kSmemFwd};
+}
+template <int D>
+Kernel dq_kernel() {
+  constexpr int kW = D > 128 ? kDqF32W256 : kDqF32W;
+  constexpr int kN = D > 128 ? kDqF32N256 : kDqF32N;
+  constexpr int kC = D > 128 ? kDqF32C256 : 1;
+  using C = TcCfg<D, kW, kN, kC>;
+  return {(const void*)flash_bwd_dq_f32_kernel<D, kW, kN, kC>, C::kThreads,
+          C::kM, C::kSmemDq};
+}
+template <int D>
+Kernel dkv_kernel() {
+  constexpr int kW = D > 128 ? kDkvF32W256 : kDkvF32W;
+  constexpr int kN = D > 128 ? kDkvF32N256 : kDkvF32N;
+  constexpr int kC = D > 128 ? kDkvF32C256 : 1;
+  using C = TcCfg<D, kW, kN, kC>;
+  return {(const void*)flash_bwd_dkv_f32_kernel<D, kW, kN, kC>, C::kThreads,
+          C::kM, C::kSmemDkv};
+}
+
 // which: 0 = K1, 1 = K2, 2 = K3.
 template <int D>
 Kernel pick(int which) {
-  using Fwd = TcCfg<D, kFwdF32W, kFwdF32N>;
-  using Dq = TcCfg<D, kDqF32W, kDqF32N>;
-  using Dkv = TcCfg<D, kDkvF32W, kDkvF32N>;
   switch (which) {
-    case 0:
-      return {(const void*)flash_fwd_f32_kernel<D, kFwdF32W, kFwdF32N>,
-              Fwd::kThreads, Fwd::kM, Fwd::kSmemFwd};
-    case 1:
-      return {(const void*)flash_bwd_dq_f32_kernel<D, kDqF32W, kDqF32N>,
-              Dq::kThreads, Dq::kM, Dq::kSmemDq};
-    case 2:
-      return {(const void*)flash_bwd_dkv_f32_kernel<D, kDkvF32W, kDkvF32N>,
-              Dkv::kThreads, Dkv::kM, Dkv::kSmemDkv};
+    case 0: return fwd_kernel<D>();
+    case 1: return dq_kernel<D>();
+    case 2: return dkv_kernel<D>();
   }
   return {nullptr, 0, 0, 0};
 }
@@ -758,6 +815,7 @@ int find_kernel(int which, long long head_dim, Kernel* out) {
     case 32: *out = pick<32>(which); break;
     case 64: *out = pick<64>(which); break;
     case 128: *out = pick<128>(which); break;
+    case 256: *out = pick<256>(which); break;
     default: return kBadHeadDim;
   }
   return out->fn ? 0 : kBadKernel;

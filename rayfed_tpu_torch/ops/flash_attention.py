@@ -39,23 +39,24 @@ launches the kernel, or raises on a dtype, head dim or layout the kernel
 does not take. There is no fallback between the two. ``LAUNCHES`` counts
 kernel launches, so a run can show that it went through the kernels.
 
-The bf16 kernels are built for head dims 16, 32, 64, 128 and 256, the
-f32 ones for 16, 32, 64 and 128 (``KERNEL_HEAD_DIMS``). Any other head
-dim up to a dtype's largest runs zero-padded to the next of them (q, k, v
-and dO padded along D, the scale kept at the true ``D**-0.5``, the outputs
-sliced back), as the Pallas kernels take any D; a zero column adds
-nothing to a score, so O, lse and the gradients are those of the true D,
-at the padded D's work (D=80 on the D=128 kernel: 1.6x the products;
-D=160 on the D=256 one: 1.6x). Past that the wrappers raise
-NotImplementedError: f32 above 128 (ROADMAP Queue 2, "f32 head dims
-above 128") and any dtype above 256 (Queue 2, "head dims above 256").
+The kernels of both dtypes are built for head dims 16, 32, 64, 128 and
+256 (``KERNEL_HEAD_DIMS``). Any other head dim up to 256 runs
+zero-padded to the next of them (q, k, v and dO padded along D, the
+scale kept at the true ``D**-0.5``, the outputs sliced back), as the
+Pallas kernels take any D; a zero column adds nothing to a score, so O,
+lse and the gradients are those of the true D, at the padded D's work
+(D=80 on the D=128 kernel: 1.6x the products; D=160 on the D=256 one:
+1.6x). Past 256 the wrappers raise NotImplementedError (ROADMAP Queue 2,
+"head dims above 256").
 
 The kernels choose their own tiles (bf16 up to D=128: K1 128 queries x
 128 keys, K2 128 queries x 64 keys, K3 128 keys x 64 queries; bf16 at
 D=256: K1 128 x 64, K2 128 x 32, K3 128 keys x 32 queries in two sweeps;
-f32: K1 and K2 128 queries x 32 keys, K3 128 keys x 32 queries) and mask
-ragged edges, whatever ``block_q``/``block_k`` say; the block sizes drive
-the plain versions. The launch grid is (B·H, row tiles): B·H may reach
+f32 up to D=128: K1 and K2 128 queries x 32 keys, K3 128 keys x 32
+queries; f32 at D=256: K1 128 queries x 16 keys, K2 64 queries x 16
+keys, K3 64 keys x 16 queries, the last two with two warps to each 16
+rows) and mask ragged edges, whatever ``block_q``/``block_k`` say; the
+block sizes drive the plain versions. The launch grid is (B·H, row tiles): B·H may reach
 2^31-1, the row tiles of the tiled sequence (Sq for K1 and K2, Sk for K3;
 each kernel's own tile height at its head dim, read from the kernel
 library) 65535. Both dQ kernels also compute ``delta =
@@ -73,20 +74,21 @@ from typing import Dict, Optional
 import torch
 
 _NEG_BIG = -1e30
-#: The head dims each dtype's kernels are built for.
-KERNEL_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
-                    torch.float32: (16, 32, 64, 128)}
+#: The head dims the kernels of both dtypes are built for.
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: The launch grid's limits: its y dimension counts a kernel's row tiles
 #: (``_native.kernel_rows``), its x dimension is B·H.
 _GRID_Y_MAX = 65535
 _GRID_X_MAX = 2**31 - 1
 
 #: Launches of each CUDA kernel; a wrapper adds one where it launches. The
-#: bf16 kernels' D=256 instantiations count under ``*_d256``.
+#: D=256 instantiations (a tile plan of their own) count under ``*_d256``.
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "flash_fwd_d256": 0, "flash_bwd_dq_d256": 0, "flash_bwd_dkv_d256": 0,
     "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
+    "flash_fwd_f32_d256": 0, "flash_bwd_dq_f32_d256": 0,
+    "flash_bwd_dkv_f32_d256": 0,
 }
 #: The dtypes the kernels take, with the suffix of their C entry points
 #: and ``LAUNCHES`` keys.
@@ -270,23 +272,17 @@ def _dims(q, k, v, o, do, q_offset):
 
 def kernel_head_dim(d: int, dtype=torch.bfloat16) -> int:
     """The head dim the kernels of ``dtype`` run a head dim ``d`` at:
-    ``d`` itself, or the next of ``KERNEL_HEAD_DIMS[dtype]`` with q, k, v
+    ``d`` itself, or the next of ``KERNEL_HEAD_DIMS`` with q, k, v
     and dO zero-padded."""
-    if dtype not in KERNEL_HEAD_DIMS:
+    if dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the CUDA flash kernels take bfloat16 or float32; "
                         f"got {dtype}")
-    if d > KERNEL_HEAD_DIMS[torch.bfloat16][-1]:
+    if d > KERNEL_HEAD_DIMS[-1]:
         raise NotImplementedError(
-            f"head dim {d}: the CUDA flash kernels take D <= 256 in bf16 "
-            f"and D <= 128 in f32; a kernel past D=256 needs a tile plan of "
+            f"head dim {d}: the CUDA flash kernels take D <= "
+            f"{KERNEL_HEAD_DIMS[-1]}; a kernel past it needs a tile plan of "
             f"its own — ROADMAP Queue 2, 'head dims above 256'")
-    dims = KERNEL_HEAD_DIMS[dtype]
-    if d > dims[-1]:
-        raise NotImplementedError(
-            f"head dim {d}: the f32 CUDA flash kernels take D <= {dims[-1]} "
-            f"(the bf16 ones D <= 256); an f32 D=256 plan is still to port "
-            f"— ROADMAP Queue 2, 'f32 head dims above 128'")
-    return next(kd for kd in dims if d <= kd)
+    return next(kd for kd in KERNEL_HEAD_DIMS if d <= kd)
 
 
 def _pad_head(x, kd):

@@ -74,39 +74,46 @@ def _max_abs(got, want):
     return float((got - want).abs().max())
 
 
-# bf16 head dims past 128 run on the D=256 plan, D below 256 zero-padded
-# to it: chip_smoke.py's phase 12 shapes.
+# Head dims past 128 run on each dtype's D=256 plan, D below 256
+# zero-padded to it: chip_smoke.py's phase 12 shapes, held to its limits
+# (f32: 2e-5 on O, 1e-4 on lse and delta, 3e-4 on the gradients).
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("b,sq,sk,h,d,q_offset", WIDE_SHAPES)
 def test_wide_head_dim_kernels_match_plain_on_card(cuda_device, b, sq, sk, h,
-                                                   d, q_offset):
+                                                   d, q_offset, dtype):
     from chip_smoke import kernel_errors
 
+    sfx = "" if dtype == "bfloat16" else "_f32"
+    names = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
     fa.reset_launch_counts()
-    readings, errs, _ = kernel_errors(cuda_device, b, sq, sk, h, d, q_offset)
-    assert sorted(errs) == ["flash_bwd_dkv_d256", "flash_bwd_dq_d256",
-                            "flash_fwd_d256"]
+    readings, errs, _ = kernel_errors(cuda_device, b, sq, sk, h, d, q_offset,
+                                      dtype=dtype)
+    assert sorted(errs) == sorted(n + sfx + "_d256" for n in names)
     for name, (err, limit) in readings.items():
         assert err <= limit, (name, err, limit)
-    # The D=256 plan ran, not the D <= 128 one.
-    assert all(fa.LAUNCHES[k + "_d256"] == 1
-               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
-    assert not any(fa.LAUNCHES[k]
-                   for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    # The D=256 plan ran, not the D <= 128 one, nor the other dtype's.
+    assert {k: n for k, n in fa.LAUNCHES.items() if n} == {
+        n + sfx + "_d256": 1 for n in names}
 
 
 @pytest.mark.cuda
-def test_wide_head_dim_kernels_do_not_spill(cuda_device):
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_wide_head_dim_kernels_do_not_spill(cuda_device, dtype):
     from chip_smoke import kernel_resources
     from rayfed_tpu_torch.ops import _native
 
     with open(_native.build() + ".log") as f:
         log = f.read()
-    res = kernel_resources(log, 256, _native.KERNEL_NAMES[:3])
+    kernels = _native.KERNEL_NAMES[:3] if dtype == "bf16" \
+        else _native.KERNEL_NAMES[3:]
+    res = kernel_resources(log, 256, kernels)
     for name, r in res.items():
         assert r["spill_bytes"] == 0, (name, r)
         assert r["blocks_per_sm"] >= 1, (name, r)
         assert r["registers"] <= 255, (name, r)
+        assert r["smem_bytes"] <= 232448, (name, r)
 
 
 @pytest.mark.cuda
@@ -157,8 +164,9 @@ def test_kernels_match_plain_on_card(cuda_device, b, sq, sk, h, d, q_offset,
 # Exact f32: each f32 kernel's error is at most a tenth of the error of
 # one TF32 product per f32 product (the plain version with allow_tf32) on
 # the same inputs; the f32 K1-K3 multiply as three TF32 products. A
-# clean shape, a ragged one and one with q_offset off a tile boundary.
-EXACT_SHAPES = [SHAPES[3], SHAPES[4], SHAPES[6]]
+# clean shape, a ragged one, one with q_offset off a tile boundary, and
+# one on the D=256 plan.
+EXACT_SHAPES = [SHAPES[3], SHAPES[4], SHAPES[6], (1, 512, 512, 4, 256, 0)]
 
 
 @pytest.mark.cuda
@@ -171,9 +179,10 @@ def test_f32_kernels_are_exact_f32_on_card(cuda_device, b, sq, sk, h, d,
                              dtype="float32", exact_f32=True)[0]
     assert not torch.backends.cuda.matmul.allow_tf32
     exact = {n: rl for n, rl in readings.items() if n.endswith(" exact")}
-    assert sorted(exact) == ["K1 f32 O exact", "K1 f32 lse exact",
-                             "K2 f32 dq exact", "K3 f32 dk exact",
-                             "K3 f32 dv exact"]
+    tag = " f32 d256" if d == 256 else " f32"
+    assert sorted(exact) == [f"K1{tag} O exact", f"K1{tag} lse exact",
+                             f"K2{tag} dq exact", f"K3{tag} dk exact",
+                             f"K3{tag} dv exact"]
     for name, (err, limit) in exact.items():
         assert err <= limit, (name, err, limit / EXACT_F32_FRACTION)
 
@@ -190,16 +199,17 @@ def test_kernel_wrappers_raise_on_untaken_inputs(cuda_device):
         fa._flash_bwd_dq_cuda(x, x, x, x.float(),
                               torch.zeros((1, 64, 2), device=cuda_device),
                               x, 0)
-    # f32 past D=128 and any dtype past D=256 raise, naming their rows.
+    # f32 at D=160 runs (zero-padded to the D=256 plan); either dtype past
+    # D=256 raises, naming its row.
     y = torch.zeros((1, 64, 2, 160), device=cuda_device)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 2, 'f32 head dims above 128'"):
-        fa._flash_fwd_cuda(y, y, y, 0)
-    z = torch.zeros((1, 64, 2, 320), device=cuda_device,
-                    dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 2, 'head dims above 256'"):
-        fa._flash_fwd_cuda(z, z, z, 0)
+    fa.reset_launch_counts()
+    o, lse = fa._flash_fwd_cuda(y, y, y, 0)
+    assert o.shape == y.shape and fa.LAUNCHES["flash_fwd_f32_d256"] == 1
+    for dtype in (torch.bfloat16, torch.float32):
+        z = torch.zeros((1, 64, 2, 320), device=cuda_device, dtype=dtype)
+        with pytest.raises(NotImplementedError,
+                           match="Queue 2, 'head dims above 256'"):
+            fa._flash_fwd_cuda(z, z, z, 0)
     # The grid's y dimension counts 128-row tiles, at most 65535.
     w = torch.zeros((1, 128 * 65535 + 1, 1, 16), device=cuda_device,
                     dtype=torch.bfloat16)
@@ -212,16 +222,23 @@ def test_kernel_wrappers_raise_on_untaken_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-def test_f32_model_takes_the_f32_kernels(cuda_device):
+@pytest.mark.parametrize("width", ["tiny", "wide"])
+def test_f32_model_takes_the_f32_kernels(cuda_device, width):
     # make_fed_train_step(attn="auto") picks flash on a card; in f32 its
-    # step goes through the f32 kernels and matches the dense attention.
+    # step goes through the f32 kernels of its head dim's plan (4 heads of
+    # 32, or chip_smoke.WIDE's 8 heads of 256 at 2 layers) and matches the
+    # dense attention.
     import dataclasses
 
+    from chip_smoke import WIDE
     from rayfed_tpu_torch.models import transformer as tfm
     from rayfed_tpu_torch.parallel.train import make_fed_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(tfm.tiny_config(d_model=128, n_heads=4),
+    shape = dict(d_model=128, n_heads=4) if width == "tiny" else dict(
+        d_model=WIDE["d_model"], n_heads=WIDE["n_heads"], d_ff=WIDE["d_ff"])
+    sfx = "_f32" if width == "tiny" else "_f32_d256"
+    cfg = dataclasses.replace(tfm.tiny_config(**shape),
                               compute_dtype=torch.float32)
     tokens = torch.randint(0, cfg.vocab, (2, 129),
                            generator=torch.Generator().manual_seed(0))
@@ -233,7 +250,7 @@ def test_f32_model_takes_the_f32_kernels(cuda_device):
         _, _, loss = step_fn(params, opt, tokens[:, :-1], tokens[:, 1:])
         losses[attn] = float(loss)
         if attn == "auto":
-            assert all(fa.LAUNCHES[n] > 0 for n in (
-                "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"))
-            assert fa.LAUNCHES["flash_fwd"] == 0
+            names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+            assert {k: n for k, n in fa.LAUNCHES.items() if n}.keys() == {
+                n + sfx for n in names}
     assert abs(losses["auto"] - losses["xla"]) <= 1e-4 * abs(losses["xla"])

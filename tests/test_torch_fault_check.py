@@ -91,10 +91,13 @@ def test_split_fault_makes_one_tf32_product_of_each_f32_product():
     assert fc.planted_source("flash_attention.cu",
                              _source("flash_attention.cu"), "split") \
         == _source("flash_attention.cu")
-    # Its readings are the exact-f32 ones of the kernels that split.
-    assert fc.SPLIT_CAUGHT_BY == ("K1 f32 O exact", "K1 f32 lse exact",
-                                  "K2 f32 dq exact", "K3 f32 dk exact",
-                                  "K3 f32 dv exact")
+    # Its readings are the exact-f32 ones of the kernels that split, in
+    # both of their tile plans.
+    assert fc.SPLIT_CAUGHT_BY == (
+        "K1 f32 O exact", "K1 f32 lse exact", "K2 f32 dq exact",
+        "K3 f32 dk exact", "K3 f32 dv exact", "K1 f32 d256 O exact",
+        "K1 f32 d256 lse exact", "K2 f32 d256 dq exact",
+        "K3 f32 d256 dk exact", "K3 f32 d256 dv exact")
     with pytest.raises(ValueError, match="no fault kind"):
         fc.planted_source(name, text, "drop")
 

@@ -569,12 +569,12 @@ def test_ported_config_block_is_accepted_and_its_typo_rejected(
     assert get_global_context() is None
 
 
-def _f32_head_dim_256():
+def _f32_head_dim_320():
     import torch
 
     from rayfed_tpu_torch.ops.flash_attention import kernel_head_dim
 
-    kernel_head_dim(256, torch.float32)
+    kernel_head_dim(320, torch.float32)
 
 
 def _bf16_head_dim_320():
@@ -588,7 +588,7 @@ def _bf16_head_dim_320():
 # Refusals that are calls, not config blocks: each names where its work
 # stands in the ROADMAP.
 _REFUSED_CALLS = [
-    (_f32_head_dim_256, "Queue 2, 'f32 head dims above 128'"),
+    (_f32_head_dim_320, "Queue 2, 'head dims above 256'"),
     (_bf16_head_dim_320, "Queue 2, 'head dims above 256'"),
 ]
 

@@ -116,8 +116,8 @@ def test_padded_head_dim_plain_path_matches_pallas():
     assert fa.kernel_head_dim(80) == 128 and fa.kernel_head_dim(64) == 64
 
 
-# Head dims past 128: the bf16 kernels run them on their D=256 plan, D
-# below 256 zero-padded to it.
+# Head dims past 128: the kernels of both dtypes run them on their D=256
+# plans, D below 256 zero-padded to it.
 WIDE_HEAD_DIMS = [136, 160, 192, 256]
 
 
@@ -141,6 +141,39 @@ def test_wide_head_dim_plain_path_matches_pallas(d):
                                True, q_offset)
     for got, want in zip(tgrads, jgrads):
         _close(got, want, 3e-4)
+
+
+# The f32 D=256 plan's awkward geometries (64-row blocks against 16-row
+# stages; chip_smoke.WIDE_SHAPES' ragged and q_offset cases at small B*H):
+# the plain path the kernels are held to on the card, in f32, against the
+# Pallas kernels in interpret mode, with chip_smoke's block sizes.
+F32_WIDE_GEOMETRIES = [
+    (2, 96, 160, 3, 136, 64),     # ragged tiles, Sq < Sk, q_offset
+    (1, 136, 328, 3, 192, 150),   # q_offset off a stage boundary
+    (1, 136, 328, 3, 256, 192),   # q_offset on a tile boundary
+    (1, 100, 90, 2, 256, 20),     # queries past the last key
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,q_offset", F32_WIDE_GEOMETRIES)
+def test_f32_wide_geometry_plain_path_matches_pallas(b, sq, sk, h, d,
+                                                     q_offset):
+    bq, bk = fa._pow2_block(sq, 512), fa._pow2_block(sk, 512)
+    arrs = _inputs(11, [(b, sq, h, d), (b, sk, h, d), (b, sk, h, d),
+                        (b, sq, h, d)])
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(arrs)
+    jo, jl = jfa._flash_fwd_raw(jq, jk, jv, bq, bk, True, q_offset)
+    to, tl = fa._flash_fwd_raw(tq, tk, tv, bq, bk, True, q_offset)
+    _close(to, jo, 2e-5)
+    _close(tl, jl, 2e-5)
+    jgrads = jfa._flash_bwd_pallas(jq, jk, jv, jo, jl, jdo, bq, bk, True,
+                                   q_offset)
+    tgrads = fa._flash_bwd_raw(tq, tk, tv, torch.from_numpy(np.array(jo)),
+                               torch.from_numpy(np.array(jl)), tdo, bq, bk,
+                               True, q_offset)
+    for got, want in zip(tgrads, jgrads):
+        _close(got, want, 3e-4)
+    assert fa.kernel_head_dim(d, torch.float32) == 256
 
 
 @pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
@@ -173,12 +206,29 @@ def test_kernel_head_dim_in_bf16(d, want):
     assert fa.kernel_head_dim(d, torch.bfloat16) == want
 
 
+@pytest.mark.parametrize("d,want", [(16, 16), (80, 128), (128, 128),
+                                    (129, 256), (200, 256), (256, 256)])
+def test_kernel_head_dim_in_f32(d, want):
+    assert fa.kernel_head_dim(d, torch.float32) == want
+
+
+@pytest.mark.parametrize("kind,kd,want", [
+    ("flash_fwd", 128, "flash_fwd"),
+    ("flash_bwd_dkv", 256, "flash_bwd_dkv_d256"),
+    ("flash_bwd_dq_f32", 64, "flash_bwd_dq_f32"),
+    ("flash_fwd_f32", 256, "flash_fwd_f32_d256"),
+    ("flash_bwd_dq_f32", 256, "flash_bwd_dq_f32_d256"),
+    ("flash_bwd_dkv_f32", 256, "flash_bwd_dkv_f32_d256"),
+])
+def test_launch_key_names_each_plan(kind, kd, want):
+    assert fa._launch_key(kind, kd) == want
+    assert want in fa.LAUNCHES
+
+
 def test_kernel_head_dim_refusals_name_their_roadmap_rows():
-    assert fa.kernel_head_dim(128, torch.float32) == 128
+    # f32 takes D=256 too (its own plan): only D > 256 is refused.
+    assert fa.kernel_head_dim(160, torch.float32) == 256
     assert fa.kernel_head_dim(80, torch.float32) == 128
-    with pytest.raises(NotImplementedError,
-                       match="Queue 2, 'f32 head dims above 128'"):
-        fa.kernel_head_dim(160, torch.float32)
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(NotImplementedError,
                            match="Queue 2, 'head dims above 256'"):
@@ -252,7 +302,9 @@ def test_plain_path_launches_no_kernel():
                            "flash_bwd_dkv": 0, "flash_fwd_d256": 0,
                            "flash_bwd_dq_d256": 0, "flash_bwd_dkv_d256": 0,
                            "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0,
-                           "flash_bwd_dkv_f32": 0}
+                           "flash_bwd_dkv_f32": 0, "flash_fwd_f32_d256": 0,
+                           "flash_bwd_dq_f32_d256": 0,
+                           "flash_bwd_dkv_f32_d256": 0}
 
 
 @pytest.mark.parametrize("q_offset", [0, 5])

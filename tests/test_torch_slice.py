@@ -267,6 +267,35 @@ def test_chip_smoke_f32_phase_on_cpu_at_tiny_size():
     assert summary["breakdown"] is None
 
 
+def test_chip_smoke_wide_f32_phase_on_cpu_at_tiny_size():
+    # Phase 12 (e) at tiny size and head dim 256 (d_model 512 in 2 heads):
+    # phase 4b's f32 steps and batch-1 check, then one f32 round of phase
+    # 4's loop; on the CPU both take the plain versions.
+    cfg = tfm.tiny_config(d_model=512, n_heads=2, d_ff=1408)
+    assert cfg.head_dim == chip_smoke.WIDE_HEAD_DIM
+    launches = chip_smoke.phase_wide_f32("cpu", cfg, batch=BATCH, seq=SEQ,
+                                         label="tiny")
+    assert set(launches) == {k["name"] for k in chip_smoke.KERNELS}
+    assert all(n == 0 for n in launches.values())
+
+
+def test_chip_smoke_kernel_line_lists_both_plans_of_both_dtypes():
+    names = [k["name"] for k in chip_smoke.KERNELS]
+    assert len(names) == len(set(names)) == 12
+    assert set(names) == set(
+        chip_smoke.BF16_KERNELS + chip_smoke.WIDE_KERNELS
+        + chip_smoke.F32_KERNELS + chip_smoke.F32_WIDE_KERNELS)
+    for k in chip_smoke.KERNELS:
+        f32 = "_f32" in k["name"]
+        assert k["source"].endswith("flash_attention_f32.cu" if f32
+                                    else "flash_attention.cu")
+    # Each plan's row names the TPU kernel its D <= 128 row names.
+    line = {k["name"]: k["replaces"] for k in chip_smoke.KERNELS}
+    for n in chip_smoke.BF16_KERNELS:
+        assert line[n] == line[n + "_d256"] == line[n + "_f32"] \
+            == line[n + "_f32_d256"]
+
+
 def test_kernel_work_counts_the_causal_pairs():
     for b, sq, sk, h, off in [(1, 8, 8, 1, 0), (2, 5, 9, 3, 4), (1, 6, 4, 2, 0)]:
         q_pos = np.arange(sq)[:, None] + off
