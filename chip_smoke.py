@@ -22,6 +22,7 @@
     python3 chip_smoke.py --privacy-only   # phases 1, 2 and 10 alone
     python3 chip_smoke.py --dma-only       # phases 1, 2 and 11 alone
     python3 chip_smoke.py --wide-only      # phases 1, 2 and 12 alone
+    python3 chip_smoke.py --ops-only       # phases 1, 2 and 13 alone
 
 Phases:
 
@@ -249,6 +250,29 @@ Phases:
    loss and gradients against the dense attention's), then one round of
    phase 4's loop in f32: their steps launch every f32 D = 256 kernel and
    no f32 D <= 128 one. Prints each part's wall.
+
+13. ops: the engine's operational planes around the flagship round, at
+   phase 4's width and depth: two spawned party processes on the card
+   over mutual TLS on the TCP lane (certificates from
+   ``tools/generate_tls_certs.py``), telemetry on (the collector at
+   alice, 150 ms pushes, an HTTP endpoint), and a seeded fault schedule
+   (``ops_schedule``: the chaos schedule of ``tests/test_resilience.py``
+   cut to three rounds: a delay and a drop of alice's pushes, a one-way
+   partition of alice->bob, a corrupt rule on alice's second push, and
+   one on bob's third with frame crc on his link, which is NACKed and
+   sent again). Each round each party takes one bf16 step (K1-K3),
+   pushes its tree, ``fed.get(on_missing="default")`` brings both, and
+   ``elastic_weighted_mean`` folds the survivors on the card; then the
+   same processes run the job again with the same seed at a small tree
+   on the CPU. Checks (a)-(i) of :func:`phase_ops`: bob DEAD in alice's
+   view, each fold bitwise the CPU's at sampled entries, the corrupted
+   push one bit per leaf off (the CPU injector's bit, and the same flip
+   on the card stays there), every other push bitwise, both fault
+   traces byte-identical across the two jobs, the collector's counts of
+   faults, sends and the crc resend, ``/metrics`` of both parties, a
+   stitched fleet trace, K1-K3 launched. Prints each round's wall and
+   fold, each TLS push's ms, GB/s and split (stage, send, decode,
+   place), the step ms and each party's peak memory.
 
 Every phase prints its wall seconds. It needs a CUDA card and exits
 non-zero without one. The last two lines are the kernel table (twelve
@@ -1136,20 +1160,27 @@ FED_COMM = {"retry_policy": {"max_attempts": 30, "initial_backoff_ms": 100,
 
 def _tree_digest(tree):
     """sha256 of each tensor leaf's bytes (bf16 through its int16 view);
-    a CUDA leaf is copied to host first."""
+    a CUDA leaf is copied to host first. The leaves hash on threads."""
     import hashlib
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     from rayfed_tpu_torch import tree_util
 
-    out = []
-    for x in tree_util.tree_flatten(tree)[0]:
+    def one(x):
         x = x.detach().cpu().contiguous()
         if x.dtype == torch.bfloat16:
             x = x.view(torch.int16)
-        out.append(hashlib.sha256(x.numpy().tobytes()).hexdigest())
-    return out
+        return hashlib.sha256(x.numpy().tobytes()).hexdigest()
+
+    leaves = tree_util.tree_flatten(tree)[0]
+    if any(x.is_cuda for x in leaves):
+        # The pool's copies run on its threads' streams: finish the work
+        # queued on this thread's first.
+        torch.cuda.synchronize()
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, leaves))
 
 
 def _tree_nbytes(tree):
@@ -4934,6 +4965,615 @@ def run_wide(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the operational planes (resilience, TLS, telemetry) around the
+# flagship round
+# ---------------------------------------------------------------------------
+
+# The chaos schedule of tests/test_resilience.py (its partition, delay and
+# drop rules, in its order), cut to OPS_ROUNDS rounds, with two corrupt
+# rules added: alice's push of round OPS_CORRUPT_FRAME gets one bit of
+# each leaf flipped (frame crc off on her link), bob's push of round
+# OPS_CRC_FRAME is tainted on the wire (frame crc on on his), so alice's
+# check NACKs it and bob's lane sends it again. Windows count data
+# frames: one push a round each way, and the error envelope the engine
+# sends in place of a failed push (same seq ids, so the same draws). The
+# seed is the first from the reference's that, with this program's seq
+# ids, delays alice's first push and drops her third, whose envelope is
+# the first frame the cut takes.
+OPS_ROUNDS = 3
+OPS_SEED = 20260810
+OPS_PARTITION_AFTER = 3
+OPS_CORRUPT_FRAME = 1
+OPS_CRC_FRAME = 2
+OPS_WEIGHTS = {"alice": 1.0, "bob": 3.0}
+# How long a party's fed.get waits for a push that may never come (bob,
+# for alice's dropped push); alice, whose pushes from bob always come,
+# waits OPS_ROOT_WAIT times as long, and so does everyone in round 0,
+# which builds the trainers. A TLS push of the flagship tree takes 7-30 s
+# on the card's host (PERF.md), so a round's parties drift that far.
+OPS_GET_TIMEOUT_S = 30.0
+OPS_ROOT_WAIT = 3
+OPS_DEAD_WAIT_S = 30.0
+OPS_LIVENESS = {"interval_ms": 250, "suspect_after": 2, "dead_after": 4,
+                # A ping queues behind a 1.36 GB push on the half-duplex
+                # TLS lane: only a partition may make it miss.
+                "timeout_ms": 120000}
+OPS_TELEMETRY = {"collector": "alice", "push_interval_ms": 150,
+                 "http_port": 0}
+OPS_COMM = {"retry_policy": {"max_attempts": 3, "initial_backoff_ms": 100,
+                             "max_backoff_ms": 500},
+            # A TLS send is one frame and its ack, half-duplex.
+            "timeout_in_ms": 120000,
+            "messages_max_size_in_bytes": 0}
+# The replay: the same job again in the same processes, on the CPU at this
+# tree, which must give the same fault traces.
+OPS_REPLAY = dict(vocab=512, d_model=64, n_heads=4, n_layers=2, d_ff=176,
+                  seq=32, batch=2)
+OPS_REPLAY_TIMEOUT_S = 3.0
+# The fold is checked at these entries of every leaf: the first and last
+# OPS_SAMPLE and OPS_SAMPLE seeded others (a CPU fold of the whole 1.36 GB
+# tree takes about half a minute of the host's eight cores).
+OPS_SAMPLE = 1 << 16
+OPS_JOIN_TIMEOUT_S = 420
+
+
+def ops_schedule(seed):
+    return {"seed": seed, "rules": [
+        {"fault": "partition", "src": "alice", "dst": "bob",
+         "after": OPS_PARTITION_AFTER},
+        {"fault": "corrupt", "src": "alice", "dst": "bob", "prob": 1.0,
+         "after": OPS_CORRUPT_FRAME, "for": 1},
+        {"fault": "corrupt", "src": "bob", "dst": "alice", "prob": 1.0,
+         "after": OPS_CRC_FRAME, "for": 1},
+        {"fault": "delay", "src": "alice", "prob": 0.4, "max_delay_ms": 40},
+        {"fault": "drop", "src": "alice", "dst": "bob", "prob": 0.2},
+    ]}
+
+
+def _fold_sample_mismatches(contribs, agg, view, seed):
+    """Entries of the card's aggregate ``agg`` whose bits differ from the
+    CPU port's ``elastic_weighted_mean`` of the same contributions under
+    the same liveness ``view``, at the first, last and
+    ``OPS_SAMPLE`` seeded entries of each leaf: the fold is elementwise,
+    so the CPU fold of those entries is the CPU fold's value there."""
+    import torch
+
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.ops.aggregate import elastic_weighted_mean
+    from rayfed_tpu_torch.resilience.degraded import MISSING
+
+    flat = {p: tree_util.tree_flatten(t)[0] for p, t in contribs.items()
+            if t is not MISSING}
+    gen = torch.Generator().manual_seed(seed)
+    bad = 0
+    for i, out in enumerate(tree_util.tree_flatten(agg)[0]):
+        n = out.numel()
+        idx = torch.cat([torch.arange(min(n, OPS_SAMPLE)),
+                         torch.arange(max(0, n - OPS_SAMPLE), n),
+                         torch.randint(0, n, (OPS_SAMPLE,), generator=gen)])
+        dev_idx = idx.to(out.device)
+        host = {p: {"x": leaves[i].reshape(-1)[dev_idx].cpu()}
+                for p, leaves in flat.items()}
+        want = elastic_weighted_mean(
+            {p: host.get(p, MISSING) for p in contribs}, OPS_WEIGHTS,
+            liveness=view)["x"]
+        got = out.reshape(-1)[dev_idx].cpu()
+        bad += int((_int_view(got) != _int_view(want)).sum())
+    return bad
+
+
+def _bits_flipped(a, b):
+    """Per leaf, the bits that differ between trees ``a`` and ``b`` (on
+    any device; only the differing entries come to the host)."""
+    from rayfed_tpu_torch import tree_util
+
+    out = []
+    for x, y in zip(tree_util.tree_flatten(a)[0], tree_util.tree_flatten(b)[0]):
+        xi, yi = _int_view(x.reshape(-1)), _int_view(y.reshape(-1))
+        where = (xi != yi).nonzero().flatten()
+        diff = (xi[where] ^ yi[where]).cpu().tolist()
+        mask = (1 << (8 * x.element_size())) - 1
+        out.append(sum(bin(d & mask).count("1") for d in diff))
+    return out
+
+
+def _series(metrics, name, **labels):
+    """Sum of a registry snapshot's series ``name`` over the series whose
+    labels include ``labels``."""
+    ent = (metrics or {}).get(name) or {}
+    return sum(s["value"] for s in ent.get("series", [])
+               if all(s["labels"].get(k) == v for k, v in labels.items()))
+
+
+_OPS_SERIES = ("fed_resilience_injected_faults_total",
+               "fed_transport_send_ops_total",
+               "fed_transport_frame_crc_retransmits_total",
+               "fed_transport_frame_crc_failures_total")
+
+
+def _ops_counts(metrics):
+    """What phase 13 reads of a party's registry snapshot: injected
+    faults by kind, data frames sent, crc retransmits and failures."""
+    faults = {s["labels"]["fault"]: s["value"] for s in
+              (metrics.get(_OPS_SERIES[0]) or {}).get("series", [])}
+    return dict(faults=faults, sends=_series(metrics, _OPS_SERIES[1]),
+                retransmits=_series(metrics, _OPS_SERIES[2]),
+                crc_failures=_series(metrics, _OPS_SERIES[3]))
+
+
+def _ops_program(party, addresses, device, cfg_kw, batch, seq, cert_dir,
+                 seed, get_timeout_s, replay, replay_timeout_s):
+    """Phase 13's party process: :func:`_ops_job` at ``cfg_kw``'s tree on
+    ``device``, then, after ``fed.shutdown``, the same job again at
+    ``replay``'s small tree on the CPU, with the same seed."""
+    import gc
+
+    import torch
+
+    full = _ops_job(party, addresses, device, cfg_kw, batch, seq, cert_dir,
+                    seed, get_timeout_s, "smoke-ops", True)
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    small = {k: v for k, v in replay.items() if k not in ("seq", "batch")}
+    again = _ops_job(party, addresses, "cpu", small, replay["batch"],
+                     replay["seq"], cert_dir, seed, replay_timeout_s,
+                     "smoke-ops-replay", False)
+    return dict(full=full, replay=again)
+
+
+def _ops_job(party, addresses, device, cfg_kw, batch, seq, cert_dir, seed,
+             get_timeout_s, job_name, full):
+    """One phase 13 job, the same driver in both parties: each round each
+    party takes one bf16 step on its device, pushes its tree over TLS,
+    and ``fed.get(on_missing="default")`` brings both trees; the
+    survivors (arrived, and not DEAD in this party's liveness view) are
+    folded by ``elastic_weighted_mean`` on the device, held bitwise
+    against the CPU fold at sampled entries, and loaded into the
+    trainer. After the rounds alice waits for her verdict on bob. Alice
+    is the telemetry collector; with ``full`` she also reads its
+    snapshot, its HTTP endpoint and its stitched trace, and flips her
+    corrupted round's tree on the card to hold it against the CPU's
+    flip."""
+    import torch
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import tracing, tree_util
+    from rayfed_tpu_torch.data import synthetic_lm_dataset
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.ops.aggregate import elastic_weighted_mean
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+    from rayfed_tpu_torch.resilience.liveness import DEAD
+    from rayfed_tpu_torch.telemetry import metrics as tm
+
+    sys.path.insert(0, REPO)
+    from tools.generate_tls_certs import tls_config_for
+
+    cfg = tfm.TransformerConfig(**cfg_kw)
+    on_cuda = torch.device(device).type == "cuda"
+    seeds = dict(PARTIES)
+    names = [n for n, _ in PARTIES]
+    root, other = names
+    tracing.enable()
+    fed.init(addresses=addresses, party=party, job_name=job_name,
+             logging_level="warning",
+             tls_config=tls_config_for(cert_dir, party),
+             config={"barrier_on_initializing": True,
+                     "cross_silo_comm": dict(OPS_COMM,
+                                             frame_crc=party == other),
+                     "resilience": {"fault_schedule": ops_schedule(seed),
+                                    "liveness": OPS_LIVENESS},
+                     "telemetry": OPS_TELEMETRY})
+
+    @fed.remote
+    class OpsTrainer:
+        """One party's params and AdamW state on its device."""
+
+        def __init__(self, name):
+            init_fn, self.step_fn = make_fed_train_step(
+                cfg, device, lr=1e-3, attn="flash")
+            self.params, self.opt = init_fn(0)
+            self.data = synthetic_lm_dataset(
+                cfg.vocab, batch * (seq + 1), seq, seed=seeds[name])
+            self.step_ms = []
+
+        def train(self, r):
+            blk = next(self.data.batches(batch, epoch=r))
+            t = time.perf_counter()
+            self.params, self.opt, loss = self.step_fn(
+                self.params, self.opt, blk[:, :-1], blk[:, 1:])
+            loss = float(loss)
+            self.step_ms.append(1e3 * (time.perf_counter() - t))
+            tree = tree_util.tree_map(lambda x: x.detach().clone(),
+                                      self.params)
+            return {"params": tree, "loss": loss, "t": time.time()}
+
+        def load(self, agg):
+            with torch.no_grad():
+                for p, a in zip(tree_util.tree_flatten(self.params)[0],
+                                tree_util.tree_flatten(agg)[0]):
+                    p.copy_(a)
+
+        def report(self):
+            return dict(launches=dict(fa.LAUNCHES), step_ms=self.step_ms)
+
+    @fed.remote
+    def finish(trace, counts):
+        return {"trace": trace, "counts": counts}
+
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    trainers = {n: OpsTrainer.party(n).remote(n) for n in names}
+    timeout = get_timeout_s * (OPS_ROOT_WAIT if party == root else 1)
+    rounds, kept = [], None
+    for r in range(OPS_ROUNDS):
+        t0 = time.perf_counter()
+        handles = [trainers[n].train.remote(r) for n in names]
+        # Round 0 also builds both trainers and compiles their first step.
+        got = fed.get(handles, on_missing="default",
+                      timeout=timeout * (OPS_ROOT_WAIT if r == 0 else 1))
+        view = fed.liveness_view()
+        contribs, rec = {}, dict(
+            round=r, view=dict(view), missing=[], push=None,
+            ids={n: h.get_fed_task_id() for n, h in zip(names, handles)})
+        for n, v in zip(names, got):
+            if v is fed.MISSING:
+                contribs[n] = fed.MISSING
+                rec["missing"].append(n)
+                continue
+            tree = v["params"]
+            if n == party:
+                rec["sent"] = _tree_digest(tree)
+                if full and party == root and r == OPS_CORRUPT_FRAME:
+                    kept = v
+            else:
+                nbytes = _tree_nbytes(tree)
+                dec = _last_span("decode", nbytes)
+                tree, info = _arrive(tree, device, v["t"])
+                info.pop("arrived_at")
+                info["key"] = None if dec is None else [
+                    str(dec.upstream_seq_id), str(dec.downstream_seq_id)]
+                rec["push"] = info
+            contribs[n] = tree
+        sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+        sync()
+        t = time.perf_counter()
+        agg = elastic_weighted_mean(contribs, OPS_WEIGHTS, liveness=view)
+        sync()
+        rec["fold_ms"] = 1e3 * (time.perf_counter() - t)
+        rec["survivors"] = sorted(
+            n for n in names if contribs[n] is not fed.MISSING
+            and view.get(n) != DEAD)
+        rec["fold_mismatched"] = _fold_sample_mismatches(contribs, agg,
+                                                         view, seed + r)
+        for n in names:
+            trainers[n].load.remote(agg)
+        del contribs, agg, got
+        rec["wall_s"] = time.perf_counter() - t0
+        rounds.append(rec)
+    dead_wait = None
+    if party == root:
+        # The cut has been live since alice's OPS_PARTITION_AFTER-th
+        # frame; her monitor must reach its verdict.
+        t = time.monotonic()
+        while (fed.party_state(other) != DEAD
+               and time.monotonic() - t < OPS_DEAD_WAIT_S):
+            time.sleep(0.05)
+        dead_wait = time.monotonic() - t
+    reports = [trainers[n].report.remote() for n in names]
+    # Bob's last word rides the direction the cut leaves open: his fault
+    # trace and counts, which alice holds the collector's view against.
+    done = finish.party(other).remote(
+        fed.fault_trace(), _ops_counts(tm.get_registry().snapshot()))
+    out = dict(party=party, rounds=rounds, trace=fed.fault_trace(),
+               final=fed.get(done), dead_wait_s=dead_wait,
+               view=dict(fed.liveness_view()), spans=_push_spans(),
+               report=fed.get(reports[names.index(party)]),
+               max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                     if on_cuda else None))
+    if full and party == root:
+        out["collector"] = _ops_collector(out["trace"], out["final"])
+        out["corrupt"] = _ops_card_corrupt(kept, out["trace"], seed)
+    del kept, trainers
+    fed.shutdown()
+    return out
+
+
+def _ops_sender_spans(res):
+    """A party's ``stage`` and ``send`` ms by the (up, down) seq ids of
+    the frame, from its :func:`_push_spans`."""
+    out = {}
+    for kind, up, down, _, dur, _ in res["spans"]:
+        if kind in ("stage", "send"):
+            out.setdefault((up, down), {})[kind] = 1e3 * dur
+    return out
+
+
+def _ops_expected(traces, counts):
+    """What the collector must show of each party, from its fault trace
+    and its own counts: every probabilistic fault the trace records, as
+    many as it records; at least the partitions it records (pings and
+    telemetry pushes cut by a partition count too, untraced); at least
+    its pushes that reached the wire; its crc retransmits, exactly."""
+    want = {}
+    for p, trace in traces.items():
+        kinds = {}
+        for e in trace:
+            kinds[e["fault"]] = kinds.get(e["fault"], 0) + 1
+        lost = kinds.get("drop", 0) + kinds.get("partition", 0)
+        want[p] = dict(kinds=kinds, sends=OPS_ROUNDS - lost,
+                       retransmits=counts[p]["retransmits"])
+    return want
+
+
+def _ops_collector_misses(seen, want):
+    """Where the collector's counts ``seen`` fall short of ``want``."""
+    misses = []
+    for p, w in want.items():
+        got = seen[p]
+        for kind, n in w["kinds"].items():
+            have = got["faults"].get(kind, 0)
+            if have < n or (kind != "partition" and have != n):
+                misses.append(f"{p} {kind} faults {have} vs trace {n}")
+        if got["sends"] < w["sends"]:
+            misses.append(f"{p} sends {got['sends']} < {w['sends']}")
+        if got["retransmits"] != w["retransmits"]:
+            misses.append(f"{p} crc retransmits {got['retransmits']} vs "
+                          f"{w['retransmits']}")
+    return misses
+
+
+def _ops_collector(root_trace, final):
+    """Alice's reading of her collector once bob's last word arrived: its
+    fleet snapshot (polled until it holds what both traces record, at
+    most 20 s), ``/metrics`` off its HTTP endpoint, and the stitched
+    fleet trace."""
+    import urllib.request
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import telemetry
+    from rayfed_tpu_torch.telemetry import metrics as tm
+
+    root, other = (n for n, _ in PARTIES)
+    counts = {root: _ops_counts(tm.get_registry().snapshot()),
+              other: final["counts"]}
+    want = _ops_expected({root: root_trace, other: final["trace"]}, counts)
+    deadline = time.monotonic() + 20
+    while True:
+        snap = fed.telemetry_snapshot()
+        seen = {p: _ops_counts(snap["parties"].get(p, {}).get("metrics", {}))
+                for p in (root, other)}
+        if not _ops_collector_misses(seen, want) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    with urllib.request.urlopen(telemetry.http_url() + "/metrics",
+                                timeout=10) as resp:
+        text = resp.read().decode("utf-8")
+    fleet = fed.export_fleet_trace()
+    stitched = [e for e in fleet["edges"]
+                if len({ev["party"] for ev in e["events"]}) >= 2]
+    return dict(
+        seen=seen, counts=counts,
+        pushes={p: snap["parties"][p]["pushes"] for p in (root, other)},
+        endpoint=telemetry.http_url(),
+        metrics_parties=[p for p in (root, other) if f'party="{p}"' in text],
+        metrics_series=sum(1 for line in text.splitlines()
+                           if line and not line.startswith("#")),
+        edges=len(fleet["edges"]), stitched=len(stitched),
+        stitched_kinds=sorted({ev["kind"] for e in stitched
+                               for ev in e["events"]}))
+
+
+def _ops_card_corrupt(kept, trace, seed):
+    """Alice's corrupted push, flipped again where it lives (her device)
+    and on the CPU by the port's injector with the frame's seq ids from
+    her fault trace: the bits each leaf lost, whether the flipped copy
+    stayed on the device, and both copies' digests."""
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.resilience.inject import _corrupt_value
+
+    root, other = (n for n, _ in PARTIES)
+    (e,) = [e for e in trace if e["fault"] == "corrupt"]
+    on_dev = _corrupt_value(kept, seed, root, other, e["up"], e["down"])
+    host = dict(kept, params=tree_util.tree_map(lambda x: x.cpu(),
+                                                kept["params"]))
+    on_cpu = _corrupt_value(host, seed, root, other, e["up"], e["down"])
+    leaves = tree_util.tree_flatten(on_dev["params"])[0]
+    device = tree_util.tree_flatten(kept["params"])[0][0].device
+    return dict(bits=_bits_flipped(kept["params"], on_dev["params"]),
+                stays=all(x.device == device for x in leaves),
+                device=str(device),
+                card=_tree_digest(on_dev["params"]),
+                cpu=_tree_digest(on_cpu["params"]))
+
+
+def phase_ops(device, cfg, *, batch, seq, label="", replay=OPS_REPLAY,
+              get_timeout_s=OPS_GET_TIMEOUT_S,
+              replay_timeout_s=OPS_REPLAY_TIMEOUT_S,
+              timeout_s=OPS_JOIN_TIMEOUT_S):
+    """Phase 13: :func:`_ops_program` in two spawned party processes over
+    TLS (certificates from ``tools/generate_tls_certs.py``): the job at
+    ``cfg``'s tree on ``device``, then the same job with the same seed
+    at ``replay``'s small tree on the CPU; checked: (a) bob ends DEAD in
+    alice's liveness view; (b) every round's fold on the device is
+    bitwise the CPU fold of the same survivors (sampled entries of every
+    leaf); (c) alice's corrupted push reached bob with exactly one bit
+    of each leaf flipped, the bit the CPU injector picks, and the same
+    flip on the device stays there and gives the CPU's bits; (d) every
+    other push arrived bitwise as its owner hashed it, bob's crc-tainted
+    one after its resend, and bob missed exactly the pushes alice's
+    trace drops or cuts; (e) each party's fault trace is byte-identical
+    in the two jobs; (f) the collector's snapshot counts what each
+    party's fault trace records, its sends and bob's crc retransmit; (g)
+    ``/metrics`` serves both parties' series; (h)
+    ``fed.export_fleet_trace()`` stitches edges across both parties; (i)
+    on the card, each party's steps launched every bf16 kernel. Prints
+    the round walls, each TLS push's ms, GB/s and split, the step and
+    fold ms, each party's peak memory. Returns both parties' results of
+    the first job."""
+    import dataclasses
+
+    import torch
+
+    from tools.generate_tls_certs import generate
+
+    root, other = (n for n, _ in PARTIES)
+    with tempfile.TemporaryDirectory() as certs:
+        generate(certs, [root, other])
+        print(f"[ops] {label} TLS on (certificates from "
+              f"tools/generate_tls_certs.py), telemetry collector {root}, "
+              f"fault seed {OPS_SEED}")
+        results, wall = spawn_parties(
+            _ops_program, (device, dataclasses.asdict(cfg), batch, seq,
+                           certs, OPS_SEED, get_timeout_s, replay,
+                           replay_timeout_s), timeout_s)
+    full = {p: res["full"] for p, res in results.items()}
+    again = {p: res["replay"] for p, res in results.items()}
+    a, b = full[root], full[other]
+
+    require(a["view"].get(other) == "DEAD",
+            f"(a) {other} is not DEAD in {root}'s view after "
+            f"{a['dead_wait_s']:.1f} s: {a['view']}")
+    for p, res in full.items():
+        for rec in res["rounds"]:
+            require(rec["fold_mismatched"] == 0,
+                    f"(b) {p} round {rec['round']}: {rec['fold_mismatched']} "
+                    f"sampled entries of the device's fold differ from the "
+                    f"CPU fold")
+    cut = sorted({e["up"] for e in a["trace"]
+                  if e["fault"] in ("drop", "partition")})
+    bob_missed = sorted(rec["ids"][root] for rec in b["rounds"]
+                        if rec["missing"])
+    require(bob_missed == cut and all(
+        rec["missing"] == [root] for rec in b["rounds"] if rec["missing"]),
+        f"(d) {other} missed {root}'s pushes {bob_missed}, but {root}'s "
+        f"trace drops or cuts {cut}")
+    require(not any(rec["missing"] for rec in a["rounds"]),
+            f"(d) {root} missed a push of {other}'s")
+    corrupt = a["corrupt"]
+    for r, rec in enumerate(b["rounds"]):
+        if rec["push"] is None:
+            continue
+        sent = a["rounds"][r]["sent"]
+        if r == OPS_CORRUPT_FRAME:
+            require(rec["push"]["digest"] == corrupt["cpu"]
+                    and rec["push"]["digest"] != sent,
+                    f"(c) {other} did not receive {root}'s round {r} push "
+                    f"as the CPU injector flips it")
+        else:
+            require(rec["push"]["digest"] == sent,
+                    f"(d) {root}'s round {r} push arrived with other bytes")
+    require(all(n == 1 for n in corrupt["bits"]) and corrupt["stays"]
+            and corrupt["card"] == corrupt["cpu"],
+            f"(c) the flip of {root}'s push on {corrupt['device']}: bits per "
+            f"leaf {corrupt['bits']}, stayed there {corrupt['stays']}, equal "
+            f"to the CPU's {corrupt['card'] == corrupt['cpu']}")
+    for r, rec in enumerate(a["rounds"]):
+        require(rec["push"]["digest"] == b["rounds"][r]["sent"],
+                f"(d) {other}'s round {r} push arrived with other bytes")
+    for p in (root, other):
+        require(json.dumps(full[p]["trace"], sort_keys=True)
+                == json.dumps(again[p]["trace"], sort_keys=True),
+                f"(e) {p}'s fault trace differs between the two jobs of "
+                f"seed {OPS_SEED}: {full[p]['trace']} vs {again[p]['trace']}")
+    kinds = {e["fault"] for e in a["trace"]}
+    require({"partition", "corrupt"} <= kinds and any(
+        e["fault"] == "corrupt" for e in b["trace"]),
+        f"(e) the traces miss faults the schedule sets: {a['trace']}, "
+        f"{b['trace']}")
+    col = a["collector"]
+    want = _ops_expected({root: a["trace"], other: b["trace"]},
+                         col["counts"])
+    require(want[other]["retransmits"] >= 1,
+            f"(f) {other}'s crc-tainted push was never resent: "
+            f"{col['counts'][other]}")
+    misses = _ops_collector_misses(col["seen"], want)
+    require(not misses, f"(f) the collector's snapshot falls short of the "
+                        f"fault traces: {misses}")
+    require(col["seen"][root]["crc_failures"] >= 1,
+            f"(f) the collector shows no crc failure at {root}: "
+            f"{col['seen'][root]}")
+    require(col["metrics_parties"] == [root, other],
+            f"(g) /metrics at {col['endpoint']} serves series of "
+            f"{col['metrics_parties']} only")
+    require(col["stitched"] > 0 and "send" in col["stitched_kinds"],
+            f"(h) the fleet trace stitched no edge across both parties "
+            f"({col['edges']} edges)")
+    if torch.device(device).type == "cuda":
+        for p, res in full.items():
+            require(all(res["report"]["launches"][k] > 0
+                        for k in BF16_KERNELS),
+                    f"(i) {p}'s steps did not launch every bf16 kernel: "
+                    f"{res['report']['launches']}")
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.1f} ms"
+
+    print(f"[ops] {label} two party processes, {OPS_ROUNDS} rounds, then "
+          f"the replay at {replay} on the CPU, in {wall:.1f} s from spawn "
+          f"to exit; {other} DEAD in {root}'s view {a['dead_wait_s']:.2f} "
+          f"s after her last round")
+    print(f"[ops] {label} {root}'s fault trace "
+          f"{json.dumps(a['trace'], sort_keys=True)}; {other}'s "
+          f"{json.dumps(b['trace'], sort_keys=True)} (both jobs)")
+    for p, q in ((root, other), (other, root)):
+        sender = _ops_sender_spans(full[q])
+        for rec in full[p]["rounds"]:
+            push = rec["push"]
+            parts = [f"{q}->{p} round {rec['round']}: wall "
+                     f"{rec['wall_s']:.2f} s, fold {rec['fold_ms']:.1f} ms "
+                     f"over {rec['survivors']}"]
+            if push is None:
+                parts.append("push missing")
+            else:
+                total = push["push_ms"]
+                stage = send = None
+                if push["key"] is not None:
+                    got = sender.get(tuple(push["key"]), {})
+                    stage, send = got.get("stage"), got.get("send")
+                rate = ("" if total is None else
+                        f", {push['nbytes'] / total / 1e6:.3f} GB/s")
+                parts.append(
+                    f"TLS push {push['nbytes']} B: {ms(total)}{rate}; stage "
+                    f"{ms(stage)}, send {ms(send)}, decode "
+                    f"{ms(push['decode_ms'])}, place {ms(push['h2d_ms'])}")
+            print(f"[ops] {label} " + "; ".join(parts))
+    for p, res in full.items():
+        steps = res["report"]["step_ms"]
+        print(f"[ops] {label} party {p}: bf16 step ms by round "
+              f"{[round(x, 1) for x in steps]} (the first builds the "
+              f"step), launches "
+              f"{res['report']['launches']}, max_memory_allocated "
+              f"{res['max_memory_allocated']}")
+    print(f"[ops] {label} collector at {root}: {json.dumps(col['seen'])}; "
+          f"pushes taken {col['pushes']}; /metrics {col['metrics_series']} "
+          f"series of {col['metrics_parties']}; fleet trace {col['edges']} "
+          f"edges, {col['stitched']} across both parties "
+          f"({col['stitched_kinds']})")
+    print(f"[ops] {label} {root}'s corrupted push: one bit flipped in each "
+          f"of {len(corrupt['bits'])} leaves, on {corrupt['device']} as on "
+          f"the CPU")
+    return full
+
+
+def run_ops(smi):
+    """Phase 13 at the flagship width, depth cut as phase 4's; returns the
+    parties' bf16 kernel launches."""
+    print("[ops] reduced " + json.dumps(
+        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
+    t = time.perf_counter()
+    full = phase_ops("cuda", _flagship_cfg(SMOKE_LAYERS),
+                     batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+                     label=f"on {smi}:")
+    _phase_wall(13, t, smi)
+    return {k: sum(res["report"]["launches"][k] for res in full.values())
+            for k in BF16_KERNELS}
+
+
 def _phase_wall(n, t0, smi):
     print(f"[phase {n}] {time.perf_counter() - t0:.1f} s on {smi}")
 
@@ -4970,6 +5610,16 @@ def main(argv):
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
         run_wide(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
+    if argv == ["--ops-only"]:
+        # Phases 2 and 13 alone, in a fresh process (no kernel line).
+        t = time.perf_counter()
+        phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+        _phase_wall(2, t, smi)
+        run_ops(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
@@ -5029,7 +5679,8 @@ def main(argv):
         return
     require(not argv, f"unknown arguments {argv}; the options are "
                       "--serving-only, --async-only, --family-only, "
-                      "--privacy-only, --dma-only and --wide-only")
+                      "--privacy-only, --dma-only, --wide-only and "
+                      "--ops-only")
     t = time.perf_counter()
     phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
     _phase_wall(2, t, smi)
@@ -5130,6 +5781,11 @@ def main(argv):
     wide_kern, wide_launches = run_wide(smi)
     kern.update(wide_kern)
     launches.update(wide_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Phase 13's parties' steps (bf16, D = 128).
+    for kern_name, n in run_ops(smi).items():
+        launches[kern_name] += n
     print(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
 
     line = []

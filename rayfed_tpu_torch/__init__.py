@@ -34,7 +34,10 @@ job checkpoints (``save_job_state``, ``restore_job_state``); and the
 privacy plane (``config["privacy"]``, privacy/): secure aggregation
 (``fed_aggregate(secure=True)`` in either mode), DP clipping and noise
 with the epsilon ledger (``privacy_ledger``) and the int8 wire tier,
-whose random streams are ``jax.random``'s words.
+whose random streams are ``jax.random``'s words; and the operational
+planes: fault injection, retry, liveness and degraded ``get``
+(resilience/), tenancy, TLS, and the telemetry agent and collector
+(``config["telemetry"]``, ``telemetry_snapshot``, ``export_fleet_trace``).
 It never imports jax or rayfed_tpu. Entry points run on CUDA unless the
 caller passes device="cpu"; the attention kernels are hand-written for
 Hopper (csrc/) and built at first use. Planes not ported yet are absent,
@@ -83,6 +86,10 @@ from rayfed_tpu_torch.checkpoint import (  # noqa: F401
     restore_job_state,
     save_job_state,
 )
+from rayfed_tpu_torch.telemetry import (  # noqa: F401
+    export_fleet_trace,
+    telemetry_snapshot,
+)
 
 __version__ = "0.1.0"
 
@@ -117,5 +124,7 @@ __all__ = [
     "AsyncRoundHandle",
     "save_job_state",
     "restore_job_state",
+    "telemetry_snapshot",
+    "export_fleet_trace",
     "__version__",
 ]

@@ -77,9 +77,6 @@ _UNPORTED_BLOCKS = {
     "collective": (
         "the cross-party collective lane is ROADMAP Queue 1 item 12b"
     ),
-    "telemetry": (
-        "the telemetry agent and collector are ROADMAP Queue 1 item 18"
-    ),
 }
 
 
@@ -157,10 +154,12 @@ def init(
             quantizer; ``cross_silo_comm.payload_wire_dtype="int8"``
             needs ``privacy.quantize="int8"``) and the
             ``aggregation.async_*`` keys; each is
-            validated strictly before any state is built. The blocks of
-            planes not ported yet (``jax_distributed``, ``collective``,
-            ``telemetry``) and a ``party_mesh`` over more than one device
-            are refused.
+            validated strictly before any state is built, and so is
+            ``telemetry`` (:class:`~rayfed_tpu_torch.telemetry.config.TelemetryConfig`:
+            the per-party agent, and the collector with its optional
+            HTTP endpoint at the collector party). The blocks of planes
+            not ported yet (``jax_distributed``, ``collective``) and a
+            ``party_mesh`` over more than one device are refused.
         tls_config: ``{ca_cert, cert, key}`` file paths for mutual TLS.
         logging_level: root logging level.
         sender_proxy_cls / receiver_proxy_cls: custom transport classes
@@ -184,6 +183,20 @@ def init(
     )
     config = config or {}
     transport = transport or config.get("transport", "tcp")
+    comm_dict = config.get("cross_silo_comm") or {}
+    if (
+        transport == "grpc"
+        and isinstance(comm_dict, dict)
+        and comm_dict.get("allow_pickle_payloads") is False
+    ):
+        # A contradiction in the job's config, whichever lanes exist: the
+        # JAX package's message, before the transport's refusal below.
+        raise ValueError(
+            "allow_pickle_payloads=False is incompatible with "
+            "transport='grpc': the gRPC parity lane pickles every payload "
+            "by design. Use the native 'tcp'/'cuda' transports for strict "
+            "arrays-only mode."
+        )
     _refuse_unported(config, transport)
     # Validated before any state is built, so a bad serving key rejects
     # init here rather than at the first fed.serve — and the same for the
@@ -220,6 +233,12 @@ def init(
         (config.get("cross_silo_comm") or {}).get("payload_wire_dtype"),
         privacy_dict,
     )
+    telemetry_dict = config.get("telemetry")
+    telemetry_cfg = None
+    if telemetry_dict is not None:
+        from rayfed_tpu_torch.telemetry.config import TelemetryConfig
+
+        telemetry_cfg = TelemetryConfig.from_dict(telemetry_dict)
     aggregation_dict = config.get("aggregation") or {}
     if aggregation_dict:
         from rayfed_tpu_torch import async_rounds as _async_rounds
@@ -473,6 +492,15 @@ def init(
 
         install_privacy(job_name, party, privacy_cfg)
 
+    # Telemetry plane (docs/observability.md): per-party metrics agent +
+    # the collector/HTTP endpoint at the collector party. AFTER the
+    # membership block so the collector's fleet view can consult the
+    # installed manager from its first scrape.
+    if telemetry_cfg is not None:
+        from rayfed_tpu_torch import telemetry as _telemetry
+
+        _telemetry.start(job_name, party, dict(addresses), telemetry_cfg)
+
     if config.get("barrier_on_initializing", False):
         barriers.ping_others(addresses=addresses, self_party=party, max_retries=3600)
 
@@ -535,6 +563,16 @@ def _shutdown_impl(intended: bool = True):
             failure_handler(last_sending_error)
         exit_on_sending_failure = ctx.get_exit_on_sending_failure()
 
+    # Telemetry stops first of all, while the proxies are still up: the
+    # agent's final flush rides the inline lane, and the collector's
+    # control handler unregisters before the rendezvous store goes away.
+    # No-op when init never started it.
+    _telemetry = sys.modules.get("rayfed_tpu_torch.telemetry")
+    if _telemetry is not None:
+        try:
+            _telemetry.stop(flush=intended)
+        except Exception:  # noqa: BLE001 - telemetry must not block teardown
+            logger.warning("telemetry shutdown failed", exc_info=True)
     # Resilience teardown FIRST — before the send drain and long before
     # the proxies go away: a heartbeat tick landing mid-teardown would
     # count misses against peers that are merely shutting down too (and

@@ -47,6 +47,12 @@ from rayfed_tpu_torch.proxy.base import (
 
 logger = logging.getLogger(__name__)
 
+#: The rule id of the JAX package's static analyzer (``rayfed_tpu.lint``,
+#: docs/fedlint.md) for the ("ping", "ping") seq-id reservation enforced
+#: below: FED005, reserved-seq-id. The error names it as the JAX
+#: package's does, so a driver hitting it finds the static check.
+FEDLINT_RESERVED_SEQ_RULE = "FED005"
+
 
 def _reject_reserved_seq_ids(upstream_seq_id, downstream_seq_id) -> None:
     """The ``(PING_SEQ_ID, PING_SEQ_ID)`` pair is the readiness probe: a
@@ -58,7 +64,8 @@ def _reject_reserved_seq_ids(upstream_seq_id, downstream_seq_id) -> None:
     if upstream_seq_id == PING_SEQ_ID and downstream_seq_id == PING_SEQ_ID:
         raise ValueError(
             f"the seq-id pair ({PING_SEQ_ID!r}, {PING_SEQ_ID!r}) is "
-            f"reserved for the readiness probe and can never carry data; "
+            f"reserved for the readiness probe and can never carry data "
+            f"(fedlint {FEDLINT_RESERVED_SEQ_RULE}: reserved-seq-id); "
             f"use any other upstream/downstream seq ids"
         )
 

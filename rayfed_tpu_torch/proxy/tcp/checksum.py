@@ -105,11 +105,13 @@ def compute(buffers, alg: Optional[str] = None) -> Tuple[int, str]:
 
 def payload_buffers(payload) -> Iterable:
     """Normalize a received payload — bytes-like or a SegmentedPayload
-    (anything with ``.segments`` of (pos, buf), already in order) — into
-    an iterable of buffers for :func:`compute`."""
+    (anything whose ``.segments()`` gives (pos, buf) pairs, already in
+    order) — into an iterable of buffers for :func:`compute`. (The JAX
+    package iterates the bound method itself, so a segmented frame, any
+    frame of 1 MiB or more, fails its crc check with a TypeError.)"""
     segments = getattr(payload, "segments", None)
     if segments is not None:
-        return [buf for _pos, buf in segments]
+        return [buf for _pos, buf in segments()]
     return [payload]
 
 

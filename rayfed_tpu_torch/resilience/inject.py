@@ -31,8 +31,8 @@ Fault kinds (rule ``fault`` key):
   ``[0, max_delay_ms]``.
 - ``duplicate``  — the frame is forwarded twice (the receiver's
   rendezvous dedup must absorb it).
-- ``corrupt``    — numpy-array leaves get one deterministically chosen
-  bit flipped before forwarding.
+- ``corrupt``    — numpy-array and torch-tensor leaves get one
+  deterministically chosen bit flipped before forwarding.
 - ``partition``  — one-way src→dst blackhole: every send (pings
   included, by default) fails while the dst's data-send index is inside
   ``[after, after + for)``.
@@ -48,7 +48,10 @@ Either default is overridable per-rule with ``"pings": true/false``.
 
 Window positions (``after``/``for``) are counted on the per-destination
 DATA-send index, never on pings: ping counts depend on barrier timing
-and would make replays diverge. Probabilistic rules honor the same
+and would make replays diverge. The telemetry agent's pushes (``tel:``
+seq ids) are timed the same way and follow the ping rules throughout
+(the JAX package counts them as data frames, so a job with telemetry on
+replays its trace only by chance there). Probabilistic rules honor the same
 window: ``{"fault": "corrupt", "prob": 1.0, "after": 8, "for": 2}`` is
 a mid-job corrupt burst hitting exactly data sends 8 and 9.
 
@@ -74,7 +77,8 @@ in :mod:`rayfed_tpu_torch.tracing` and appended to an in-order trace queryable
 via :func:`fault_trace` (data frames only — ping faults are counted but
 not traced, again for determinism).
 
-Stdlib + numpy only; no jax, no transport imports at module scope.
+Stdlib at module scope (numpy and torch load where a leaf is walked);
+no transport imports at module scope.
 """
 
 from __future__ import annotations
@@ -92,6 +96,10 @@ from rayfed_tpu_torch._private.constants import PING_SEQ_ID
 from rayfed_tpu_torch.telemetry import metrics as telemetry_metrics
 
 logger = logging.getLogger(__name__)
+
+#: The seq-id prefix of the telemetry agent's pushes
+#: (``proxy/rendezvous.TELEMETRY_SEQ_PREFIX``).
+_TELEMETRY_SEQ_PREFIX = "tel:"
 
 _m_injected = telemetry_metrics.get_registry().counter(
     "fed_resilience_injected_faults_total",
@@ -252,22 +260,40 @@ def _u01(seed: int, rule_idx: int, src: str, dst: str, up, down) -> float:
     return int.from_bytes(h[:8], "big") / float(1 << 64)
 
 
+def _flip_bit_index(nbytes: int, seed: int, src: str, dst: str, up, down,
+                    path: str) -> int:
+    """The bit a ``corrupt`` fault flips in a leaf of ``nbytes`` bytes: a
+    pure function of the frame key and the leaf's path."""
+    h = hashlib.sha256(
+        f"corrupt|{seed}|{src}|{dst}|{up}|{down}|{path}".encode()
+    ).digest()
+    return int.from_bytes(h[:8], "big") % (nbytes * 8)
+
+
 def _corrupt_value(value, seed: int, src: str, dst: str, up, down):
-    """Flip one deterministically chosen bit in each numpy-array leaf of
-    ``value`` (containers walked structurally; non-array leaves pass
-    through — pickle-lane corruption would just be a decode error, the
-    interesting case is a silently wrong tensor)."""
+    """Flip one deterministically chosen bit in each numpy-array or torch
+    tensor leaf of ``value`` (containers walked structurally; non-array
+    leaves pass through — pickle-lane corruption would just be a decode
+    error, the interesting case is a silently wrong tensor). A tensor
+    and an ndarray with the same bytes at the same path get the same
+    bit; a tensor's corrupted copy stays on its device. The JAX package
+    flips numpy leaves only (ROADMAP Queue 3's divergence)."""
     import numpy as np
+    import torch
 
     def walk(x, path: str):
         if isinstance(x, np.ndarray) and x.size and x.dtype != object:
             flat = bytearray(np.ascontiguousarray(x).tobytes())
-            h = hashlib.sha256(
-                f"corrupt|{seed}|{src}|{dst}|{up}|{down}|{path}".encode()
-            ).digest()
-            bit = int.from_bytes(h[:8], "big") % (len(flat) * 8)
+            bit = _flip_bit_index(len(flat), seed, src, dst, up, down, path)
             flat[bit // 8] ^= 1 << (bit % 8)
             return np.frombuffer(bytes(flat), dtype=x.dtype).reshape(x.shape)
+        if isinstance(x, torch.Tensor) and x.numel():
+            flat = x.detach().contiguous().reshape(-1).view(torch.uint8)
+            flat = flat.clone()
+            bit = _flip_bit_index(flat.numel(), seed, src, dst, up, down,
+                                  path)
+            flat[bit // 8:bit // 8 + 1].bitwise_xor_(1 << (bit % 8))
+            return flat.view(x.dtype).reshape(x.shape)
         if isinstance(x, dict):
             return {k: walk(v, f"{path}.{k}") for k, v in x.items()}
         if isinstance(x, (list, tuple)):
@@ -280,18 +306,17 @@ def _corrupt_value(value, seed: int, src: str, dst: str, up, down):
 
 def _estimate_nbytes(value) -> int:
     """Rough wire size of ``value`` for token-bucket pacing: the
-    injector sits upstream of serialization, so sum ndarray payloads
-    (the dominant bytes) with a small constant per non-array leaf."""
-    try:
-        import numpy as np
-    except Exception:  # pragma: no cover - numpy is a hard dep in practice
-        return 1024
+    injector sits upstream of serialization, so sum ndarray and tensor
+    payloads (the dominant bytes) with a small constant per non-array
+    leaf."""
+    import numpy as np
+    import torch
 
     total = 0
 
     def walk(x) -> None:
         nonlocal total
-        if isinstance(x, np.ndarray):
+        if isinstance(x, (np.ndarray, torch.Tensor)):
             total += int(x.nbytes)
         elif isinstance(x, dict):
             for v in x.values():
@@ -433,10 +458,13 @@ class InjectingSenderProxy:
         downstream_seq_id,
         is_error: bool = False,
     ) -> Future:
+        # Telemetry pushes follow the ping rules: like heartbeats they go
+        # out on the agent's clock, not in program order, so counting them
+        # as data frames would make same-seed fault traces diverge.
         is_ping = (
             upstream_seq_id == PING_SEQ_ID
             and downstream_seq_id == PING_SEQ_ID
-        )
+        ) or str(upstream_seq_id).startswith(_TELEMETRY_SEQ_PREFIX)
         with self._lock:
             idx = self._data_idx.get(dest_party, 0)
             if is_ping:

@@ -175,10 +175,12 @@ def run_with_retry(
     The backoff clamp is deadline-aware in BOTH directions: a pause is
     never allowed to swallow the whole remaining budget. The loop tracks
     the cost of the slowest attempt so far and shortens the pause so the
-    next (possibly final) attempt starts with at least that much budget
-    left — without this, a WAN-scale backoff (5s initial) against a 6s
-    deadline burns the budget sleeping and the "final attempt" is a
-    0ms-budget formality that can only fail.
+    next attempt starts with that much budget left and, when it is the
+    final one, half of what remains besides, so it starts with room to
+    spare —
+    without this, a WAN-scale backoff (5s initial) against a 6s deadline
+    burns the budget sleeping and the "final attempt" is a 0ms-budget
+    formality that can only fail.
 
     On exhaustion raises a plain ``ConnectionError`` — callers (and the
     sending-failure handler contract, see
@@ -211,15 +213,18 @@ def run_with_retry(
             if policy.jitter:
                 pause *= 0.5 + 0.5 * random.random()
             if deadline is not None:
-                # Reserve room for the attempt that follows the pause:
-                # sleep at most (remaining - one attempt's cost), so the
-                # final attempt always FITS the deadline instead of
-                # starting exactly as it expires.
+                # Reserve room for the attempts that follow the pause:
+                # one attempt's cost, and of the rest a 1/(left+1) share,
+                # where ``left`` attempts remain; so the final attempt
+                # always FITS the deadline instead of starting as it
+                # expires. (The JAX package reserves the cost alone, which
+                # a sleep overshooting by a millisecond under load pushes
+                # past the deadline.)
                 rem = deadline.remaining()
                 if rem is not None:
-                    pause = min(
-                        pause, max(0.0, rem - max(attempt_cost, 0.001))
-                    )
+                    left = attempts - attempt
+                    spare = rem - max(attempt_cost, 0.001)
+                    pause = min(pause, max(0.0, spare * left / (left + 1)))
             if pause > 0:
                 time.sleep(pause)
     raise ConnectionError(

@@ -193,6 +193,12 @@ def _hook_qos() -> None:
         get_ledger().clear_job(job)
 
 
+def _hook_telemetry() -> None:
+    from rayfed_tpu_torch import telemetry
+
+    telemetry.stop(flush=False)
+
+
 def _hook_serving_client() -> None:
     from rayfed_tpu_torch.serving.client import set_default_serving_config
 
@@ -229,6 +235,7 @@ RESET_HOOKS: Dict[str, List[Tuple[Callable[[], None], str]]] = {
     "rayfed_tpu_torch.privacy.manager": [(_hook_privacy, JOB)],
     "rayfed_tpu_torch.serving.server": [(_hook_serving_server, JOB)],
     "rayfed_tpu_torch.serving.client": [(_hook_serving_client, JOB)],
+    "rayfed_tpu_torch.telemetry": [(_hook_telemetry, JOB)],
     "rayfed_tpu_torch.topology": [(_hook_topology, JOB)],
     "rayfed_tpu_torch.async_rounds": [
         (_hook_async_sessions, JOB),

@@ -493,7 +493,6 @@ _REFUSED = [
     ({"party_mesh": {"device_ids": [0, 1]}}, "item 8"),
     ({"collective": {"coordinator": "127.0.0.1:1"}}, "item 12"),
     ({"cross_silo_comm": {"same_mesh_push": True}}, "item 12b"),
-    ({"telemetry": {"collector": "alice"}}, "item 18"),
     ({"transport": "tpu"}, "item 4"),
     ({"transport": "grpc"}, "item 15"),
 ]
@@ -511,7 +510,7 @@ def test_unported_config_block_is_refused_at_init(config, item):
     assert get_global_context() is None and not tenancy_context.contexts()
 
 
-# The blocks of the planes ported since (ROADMAP items 10 and 11b): init
+# The blocks of the planes ported since (ROADMAP items 10, 11b and 18): init
 # accepts each and rejects a typo in it, before building any state, with
 # the JAX package's message.
 _ACCEPTED_BLOCKS = [
@@ -532,6 +531,11 @@ _ACCEPTED_BLOCKS = [
       "privacy": {"quantize": "int8"}},
      {"cross_silo_comm": {"payload_wire_dtype": "int8"}},
      r"payload_wire_dtype=\"int8\" requires the privacy plane"),
+    ("telemetry",
+     {"telemetry": {"collector": "alice", "push_interval_ms": 50,
+                    "http_port": 0}},
+     {"telemetry": {"collector": "alice", "push_interval": 50}},
+     r"unknown telemetry config keys: \['push_interval'\]"),
 ]
 
 
@@ -555,6 +559,10 @@ def test_ported_config_block_is_accepted_and_its_typo_rejected(
             from rayfed_tpu_torch import checkpoint
 
             assert checkpoint.get_default_checkpoint_config().keep == 2
+        elif block == "telemetry":
+            view = fed.telemetry_snapshot()
+            assert view["fleet"] is True and view["collector"] == "alice"
+            assert view["endpoint"].startswith("http://127.0.0.1:")
         elif block in ("privacy", "wire_int8"):
             from rayfed_tpu_torch.privacy import get_privacy_manager
 
