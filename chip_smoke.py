@@ -23,6 +23,7 @@
     python3 chip_smoke.py --dma-only       # phases 1, 2 and 11 alone
     python3 chip_smoke.py --wide-only      # phases 1, 2 and 12 alone
     python3 chip_smoke.py --ops-only       # phases 1, 2 and 13 alone
+    python3 chip_smoke.py --sharded-only   # phases 1, 2 and 14 alone
 
 Phases:
 
@@ -88,7 +89,8 @@ Phases:
    memory.
 
 7. serve: the serving plane (``rayfed_tpu_torch.serving``) at the
-   flagship width and full depth (bf16 compute, f32 params from a seed,
+   flagship width, depth ``SERVE_LAYERS`` in the whole run and full depth
+   with ``--serving-only`` (bf16 compute, f32 params from a seed,
    bf16 KV): an ``InferenceServer`` under ``SERVE_CFG`` (paged KV in
    16-position blocks, 8 slots), warmed on every program shape, answers
    32 greedy requests from 8 client threads, prompts of 16-512 tokens
@@ -273,6 +275,20 @@ Phases:
    stitched fleet trace, K1-K3 launched. Prints each round's wall and
    fold, each TLS push's ms, GB/s and split (stage, send, decode,
    place), the step ms and each party's peak memory.
+
+14. sharded: ``make_fed_train_step`` over a party x data x model
+   DeviceMesh (``mesh.build_mesh``) of one rank, a one-process NCCL
+   group on the card, at phase 4's width, depth and seed: params are
+   DTensors placed by the Megatron rules and the flash kernels run under
+   their DTensor rule. Checks (a)-(e) of :func:`phase_sharded`: five
+   steps bitwise the one-device step's (losses and params), the same
+   with ZeRO-1 and ``accum_steps=2``, K1-K3 launched as often as by the
+   one-device steps, and a sharded greedy decode equal to the
+   one-device one. Prints each run's step ms and peak memory beside the
+   one-device run's. One card shows only that the DTensor path and the
+   kernels compose and what the dispatch costs: tensor and data
+   parallelism over more than one rank are held on the CPU (gloo,
+   ``tests/test_torch_parallel.py``).
 
 Every phase prints its wall seconds. It needs a CUDA card and exits
 non-zero without one. The last two lines are the kernel table (twelve
@@ -2008,6 +2024,9 @@ SERVE_F32_LAYERS = 2
 SERVE_LOGIT_TOL = 1e-4
 # The two-process run: its depth, requests and join timeout.
 SERVE_FED_LAYERS = 4
+# Phase 7's depth in the whole run: cut from the flagship's 12 so
+# that phase 14 fits the run's time; --serving-only keeps full depth.
+SERVE_LAYERS = 8
 SERVE_FED_REQUESTS = 8
 SERVE_FED_TIMEOUT_S = 300
 
@@ -2713,8 +2732,8 @@ def phase_serve_fed(device, cfg, *, scfg_kw=None,
 
 
 def phase_serving_all(serve_cfg, smi):
-    """Phase 7: the serving plane, at full depth in this process, then at
-    SERVE_FED_LAYERS in two party processes."""
+    """Phase 7: the serving plane, at ``serve_cfg``'s depth in this
+    process, then at SERVE_FED_LAYERS in two party processes."""
     import dataclasses
     import gc
 
@@ -5016,6 +5035,9 @@ OPS_REPLAY_TIMEOUT_S = 3.0
 # tree takes about half a minute of the host's eight cores).
 OPS_SAMPLE = 1 << 16
 OPS_JOIN_TIMEOUT_S = 420
+# How long bob waits after his rounds for his pushes to be acknowledged:
+# a TLS push of the flagship tree and its one crc resend.
+OPS_SETTLE_S = 180.0
 
 
 def ops_schedule(seed):
@@ -5100,6 +5122,13 @@ def _ops_counts(metrics):
     return dict(faults=faults, sends=_series(metrics, _OPS_SERIES[1]),
                 retransmits=_series(metrics, _OPS_SERIES[2]),
                 crc_failures=_series(metrics, _OPS_SERIES[3]))
+
+
+def _cleanup_manager():
+    """This party's tracker of the data pushes it has on the wire."""
+    from rayfed_tpu_torch._private.global_context import get_global_context
+
+    return get_global_context().get_cleanup_manager()
 
 
 def _ops_program(party, addresses, device, cfg_kw, batch, seq, cert_dir,
@@ -5264,6 +5293,14 @@ def _ops_job(party, addresses, device, cfg_kw, batch, seq, cert_dir, seed,
             time.sleep(0.05)
         dead_wait = time.monotonic() - t
     reports = [trainers[n].report.remote() for n in names]
+    if party == other:
+        # His last round ends at its get's timeout (alice's push there is
+        # dropped), while his own push of that round may still be on the
+        # wire: the crc resend is counted when alice's NACK comes back.
+        # His counts are read once every push of his has resolved.
+        require(_cleanup_manager().wait_for_inflight(OPS_SETTLE_S),
+                f"{other}'s pushes were not all acknowledged "
+                f"{OPS_SETTLE_S:.0f} s after his last round")
     # Bob's last word rides the direction the cut leaves open: his fault
     # trace and counts, which alice holds the collector's view against.
     done = finish.party(other).remote(
@@ -5574,6 +5611,153 @@ def run_ops(smi):
             for k in BF16_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the sharded train step and sharded decoding on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 5
+SHARDED_NEW_TOKENS = 4
+MESH_NAMES = ["party", "data", "model"]
+
+
+def _steps_on(step_fn, params, opt, blocks):
+    """Steps over ``blocks``: losses, each step's ms (synchronized), the
+    flash launches counted from zero, and the peak memory above what was
+    allocated before (earlier trees stay resident)."""
+    import torch
+
+    from rayfed_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, ms = [], []
+    for blk in blocks:
+        t0 = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, blk[:, :-1], blk[:, 1:])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    return dict(params=params, losses=losses, step_ms=ms,
+                launches=dict(fa.LAUNCHES),
+                peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+
+def _compare_trees(got, want):
+    """(bitwise, largest absolute difference) of two plain trees."""
+    import torch
+
+    from rayfed_tpu_torch import tree_util
+
+    pairs = [(a.detach(), b.detach()) for a, b in zip(
+        tree_util.tree_flatten(got)[0], tree_util.tree_flatten(want)[0])]
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    return bitwise, diff
+
+
+def phase_sharded(cfg, *, batch, seq, smi, steps=SHARDED_STEPS, lr=1e-3,
+                  seed=PARTIES[0][1]):
+    """Phase 14: ``make_fed_train_step`` over a party x data x model
+    DeviceMesh of one rank (a one-process NCCL group on the card) against
+    the one-device step, from the same seed on the same batches. (a)
+    ``steps`` steps each: the losses and the params after them bitwise
+    equal (the same kernels on the same shapes in the same order: on one
+    rank every placement is the whole tensor and every collective is the
+    identity); (b) the same with ``shard_opt_state=True`` and
+    ``accum_steps=2`` against the one-device step with ``accum_steps=2``;
+    (c) each run's K1-K3 launches, the sharded equal to the one-device
+    ones; (d) step ms and peak memory of both; (e) greedy
+    ``make_generate_fn(mesh=)`` of a few tokens from the trained params
+    equal to the one-device tokens. Returns the sharded steps' launches."""
+    import torch
+    import torch.distributed as dist
+
+    from rayfed_tpu_torch import mesh as pm
+    from rayfed_tpu_torch.data import synthetic_lm_dataset
+    from rayfed_tpu_torch.models import decode
+    from rayfed_tpu_torch.parallel import sharding as shd
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    launches = dict.fromkeys(BF16_KERNELS, 0)
+    try:
+        mesh = pm.build_mesh(mesh_shape=[1, 1, 1], axis_names=MESH_NAMES)
+        print(f"[sharded] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+              f" over a {dist.get_backend()} group of "
+              f"{dist.get_world_size()}")
+        data = synthetic_lm_dataset(cfg.vocab, batch * steps * (seq + 1),
+                                    seq, seed=seed)
+        blocks = [torch.as_tensor(b, device="cuda").long()
+                  for b in data.batches(batch, epoch=0)]
+        require(len(blocks) == steps, f"{len(blocks)} batches, not {steps}")
+        for part, kw in (("a", {}),
+                         ("b", {"shard_opt_state": True, "accum_steps": 2})):
+            one = make_fed_train_step(cfg, "cuda", lr=lr, attn="flash",
+                                      **{k: v for k, v in kw.items()
+                                         if k == "accum_steps"})
+            sharded = make_fed_train_step(cfg, mesh, lr=lr, attn="flash",
+                                          **kw)
+            ref = _steps_on(one[1], *one[0](0), blocks)
+            run = _steps_on(sharded[1], *sharded[0](0), blocks)
+            bitwise, diff = _compare_trees(shd.gather_params(run["params"]),
+                                           ref["params"])
+            same_loss = run["losses"] == ref["losses"]
+            print(f"[sharded] ({part}) {kw or 'replicated AdamW'}: losses "
+                  f"{run['losses']} vs one device {ref['losses']}: "
+                  f"{'bitwise' if same_loss else 'differ'}; params after "
+                  f"{steps} steps {'bitwise' if bitwise else 'differ'} "
+                  f"(largest difference {diff:.3e})")
+            require(same_loss and bitwise,
+                    f"({part}) sharded step differs from the one-device "
+                    f"step: losses {run['losses']} vs {ref['losses']}, "
+                    f"largest param difference {diff:.3e}")
+            got = {k: run["launches"][k] for k in BF16_KERNELS}
+            want = {k: ref["launches"][k] for k in BF16_KERNELS}
+            require(got == want and all(got.values()),
+                    f"({part}) K1-K3 launches {got} vs one device {want}")
+            for k in BF16_KERNELS:
+                launches[k] += got[k]
+            med = statistics.median(run["step_ms"][1:])
+            ref_med = statistics.median(ref["step_ms"][1:])
+            print(f"[sharded] ({part}) launches {got} (one device {want}); "
+                  f"step median {med:.1f} ms vs one device {ref_med:.1f} ms "
+                  f"({(med / ref_med - 1) * 100:+.1f} %); peak memory above "
+                  f"resident {run['peak_bytes'] / 1e9:.2f} GB vs "
+                  f"{ref['peak_bytes'] / 1e9:.2f} GB; on {smi}")
+            trained = ref["params"]
+            del one, sharded, run, ref
+            torch.cuda.empty_cache()
+        prompt = blocks[0][:2, :64]
+        want = decode.make_generate_fn(
+            cfg, max_new_tokens=SHARDED_NEW_TOKENS)(trained, prompt)
+        got = decode.make_generate_fn(
+            cfg, max_new_tokens=SHARDED_NEW_TOKENS, mesh=mesh)(trained, prompt)
+        require(torch.equal(got, want),
+                f"(e) sharded greedy tokens {got[:, -SHARDED_NEW_TOKENS:]} "
+                f"vs one device {want[:, -SHARDED_NEW_TOKENS:]}")
+        print(f"[sharded] (e) greedy tokens, mesh and one device: "
+              f"{got[:, -SHARDED_NEW_TOKENS:].tolist()} (equal)")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def run_sharded(smi):
+    """Phase 14 at the flagship width, depth cut as phase 4's."""
+    print("[sharded] reduced " + json.dumps(
+        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
+    t = time.perf_counter()
+    launches = phase_sharded(_flagship_cfg(SMOKE_LAYERS),
+                             batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+                             smi=smi)
+    _phase_wall(14, t, smi)
+    return launches
+
+
 def _phase_wall(n, t0, smi):
     print(f"[phase {n}] {time.perf_counter() - t0:.1f} s on {smi}")
 
@@ -5610,6 +5794,16 @@ def main(argv):
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
         run_wide(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
+    if argv == ["--sharded-only"]:
+        # Phases 2 and 14 alone, in a fresh process (no kernel line).
+        t = time.perf_counter()
+        phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+        _phase_wall(2, t, smi)
+        run_sharded(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
@@ -5679,8 +5873,8 @@ def main(argv):
         return
     require(not argv, f"unknown arguments {argv}; the options are "
                       "--serving-only, --async-only, --family-only, "
-                      "--privacy-only, --dma-only, --wide-only and "
-                      "--ops-only")
+                      "--privacy-only, --dma-only, --wide-only, "
+                      "--ops-only and --sharded-only")
     t = time.perf_counter()
     phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
     _phase_wall(2, t, smi)
@@ -5742,8 +5936,9 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    phase_serving_all(dataclasses.replace(cfg, n_layers=FLAGSHIP["n_layers"]),
-                      smi)
+    print("[serve] reduced " + json.dumps(
+        {"n_layers": [FLAGSHIP["n_layers"], SERVE_LAYERS]}))
+    phase_serving_all(dataclasses.replace(cfg, n_layers=SERVE_LAYERS), smi)
     _phase_wall(7, t, smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5785,6 +5980,11 @@ def main(argv):
     torch.cuda.empty_cache()
     # Phase 13's parties' steps (bf16, D = 128).
     for kern_name, n in run_ops(smi).items():
+        launches[kern_name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Phase 14's sharded steps (bf16, D = 128), (a) and (b).
+    for kern_name, n in run_sharded(smi).items():
         launches[kern_name] += n
     print(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
 

@@ -30,6 +30,7 @@ a producer-task failure is distinguished from a transport failure by the
 
 from __future__ import annotations
 
+import concurrent.futures
 import logging
 import os
 import signal
@@ -124,6 +125,17 @@ class CleanupManager:
         send_future.add_done_callback(
             lambda f, _msg=msg: self._discharge_data_send(f, _msg)
         )
+
+    def wait_for_inflight(self, timeout: Optional[float] = None) -> bool:
+        """Block until every data send tracked now has resolved
+        (acknowledged or failed), at most ``timeout`` seconds. Counters a
+        send moves on its way, such as a crc resend after the peer's
+        NACK, are final once it resolved. False if some were still
+        pending at the timeout."""
+        with self._inflight_lock:
+            pending = list(self._inflight)
+        _, not_done = concurrent.futures.wait(pending, timeout=timeout)
+        return not not_done
 
     def _discharge_data_send(self, f, msg) -> None:
         """At-most-once per send (callback and stop() both call this; the

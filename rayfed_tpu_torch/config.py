@@ -470,8 +470,8 @@ GrpcCrossSiloMessageConfig = TcpCrossSiloMessageConfig
 class PartyMeshConfig:
     """Device topology for one party (no reference equivalent). In this
     package a party runs on one card (``mesh.resolve_party_device``): a
-    mesh over more than one device comes with the sharded train step
-    (ROADMAP Queue 1 item 8), and ``fed.init`` refuses it until then.
+    mesh over more than one device is a multi-process party (ROADMAP
+    Queue 1 item 17), and ``fed.init`` refuses it until then.
 
     Attributes:
         device_ids: CUDA device indices (``cuda:<i>``) forming this

@@ -33,6 +33,15 @@ step, where the JAX package ``vmap``s a one-row forward). Sampling draws
 package splits it, so a sampled decode gives the JAX package's tokens
 for the same key wherever the logits agree. Greedy decoding, beam search
 and all logits match it.
+
+With ``mesh=`` (a DeviceMesh from ``mesh.build_mesh``) decoding runs
+sharded, as the JAX package's does: params are DTensors placed by the
+partition rules (``parallel/sharding.py``), the prompt's batch shards over
+``party`` x ``data``, and the K/V cache (:func:`cache_spec`) keeps its
+batch there and its heads over ``model``, the layout the rules give the
+attention's activations. Each rank writes and reads its own cache shard;
+each step's logits are gathered whole, so sampling, beam bookkeeping and
+speculative acceptance run on every rank alike, on plain tensors.
 """
 
 from __future__ import annotations
@@ -48,17 +57,94 @@ from rayfed_tpu_torch.utils import DeviceLike, resolve_device
 
 Cache = dict
 
-_MESH_LATER = (
-    "sharded decoding (mesh=) comes with the sharded train step, ROADMAP "
-    "Queue 1 item 8; rayfed_tpu_torch decodes on one device"
-)
+def cache_spec(mesh, party_axis: Optional[str] = "party",
+               data_axis: Optional[str] = "data",
+               model_axis: Optional[str] = "model",
+               n_heads: Optional[int] = None) -> tuple:
+    """Spec of the stacked (L, B, T, H, Dh) K/V cache: batch over party x
+    data, heads over the tensor-parallel dim, the layout the Megatron
+    rules give the attention activations. With ``n_heads`` the head dim
+    replicates when it does not divide the model dim (the JAX package's
+    rule; the port's sharded decode needs it to divide,
+    :func:`check_decodable`)."""
+    from rayfed_tpu_torch.parallel import sharding as shd
+
+    batch = shd.batch_spec(mesh, party_axis, data_axis)[0]
+    names = tuple(mesh.mesh_dim_names or ())
+    heads = model_axis if model_axis in names else None
+    if (heads is not None and n_heads is not None
+            and n_heads % shd.mesh_size(mesh, model_axis) != 0):
+        heads = None
+    return (None, batch, None, heads, None)
 
 
-def check_decodable(cfg: tfm.TransformerConfig, mesh=None) -> None:
-    """Raise for what cached decoding does not support yet: a ``mesh``
-    (item 8). An MoE config decodes through ``ffn_apply``'s MoE lane."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_LATER)
+def check_decodable(cfg: tfm.TransformerConfig, mesh=None,
+                    model_axis: Optional[str] = "model") -> None:
+    """Raise for what cached decoding does not take. With a ``mesh``: its
+    dims must be placeable (``sharding.check_mesh``) and ``n_heads`` must
+    divide the model dim, so each rank's cache holds its own heads. An MoE
+    config decodes through ``ffn_apply``'s MoE lane."""
+    if mesh is None:
+        return
+    from rayfed_tpu_torch.parallel import sharding as shd
+
+    shd.check_mesh(mesh)
+    tp = shd.mesh_size(mesh, model_axis)
+    if cfg.n_heads % tp:
+        raise ValueError(
+            f"sharded decoding needs n_heads ({cfg.n_heads}) divisible by "
+            f"the {model_axis!r} mesh dim ({tp})")
+
+
+def _cache_batch_placements(cache_tensor) -> list:
+    """The placements of a (B, S) token block sharded as the cache's batch
+    dim (1)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if isinstance(p, Shard) and p.dim == 1 else Replicate()
+            for p in cache_tensor.placements]
+
+
+def _batch_block(cache_tensor):
+    """(first row, rows) of this rank's block of the cache's batch dim."""
+    from torch.distributed.tensor import Shard
+
+    mesh = cache_tensor.device_mesh
+    coord = mesh.get_coordinate()
+    idx = 0
+    for i, p in enumerate(cache_tensor.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            idx = idx * mesh.size(i) + coord[i]
+    rows = cache_tensor.to_local().shape[1]
+    return idx * rows, rows
+
+
+def _tile_rows(c, k: int):
+    """``c.repeat_interleave(k, dim=1)``. On a DTensor cache each batch
+    row's ``k`` copies stay in its rank's block, so each rank tiles its
+    own rows."""
+    if tfm.is_dtensor(c):
+        return tfm.like_dtensor(c.to_local().repeat_interleave(k, dim=1), c)
+    return c.repeat_interleave(k, dim=1)
+
+
+def _take_rows(c, rows: torch.Tensor):
+    """``c.index_select(1, rows)``. A beam's parent is a beam of the same
+    batch row, so on a DTensor cache every row a rank needs is its own."""
+    if not tfm.is_dtensor(c):
+        return c.index_select(1, rows)
+    lo, n = _batch_block(c)
+    mine = rows[lo:lo + n] - lo
+    if bool(((mine < 0) | (mine >= n)).any()):
+        raise ValueError("beam reordering crossed a rank's batch rows")
+    return tfm.like_dtensor(c.to_local().index_select(1, mine), c)
+
+
+def _place_cache(cache: Cache, mesh, spec) -> Cache:
+    from rayfed_tpu_torch.parallel import sharding as shd
+
+    pl = shd.placements_for(spec, mesh)
+    return {n: shd.place(c, mesh, pl) for n, c in cache.items()}
 
 
 def init_cache(cfg: tfm.TransformerConfig, batch: int, max_len: int,
@@ -98,9 +184,9 @@ def forward_with_cache(params, tokens, cache: Cache, offset,
     row's ``offset + S`` keep whatever they held; the causal mask
     (q_pos >= k_pos) never attends to them.
     """
-    check_decodable(cfg)
     b, s = tokens.shape
     ck, cv = cache["k"], cache["v"]
+    sharded = tfm.is_dtensor(ck)
     max_len = ck.shape[2]
     dev = ck.device
     # An out-of-range write would land in another position (or raise deep
@@ -112,6 +198,8 @@ def forward_with_cache(params, tokens, cache: Cache, offset,
     host = np.asarray(offset, np.int64)
     per_row = host.ndim == 1
     if per_row:
+        if sharded:
+            raise ValueError("per-row offsets need a cache on one device")
         if host.shape != (b,):
             raise ValueError(
                 f"per-row offsets {host.shape} do not match batch {b}")
@@ -128,24 +216,33 @@ def forward_with_cache(params, tokens, cache: Cache, offset,
         if off + s > max_len:
             raise ValueError(
                 f"cache overflow: offset {off} + block {s} > {max_len}")
-        positions = (off + torch.arange(s, device=dev)).expand(b, s)
+        if sharded and not tfm.is_dtensor(tokens):
+            from rayfed_tpu_torch.parallel import sharding as shd
+
+            tokens = shd.place(tokens, ck.device_mesh,
+                               _cache_batch_placements(ck))
+        positions = tfm.positions_like(tokens, off)
     cdt = cfg.compute_dtype
-    x = params["embed"][tokens].to(cdt)
+    x = tfm.embed_tokens(params["embed"], tokens).to(cdt)
     stacked = params["layers"]
+    # Each rank writes its own batch rows and heads of the cache.
+    lk, lv = (ck.to_local(), cv.to_local()) if sharded else (ck, cv)
     for i in range(cfg.n_layers):
         layer = tfm.stacked_layer(stacked, i)
         q, k, v = tfm.qkv_proj(x, layer, positions, cfg)
+        kl, vl = (k.to_local(), v.to_local()) if sharded else (k, v)
         if per_row:
-            ck[i][rows, positions] = k.to(ck.dtype)
-            cv[i][rows, positions] = v.to(cv.dtype)
+            lk[i][rows, positions] = kl.to(lk.dtype)
+            lv[i][rows, positions] = vl.to(lv.dtype)
         else:
-            ck[i, :, off:off + s] = k.to(ck.dtype)
-            cv[i, :, off:off + s] = v.to(cv.dtype)
+            lk[i, :, off:off + s] = kl.to(lk.dtype)
+            lv[i, :, off:off + s] = vl.to(lv.dtype)
         o = tfm.causal_attention(q, ck[i], cv[i], q_offset=off)
         wo = layer["wo"].to(cdt)
-        x = x + o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+        x = x + tfm.constrain_like(o.reshape(b, s, -1)
+                                   @ wo.reshape(-1, wo.shape[-1]), x)
         hmlp = tfm.rms_norm(x, layer["ln2"])
-        x = x + tfm.ffn_apply(hmlp, layer, cfg)
+        x = x + tfm.constrain_like(tfm.ffn_apply(hmlp, layer, cfg), x)
     x = tfm.rms_norm(x, params["ln_f"])
     logits = (x @ params["lm_head"].to(cdt)).float()
     return logits, cache
@@ -183,6 +280,49 @@ def _key(rng) -> threefry.Key:
     return threefry.as_key(rng)
 
 
+def _full(x):
+    """A DTensor's full value (plain, on every rank); anything else as
+    it is."""
+    return x.full_tensor() if tfm.is_dtensor(x) else x
+
+
+def _sharded_dispatch(fn, mesh, party_axis, data_axis,
+                      n_param_trees: int = 1):
+    """``fn(*param_trees, prompt, *extras)`` with each leading param tree
+    placed by the Megatron rules and the prompt over party x data (the JAX
+    package's ``_sharded_jit``). The placements are keyed per tree (its
+    key paths, shapes and dtypes), so a later call with another tree (a
+    LoRA-merged one against the base) gets its own placements. Shared by
+    the sharded generate, beam search and speculative decoding."""
+    from rayfed_tpu_torch.parallel import sharding as shd
+
+    tfm.register_dtensor_rules()
+    prompt_placements = shd.placements_for(
+        shd.batch_spec(mesh, party_axis, data_axis), mesh)
+    placements_by_tree = {}
+    dev = shd.mesh_device(mesh)
+
+    def tree_key(tree):
+        return tuple((path, tuple(x.shape), x.dtype)
+                     for path, x in shd.leaf_paths(tree))
+
+    def place_tree(tree):
+        key = tree_key(tree)
+        placements = placements_by_tree.get(key)
+        if placements is None:
+            placements = placements_by_tree[key] = shd.placements_by_path(
+                mesh, tree)
+        return shd.place_tree(mesh, tree, placements)
+
+    def dispatch(*args, **kwargs):
+        trees, (prompt, *rest) = args[:n_param_trees], args[n_param_trees:]
+        prompt = shd.place(_as_tokens(_full(prompt), dev), mesh,
+                           prompt_placements)
+        return fn(*(place_tree(t) for t in trees), prompt, *rest, **kwargs)
+
+    return dispatch
+
+
 def make_generate_fn(
     cfg: tfm.TransformerConfig,
     *,
@@ -192,6 +332,8 @@ def make_generate_fn(
     top_p: Optional[float] = None,
     eos_id: Optional[int] = None,
     mesh=None,
+    party_axis: Optional[str] = "party",
+    data_axis: Optional[str] = "data",
 ):
     """Build ``generate(params, prompt, rng=None) -> (B, S+max_new)``.
 
@@ -206,7 +348,8 @@ def make_generate_fn(
     output still has shape (B, S+max_new), terminated rows are
     EOS-padded.
 
-    ``mesh`` raises (ROADMAP Queue 1 item 8).
+    With ``mesh`` decoding runs sharded (module docstring): the result is
+    a plain tensor, the same on every rank.
     """
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
@@ -223,6 +366,8 @@ def make_generate_fn(
             "ignored — set temperature > 0"
         )
     check_decodable(cfg, mesh)
+    spec = None if mesh is None else cache_spec(
+        mesh, party_axis, data_axis, n_heads=cfg.n_heads)
 
     inv_t = _reciprocal(temperature)
 
@@ -253,24 +398,28 @@ def make_generate_fn(
         # The cache only ever holds tokens that later tokens attend to, so
         # the final sampled token needs no slot (and no forward pass).
         cache = init_cache(cfg, b, s + max_new_tokens - 1, device=dev)
+        if spec is not None:
+            cache = _place_cache(cache, mesh, spec)
         last_logits, cache = prefill(params, prompt, cache, cfg)
         key, sub = threefry.split(key)
-        tok = sample(last_logits, sub).to(prompt.dtype)
+        tok = sample(_full(last_logits), sub).to(prompt.dtype)
         done = (tok == eos_id) if eos_id is not None else None
         out = [tok]
         for pos in range(s, s + max_new_tokens - 1):
             logits, cache = forward_with_cache(
                 params, tok[:, None], cache, pos, cfg)
             key, sub = threefry.split(key)
-            nxt = sample(logits[:, -1], sub).to(prompt.dtype)
+            nxt = sample(_full(logits[:, -1]), sub).to(prompt.dtype)
             if eos_id is not None:
                 nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
                 done = done | (nxt == eos_id)
             tok = nxt
             out.append(tok)
-        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+        return torch.cat([_full(prompt), torch.stack(out, dim=1)], dim=1)
 
-    return generate
+    if mesh is None:
+        return generate
+    return _sharded_dispatch(generate, mesh, party_axis, data_axis)
 
 
 def make_beam_search_fn(
@@ -280,6 +429,8 @@ def make_beam_search_fn(
     n_beams: int,
     eos_id: Optional[int] = None,
     mesh=None,
+    party_axis: Optional[str] = "party",
+    data_axis: Optional[str] = "data",
 ):
     """Build ``beam_search(params, prompt) -> (seqs, scores)``.
 
@@ -292,7 +443,9 @@ def make_beam_search_fn(
     Prefill runs once at batch B and the cache is tiled to B*n_beams rows
     (row b*K + j = beam j of batch b); each step's candidate expansion is
     one (B, n_beams*vocab) ``topk`` and beam reordering is an
-    ``index_select`` over the cache's batch dim. ``mesh`` raises (ROADMAP Queue 1 item 8).
+    ``index_select`` over the cache's batch dim. With ``mesh`` the search
+    runs sharded as :func:`make_generate_fn` does; a beam's parent is a
+    beam of the same batch row, so each rank reorders its own cache rows.
     """
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
@@ -301,6 +454,8 @@ def make_beam_search_fn(
     if eos_id is not None and not 0 <= eos_id < cfg.vocab:
         raise ValueError(f"eos_id must be in [0, {cfg.vocab}), got {eos_id}")
     check_decodable(cfg, mesh)
+    spec = None if mesh is None else cache_spec(
+        mesh, party_axis, data_axis, n_heads=cfg.n_heads)
     k_beams = n_beams
     vocab = cfg.vocab
 
@@ -310,8 +465,10 @@ def make_beam_search_fn(
         prompt = _as_tokens(prompt, dev)
         b, s = prompt.shape
         cache = init_cache(cfg, b, s + max_new_tokens - 1, device=dev)
+        if spec is not None:
+            cache = _place_cache(cache, mesh, spec)
         last_logits, cache = prefill(params, prompt, cache, cfg)
-        logp0 = torch.log_softmax(last_logits.float(), dim=-1)
+        logp0 = torch.log_softmax(_full(last_logits).float(), dim=-1)
 
         # First expansion: top-K tokens of the prompt's next-token
         # distribution seed the K beams. With K > vocab the surplus beams
@@ -326,8 +483,7 @@ def make_beam_search_fn(
             1).to(prompt.dtype)
         finished = (first == eos_id) if eos_id is not None else None
 
-        cache = {n: c.repeat_interleave(k_beams, dim=1)
-                 for n, c in cache.items()}
+        cache = {n: _tile_rows(c, k_beams) for n, c in cache.items()}
         seqs = torch.zeros((b, k_beams, max_new_tokens), dtype=prompt.dtype,
                            device=dev)
         seqs[:, :, 0] = first
@@ -338,8 +494,8 @@ def make_beam_search_fn(
         for t in range(max_new_tokens - 1):
             logits, cache = forward_with_cache(
                 params, tok.reshape(b * k_beams, 1), cache, s + t, cfg)
-            logp = torch.log_softmax(logits[:, -1].float(), dim=-1).reshape(
-                b, k_beams, vocab)
+            logp = torch.log_softmax(_full(logits[:, -1]).float(),
+                                     dim=-1).reshape(b, k_beams, vocab)
             if eos_id is not None:
                 # A finished beam survives UNCHANGED: its only candidate
                 # is "emit EOS again at zero cost".
@@ -356,9 +512,11 @@ def make_beam_search_fn(
                 finished = finished | (nxt == eos_id)
             rows = (torch.arange(b, device=dev)[:, None] * k_beams
                     + parent).reshape(b * k_beams)
-            cache = {n: c.index_select(1, rows) for n, c in cache.items()}
+            cache = {n: _take_rows(c, rows) for n, c in cache.items()}
             tok = nxt
-        prompts = prompt[:, None, :].expand(b, k_beams, s)
+        prompts = _full(prompt)[:, None, :].expand(b, k_beams, s)
         return torch.cat([prompts, seqs], dim=2), scores
 
-    return beam_search
+    if mesh is None:
+        return beam_search
+    return _sharded_dispatch(beam_search, mesh, party_axis, data_axis)

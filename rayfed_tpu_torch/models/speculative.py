@@ -48,8 +48,12 @@ from rayfed_tpu_torch.models import transformer as tfm
 from rayfed_tpu_torch.privacy import threefry
 from rayfed_tpu_torch.models.decode import (
     _as_tokens,
+    _full,
     _key,
+    _place_cache,
     _reciprocal,
+    _sharded_dispatch,
+    cache_spec,
     check_decodable,
     forward_with_cache,
     init_cache,
@@ -67,6 +71,9 @@ def make_speculative_generate_fn(
     eos_id: Optional[int] = None,
     return_stats: bool = False,
     mesh=None,
+    party_axis: Optional[str] = "party",
+    data_axis: Optional[str] = "data",
+    model_axis: Optional[str] = "model",
 ):
     """Build ``generate(params, draft_params, prompt, rng=None) -> (B,
     S+max_new)``.
@@ -79,7 +86,14 @@ def make_speculative_generate_fn(
     Prompt length must be at least ``k_draft + 1``. With ``temperature >
     0``, ``rng`` (a threefry key or an int seed) is required. With
     ``return_stats=True`` the result is ``(tokens, n_rounds)``, the
-    number of target forwards. ``mesh`` raises (ROADMAP Queue 1 item 8).
+    number of target forwards.
+
+    With ``mesh``, both models run sharded as
+    :func:`~rayfed_tpu_torch.models.decode.make_generate_fn` does: params
+    of target and draft placed by the rules, the prompt's batch over
+    party x data, each model's K/V cache by its own
+    :func:`~rayfed_tpu_torch.models.decode.cache_spec`; both head counts
+    must divide the model dim.
     """
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
@@ -94,8 +108,11 @@ def make_speculative_generate_fn(
         raise ValueError(f"temperature must be >= 0, got {temperature}")
     if eos_id is not None and not 0 <= eos_id < cfg.vocab:
         raise ValueError(f"eos_id must be in [0, {cfg.vocab}), got {eos_id}")
-    check_decodable(cfg, mesh)
-    check_decodable(draft_cfg)
+    check_decodable(cfg, mesh, model_axis)
+    check_decodable(draft_cfg, mesh, model_axis)
+    specs = None if mesh is None else tuple(
+        cache_spec(mesh, party_axis, data_axis, model_axis, n_heads=c.n_heads)
+        for c in (cfg, draft_cfg))
     w = k_draft + 1  # verification window
     sampled = temperature > 0.0
     inv_t = _reciprocal(temperature)
@@ -122,13 +139,20 @@ def make_speculative_generate_fn(
         # are never returned; cache slots past it are never attended).
         cap = total + k_draft + 1
         buf = torch.zeros((b, cap), dtype=prompt.dtype, device=dev)
-        buf[:, :s] = prompt
+        buf[:, :s] = _full(prompt)
         t_cache = init_cache(cfg, b, cap, device=dev)
         d_cache = init_cache(draft_cfg, b, cap, device=dev)
+        if specs is not None:
+            t_cache = _place_cache(t_cache, mesh, specs[0])
+            d_cache = _place_cache(d_cache, mesh, specs[1])
         prefill(params, prompt, t_cache, cfg)
         prefill(draft_params, prompt, d_cache, draft_cfg)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         pos, rounds = s, 0
+
+        def logits_of(*args):
+            # Whole on every rank (a sharded forward's are vocab-sharded).
+            return _full(forward_with_cache(*args)[0])
 
         def pick(logits, k):
             if not sampled:
@@ -142,15 +166,14 @@ def make_speculative_generate_fn(
             kr = threefry.fold_in(key, pos) if sampled else None
             # Draft: the window pass re-validates its cache and yields
             # q_1; k_draft-1 single-token steps yield q_2..q_k.
-            d_logits, _ = forward_with_cache(
-                draft_params, win, d_cache, pos - w, draft_cfg)
+            d_logits = logits_of(draft_params, win, d_cache, pos - w,
+                                 draft_cfg)
             qs = [pick(d_logits[:, -1],
                        threefry.fold_in(kr, 1000) if sampled else None)]
             d_rows = [d_logits[:, -1]]
             for i in range(k_draft - 1):
-                lg, _ = forward_with_cache(
-                    draft_params, qs[-1][:, None], d_cache, pos + i,
-                    draft_cfg)
+                lg = logits_of(draft_params, qs[-1][:, None], d_cache,
+                               pos + i, draft_cfg)
                 qs.append(pick(lg[:, -1], threefry.fold_in(kr, 1001 + i)
                                if sampled else None))
                 d_rows.append(lg[:, -1])
@@ -158,8 +181,8 @@ def make_speculative_generate_fn(
 
             # Target: one forward over [window, q_1..q_k]; its logits at
             # indices w-1..w+k-1 cover positions pos..pos+k.
-            t_logits, _ = forward_with_cache(
-                params, torch.cat([win, q], dim=1), t_cache, pos - w, cfg)
+            t_logits = logits_of(params, torch.cat([win, q], dim=1), t_cache,
+                                 pos - w, cfg)
             t_stack = t_logits[:, w - 1:]                      # (B, k+1, V)
 
             if not sampled:
@@ -224,4 +247,7 @@ def make_speculative_generate_fn(
         out = buf[:, :total]
         return (out, rounds) if return_stats else out
 
-    return generate
+    if mesh is None:
+        return generate
+    return _sharded_dispatch(generate, mesh, party_axis, data_axis,
+                             n_param_trees=2)

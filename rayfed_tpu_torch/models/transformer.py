@@ -28,6 +28,7 @@ softmax/logsumexp accumulation in f32; attention is pluggable through
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
@@ -162,6 +163,89 @@ def params_to_numpy(params: Params):
 
 
 # ---------------------------------------------------------------------------
+# DTensor (a party x data x model mesh: parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+
+def is_dtensor(x) -> bool:
+    """True for a DTensor; never imports DTensor (a process that made one
+    has imported it)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def like_dtensor(local, like):
+    """The local tensor ``local`` as a DTensor placed as ``like``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False)
+
+
+def constrain_like(t, like):
+    """``t`` placed as the activations ``like`` (the JAX package's
+    ``with_sharding_constraint``): a row-parallel product, partial over the
+    model dim, is all-reduced here, so the residual stream keeps its
+    batch-sharded, model-replicated layout. Plain tensors pass."""
+    if is_dtensor(t) and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
+def embed_tokens(table, tokens):
+    """``table[tokens]``. Sharded: each rank looks its local token rows up
+    in its full (replicated) table; the table's gradient is then partial
+    over the batch's mesh dims."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not all(isinstance(p, Replicate) for p in table.placements):
+        raise ValueError(f"the embedding table must be replicated, got "
+                         f"{table.placements}")
+    grad = [Partial() if isinstance(p, Shard) else Replicate()
+            for p in tokens.placements]
+    rows = table.to_local(grad_placements=grad)[tokens.to_local()]
+    return DTensor.from_local(rows, tokens.device_mesh, tokens.placements,
+                              run_check=False)
+
+
+def positions_like(tokens, offset=0):
+    """Positions ``offset + arange(S)`` of every row of a (B, S) token
+    block, placed as the tokens are."""
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = (offset + torch.arange(s, device=dev)).expand(b, s)
+    if is_dtensor(tokens):
+        from rayfed_tpu_torch.parallel.sharding import place
+
+        positions = place(positions, tokens.device_mesh, tokens.placements)
+    return positions
+
+
+def register_dtensor_rules() -> None:
+    """The DTensor rules of the model's custom ops: the flash ops
+    (``ops/flash_attention.register_dtensor_rules``) and ``attn_out``,
+    which passes any placement through. Idempotent."""
+    global _attn_out_rule
+    flash_attention.register_dtensor_rules()
+    if _attn_out_rule:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.rayfed_tpu_torch.attn_out.default)
+    def _rule(o):
+        return [([p], [p]) for p in
+                [Replicate()] + [Shard(d) for d in range(o.ndim)]]
+
+    _attn_out_rule = True
+
+
+_attn_out_rule = False
+
+
+# ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
@@ -174,7 +258,12 @@ def rms_norm(x, scale, eps: float = 1e-6):
 
 
 def rope(q, k, positions, theta: float):
-    """Rotary position embedding on (B, S, H, Dh) q/k."""
+    """Rotary position embedding on (B, S, H, Dh) q/k. DTensor q/k (and
+    positions placed as their batch) rotate on each rank's shards."""
+    if is_dtensor(q):
+        qr, kr = rope(q.to_local(), k.to_local(), positions.to_local(),
+                      theta)
+        return like_dtensor(qr, q), like_dtensor(kr, k)
     dh = q.shape[-1]
     half = dh // 2
     freqs = theta ** (
@@ -199,8 +288,14 @@ def causal_attention(q, k, v, q_offset=None):
     where this shard's queries start at a global offset). A ``(B,)``
     tensor gives each batch row its own offset (the serving pool's cached
     decode, where every row sits at its own position); the mask is then
-    (B, 1, Sq, Sk).
+    (B, 1, Sq, Sk). DTensor q/k/v attend on each rank's batch rows and
+    heads (a sharded sequence raises: ROADMAP Queue 1 item 13b).
     """
+    if is_dtensor(q):
+        # Exact per batch row and head: each rank attends on its shards.
+        flash_attention.refuse_sharded_sequence(q, k, v)
+        return like_dtensor(causal_attention(
+            q.to_local(), k.to_local(), v.to_local(), q_offset=q_offset), q)
     sq, sk, dh = q.shape[1], k.shape[1], q.shape[-1]
     scale = dh**-0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -264,9 +359,10 @@ def layer_fn(x, layer: Params, positions, cfg: TransformerConfig,
     q, k, v = qkv_proj(x, layer, positions, cfg)
     o = attn_fn(q, k, v)
     wo = layer["wo"].to(cdt)
-    x = x + o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    x = x + constrain_like(o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1]),
+                           x)
     hmlp = rms_norm(x, layer["ln2"])
-    return x + ffn_apply(hmlp, layer, cfg)
+    return x + constrain_like(ffn_apply(hmlp, layer, cfg), x)
 
 
 @torch.library.custom_op("rayfed_tpu_torch::attn_out", mutates_args=())
@@ -277,6 +373,7 @@ def attn_out(o: torch.Tensor) -> torch.Tensor:
 
 
 attn_out.register_autograd(lambda ctx, grad: grad)
+attn_out.register_fake(lambda o: torch.empty_like(o))
 
 
 def _named_attention(attn_fn: AttnFn) -> AttnFn:
@@ -341,10 +438,9 @@ def hidden_states(params: Params, tokens, cfg: TransformerConfig,
     residual, so its backward does run the forward kernel again.
     """
     check_remat(remat)
-    b, s = tokens.shape
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = params["embed"][tokens].to(cfg.compute_dtype)
+        positions = positions_like(tokens)
+    x = embed_tokens(params["embed"], tokens).to(cfg.compute_dtype)
     stacked = params["layers"]
     context_fn = noop_context_fn
     if remat == "attn":
@@ -369,10 +465,76 @@ def forward(params: Params, tokens, cfg: TransformerConfig,
 
 
 def _ce_sum(x, w, targets):
+    if is_dtensor(x):
+        return _ce_sum_sharded(x, w, targets)
     logits = (x @ w).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return (logz - gold).sum()
+
+
+def _sum_over_mesh_dim(t, mesh, dim: int):
+    """The sum of ``t`` over the ranks of mesh dim ``dim``, for a result
+    every rank of it then uses alike: the gradient passes back unsummed."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    placements = [Replicate()] * mesh.ndim
+    partial = list(placements)
+    partial[dim] = Partial()
+    return DTensor.from_local(t, mesh, partial, run_check=False).redistribute(
+        mesh, placements).to_local()
+
+
+def _ce_sum_sharded(x, w, targets):
+    """``_ce_sum`` on DTensors: x (B, c, d) and targets (B, c) with their
+    batch over the data dims, ``w`` = lm_head (d, V). With the vocab
+    sharded over a mesh dim it is a vocab-parallel cross entropy: each
+    rank's logits cover its V/tp columns; the max and the sum of
+    exponentials are reduced over that dim, and the target's logit comes
+    from the rank that owns it. Returns the sum over the batch as a
+    DTensor partial over the data dims."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    # Mesh dims of size 1 shard nothing: there the head is the plain one.
+    vocab_dims = [i for i, p in enumerate(w.placements)
+                  if isinstance(p, Shard) and p.dim == w.ndim - 1
+                  and mesh.size(i) > 1]
+    if any(not isinstance(p, Replicate) and mesh.size(i) > 1
+           for i, p in enumerate(w.placements)
+           if i not in vocab_dims) or len(vocab_dims) > 1:
+        raise ValueError(f"lm_head must shard its vocab over at most one "
+                         f"mesh dim, got {w.placements}")
+    # Each vocab shard's logits give x a partial gradient, and each batch
+    # shard's rows give w one.
+    xl = x.to_local(grad_placements=[
+        Partial() if i in vocab_dims else p
+        for i, p in enumerate(x.placements)])
+    wl = w.to_local(grad_placements=[
+        Partial() if isinstance(xp, Shard) else wp
+        for xp, wp in zip(x.placements, w.placements)])
+    tl = targets.to_local()
+    if not vocab_dims:
+        local = _ce_sum(xl, wl, tl)
+    else:
+        (dim,) = vocab_dims
+        logits = (xl @ wl).float()
+        m = logits.detach().amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(dim))
+        sumexp = _sum_over_mesh_dim(
+            torch.exp(logits - m[..., None]).sum(dim=-1), mesh, dim)
+        width = logits.shape[-1]
+        idx = tl.long() - mesh.get_local_rank(dim) * width
+        owned = (idx >= 0) & (idx < width)
+        gold = torch.gather(logits, -1, idx.clamp(0, width - 1)[..., None])
+        gold = _sum_over_mesh_dim(
+            torch.where(owned, gold[..., 0], 0.0), mesh, dim)
+        local = (torch.log(sumexp) + m - gold).sum()
+    return DTensor.from_local(
+        local, mesh,
+        [Partial() if isinstance(p, Shard) else Replicate()
+         for p in x.placements], run_check=False)
 
 
 def lm_loss_pair(params: Params, inputs, targets, cfg: TransformerConfig,
@@ -385,18 +547,24 @@ def lm_loss_pair(params: Params, inputs, targets, cfg: TransformerConfig,
     ``loss_chunk`` evaluates the vocab head + CE in checkpointed chunks of
     that many sequence positions, so the full (B, S, vocab) f32 logits
     never materialize — at 32k vocab they dominate step memory.
+
+    On DTensors (params placed by ``parallel/sharding.py``, inputs and
+    targets by its ``batch_spec``) the loss is a DTensor, partial over
+    the batch's mesh dims, and the head + CE is vocab-parallel.
     """
     x = hidden_states(params, inputs, cfg, attn_fn, remat=remat)
     w = params["lm_head"].to(cfg.compute_dtype)
     b, s, _ = x.shape
     if not loss_chunk or s % loss_chunk:
         return _ce_sum(x, w, targets) / (b * s)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = None
     for c in range(0, s, loss_chunk):
-        total = total + checkpoint(
+        part = checkpoint(
             _ce_sum, x[:, c:c + loss_chunk], w, targets[:, c:c + loss_chunk],
             use_reentrant=False,
         )
+        # The first chunk's sum as it is: 0 + x is x for a sum of losses.
+        total = part if total is None else total + part
     return total / (b * s)
 
 

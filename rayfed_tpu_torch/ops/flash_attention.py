@@ -468,6 +468,31 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_fwd_raw(q, k, v, block_q, block_k, q_offset=q_offset)
 
 
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, block_q, block_k, q_offset):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, sq, h), dtype=torch.float32))
+
+
+@torch.library.custom_op("rayfed_tpu_torch::flash_bwd", mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 block_q: int, block_k: int,
+                 q_offset: int) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward of :func:`flash_fwd_op`, (dq, dk, dv), as an operator
+    of its own, so that DTensor runs it on each rank's shards by the same
+    rule as the forward."""
+    return _flash_bwd_raw(q, k, v, o, lse, do, block_q, block_k,
+                          q_offset=q_offset)
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, o, lse, do, block_q, block_k, q_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def _flash_fwd_setup(ctx, inputs, output):
     q, k, v, block_q, block_k, q_offset = inputs
     out, lse = output
@@ -479,13 +504,61 @@ def _flash_fwd_setup(ctx, inputs, output):
 def _flash_fwd_backward(ctx, do, _dlse):
     q, k, v, out, lse = ctx.saved_tensors
     block_q, block_k, q_offset = ctx.blocks
-    dq, dk, dv = _flash_bwd_raw(q, k, v, out, lse, do.contiguous(),
-                                block_q, block_k, q_offset=q_offset)
+    dq, dk, dv = flash_bwd_op(q, k, v, out, lse, do.contiguous(),
+                              block_q, block_k, q_offset)
     return dq, dk, dv, None, None, None
 
 
 flash_fwd_op.register_autograd(_flash_fwd_backward,
                                setup_context=_flash_fwd_setup)
+
+
+# ---------------------------------------------------------------------------
+# DTensor: the flash ops on each rank's shards
+# ---------------------------------------------------------------------------
+
+_SEQ_LATER = (
+    "flash attention over a sharded sequence dim is ring or Ulysses "
+    "attention, ROADMAP Queue 1 item 13b"
+)
+_dtensor_rules_registered = False
+
+
+def refuse_sharded_sequence(*specs) -> None:
+    """Raise for a (B, S, H, D) operand whose sequence dim (1) is sharded:
+    a local kernel cannot see the other ranks' keys."""
+    from torch.distributed.tensor import Shard
+
+    for spec in specs:
+        if any(isinstance(p, Shard) and p.dim == 1 for p in spec.placements):
+            raise NotImplementedError(_SEQ_LATER)
+
+
+def register_dtensor_rules() -> None:
+    """Teach DTensor the flash ops: batch (``Shard(0)``) and heads
+    (``Shard(2)``, of q, k, v, O, dO, dq, dk, dv and of the (B, S, H) lse)
+    pass through, so the kernels (or, on the CPU, their plain versions)
+    run on each rank's local batch rows and heads; a sharded sequence
+    raises (item 13b). Called by the sharded entry points; idempotent."""
+    global _dtensor_rules_registered
+    if _dtensor_rules_registered:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    layouts = (Replicate(), Shard(0), Shard(2))
+
+    @register_sharding(torch.ops.rayfed_tpu_torch.flash_fwd.default)
+    def _fwd_rule(q, k, v, block_q, block_k, q_offset):
+        refuse_sharded_sequence(q, k, v)
+        return [([p, p], [p, p, p, None, None, None]) for p in layouts]
+
+    @register_sharding(torch.ops.rayfed_tpu_torch.flash_bwd.default)
+    def _bwd_rule(q, k, v, o, lse, do, block_q, block_k, q_offset):
+        refuse_sharded_sequence(q, k, v, o, do)
+        return [([p, p, p], [p] * 6 + [None] * 3) for p in layouts]
+
+    _dtensor_rules_registered = True
 
 
 def flash_attention(q, k, v, block_q: int = 512, block_k: int = 512,
@@ -530,6 +603,7 @@ def make_flash_attn_fn(block_q: int = 512, block_k: int = 512,
 
 
 __all__ = [
-    "flash_attention", "flash_fwd_op", "make_flash_attn_fn", "LAUNCHES",
+    "flash_attention", "flash_fwd_op", "flash_bwd_op", "make_flash_attn_fn",
+    "register_dtensor_rules", "LAUNCHES",
     "reset_launch_counts", "KERNEL_HEAD_DIMS", "kernel_head_dim",
 ]

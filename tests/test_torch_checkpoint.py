@@ -14,7 +14,7 @@
 
 """The port's party checkpoints (``rayfed_tpu_torch.checkpoint``): the
 mirrors of ``tests/test_checkpoint.py`` — a one-device round trip (the
-sharded one waits for the sharded party, ROADMAP item 8), the newest
+sharded one waits for the multi-card party, ROADMAP item 17), the newest
 complete step, and a two-party federated resume whose aggregates
 continue bitwise — plus bf16 and f32 leaves round-tripping bitwise, a
 template of another dtype or shape refused, and the meta JSON equal to

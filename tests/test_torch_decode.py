@@ -357,18 +357,28 @@ def test_generate_eos_validates():
 
 
 # ---------------------------------------------------------------------------
-# What decoding does not support yet is refused, naming its ROADMAP item
+# mesh=: sharded decoding (tests/test_torch_sharded_decode.py holds it on
+# 4 ranks against the JAX package); here on a one-rank mesh in-process
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("make", [
-    lambda cfg: decode.make_generate_fn(cfg, max_new_tokens=2, mesh=object()),
-    lambda cfg: decode.make_beam_search_fn(cfg, max_new_tokens=2, n_beams=2,
-                                           mesh=object()),
+    lambda cfg, mesh: decode.make_generate_fn(cfg, max_new_tokens=3,
+                                              mesh=mesh),
+    lambda cfg, mesh: (lambda *a: decode.make_beam_search_fn(
+        cfg, max_new_tokens=3, n_beams=2, mesh=mesh)(*a)[0]),
 ], ids=["generate", "beam"])
-def test_sharded_decode_is_refused(make):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make(_cfg())
+def test_sharded_decode_on_a_one_rank_mesh(make):
+    from tests.torch_mesh import one_rank_mesh
+
+    cfg = _cfg()
+    params = _params(cfg, 12)
+    prompt = _t(_tokens(cfg.vocab, (2, 5), 13))
+    want = make(cfg, None)(params, prompt)
+    with one_rank_mesh() as mesh:
+        got = make(cfg, mesh)(params, prompt)
+    assert not tfm.is_dtensor(got)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_moe_config_decodes():

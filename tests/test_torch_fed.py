@@ -423,6 +423,23 @@ def test_two_party_semantics(target):
     _parties(target)
 
 
+def test_wait_for_inflight_returns_once_every_tracked_send_resolved():
+    import threading
+
+    from rayfed_tpu_torch._private.cleanup import CleanupManager
+
+    manager = CleanupManager("alice", lambda: False)
+    acked, late = Future(), Future()
+    manager.push_to_sending(acked, "bob", 1, 2)
+    manager.push_to_sending(late, "bob", 3, 4)
+    acked.set_result(True)
+    assert manager.wait_for_inflight(timeout=0.05) is False
+    threading.Timer(0.1, late.set_result, (True,)).start()
+    assert manager.wait_for_inflight(timeout=10) is True
+    assert late.done()
+    assert manager.wait_for_inflight(timeout=0) is True
+
+
 def test_host_snapshot_copies_every_tensor_leaf():
     from rayfed_tpu_torch.proxy import barriers
 
@@ -490,7 +507,7 @@ def test_executor_shutdown_joins_its_lanes_and_frees_their_tasks():
 
 _REFUSED = [
     ({"jax_distributed": {"num_processes": 2, "process_id": 0}}, "item 17"),
-    ({"party_mesh": {"device_ids": [0, 1]}}, "item 8"),
+    ({"party_mesh": {"device_ids": [0, 1]}}, "item 17"),
     ({"collective": {"coordinator": "127.0.0.1:1"}}, "item 12"),
     ({"cross_silo_comm": {"same_mesh_push": True}}, "item 12b"),
     ({"transport": "tpu"}, "item 4"),

@@ -244,8 +244,8 @@ def test_fedavg_trainer_converges():
 _REFUSED_INIT = [
     ({"aggregation": {"topology": "tree", "async_bufer_k": 2}},
      ValueError, "unknown aggregation config key 'async_bufer_k'"),
-    ({"party_mesh": {"device_ids": [0, 1]}}, NotImplementedError, "item 8"),
-    ({"party_mesh": {"mesh_shape": [2, 2]}}, NotImplementedError, "item 8"),
+    ({"party_mesh": {"device_ids": [0, 1]}}, NotImplementedError, "item 17"),
+    ({"party_mesh": {"mesh_shape": [2, 2]}}, NotImplementedError, "item 17"),
     ({"transport": "cuda"}, RuntimeError, "no CUDA|none is available"),
     ({"party_mesh": {"device_ids": [0]}}, RuntimeError, "none is available"),
     ({"transport": "tpu"}, ImportError, "counterpart .* transport='cuda'"),

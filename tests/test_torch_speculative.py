@@ -17,7 +17,7 @@ speculative.py``) on the CPU: the six unsharded cases of
 ``test_speculative.py`` on the JAX package's params carried over, plus
 greedy speculative output against the JAX package's greedy target
 decode, sampled speculative tokens against the JAX package's for the
-same threefry key, and the refusal of ``mesh=`` (ROADMAP Queue 1 item
+same threefry key, and ``mesh=`` on a one-rank mesh (ROADMAP Queue 1 item
 8)."""
 
 import jax
@@ -199,8 +199,16 @@ def test_sampled_speculative_equals_the_jax_package_for_the_same_key(
         assert rounds == int(jrounds)
 
 
-def test_sharded_speculative_is_refused():
-    cfg, _, dcfg, _ = _models()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        speculative.make_speculative_generate_fn(
-            cfg, dcfg, max_new_tokens=2, mesh=object())
+def test_sharded_speculative_on_a_one_rank_mesh():
+    # tests/test_torch_sharded_decode.py holds mesh= on 4 ranks against the
+    # JAX package; here a one-rank mesh in-process gives the same tokens.
+    from tests.torch_mesh import one_rank_mesh
+
+    cfg, params, dcfg, dparams = _models()
+    prompt = _tokens(cfg.vocab, (2, 8), 2)
+    want = speculative.make_speculative_generate_fn(
+        cfg, dcfg, max_new_tokens=4)(params, dparams, prompt)
+    with one_rank_mesh() as mesh:
+        got = speculative.make_speculative_generate_fn(
+            cfg, dcfg, max_new_tokens=4, mesh=mesh)(params, dparams, prompt)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

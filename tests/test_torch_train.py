@@ -343,13 +343,15 @@ def test_init_from_seed_and_auto_attention_on_cpu():
 
 
 def test_sharded_options_raise_and_name_the_later_slice():
+    # Sequence parallelism is ROADMAP item 13b; tensor sharding and ZeRO-1
+    # run over a DeviceMesh (tests/test_torch_parallel.py).
     cfg = _torch_cfg()
-    for kw in ({"seq_axis": "seq"}, {"model_axis": "model"},
-               {"shard_opt_state": True}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            make_fed_train_step(cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        make_fed_train_step(cfg, device="cpu", seq_axis="seq")
     with pytest.raises(ValueError, match="attn"):
         make_fed_train_step(cfg, device="cpu", attn="ring")
+    with pytest.raises(ValueError, match="seq_parallel"):
+        make_fed_train_step(cfg, device="cpu", seq_parallel="ulysses")
 
 
 def test_train_step_needs_a_card_unless_cpu_is_asked():
