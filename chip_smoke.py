@@ -24,6 +24,16 @@
     python3 chip_smoke.py --wide-only      # phases 1, 2 and 12 alone
     python3 chip_smoke.py --ops-only       # phases 1, 2 and 13 alone
     python3 chip_smoke.py --sharded-only   # phases 1, 2 and 14 alone
+    python3 chip_smoke.py --multiproc-only # phases 1, 2 and 15 alone
+
+The whole run has a budget: each phase prints its wall beside its
+budget (``PHASE_BUDGET_S``, 600 s in all), each spawned party job its
+processes' setup seconds (spawn, import, card context, model init,
+``fed.init``, ``fed.shutdown``) apart from their work, and every party
+job waits at most its join deadline (at most 240 s). A watchdog fails the
+run ``WATCHDOG_S`` (900 s) after it starts, naming the phase still
+running, and kills the run's child processes. The party processes are
+forked from a forkserver that has torch and the port imported once.
 
 Phases:
 
@@ -57,7 +67,7 @@ Phases:
    kind, idle share); then, at batch 1, one step's loss and gradients
    against the dense attention's (``attn="xla"``).
 5. fed: the same FedAvg round through the port's own engine, at the same
-   width and depth: ``alice`` and ``bob`` are spawned processes that
+   width, depth ``PARTY_LAYERS``: ``alice`` and ``bob`` are spawned processes that
    ``fed.init`` over localhost TCP; a party-pinned ``LocalTrainer`` actor
    holds each party's params and AdamW state on the card, an
    ``aggregate`` task pinned to ``alice`` folds the trees with
@@ -70,8 +80,8 @@ Phases:
    a bf16 tree crosses bitwise, (g) both parties ran the native IO path
    (``rayfed_tpu_torch._fastwire``). Prints each push's ms, GB/s and
    split, the IO path and each party's peak memory; then runs the phase
-   once more with the parties on sockio's Python IO path and prints both
-   splits side by side.
+   once more, one round, with the parties on sockio's Python IO path and
+   prints both splits side by side.
 6. programs: the JAX package's FedAvg programs as the port's examples
    (``rayfed_tpu_torch/examples``), two spawned party processes each,
    with ``transport="cuda"``: ``federated_transformer.py`` at the same
@@ -118,7 +128,7 @@ Phases:
 
 8. async: FedBuff rounds, elastic membership and job checkpoints
    (``rayfed_tpu_torch.async_rounds``, ``membership``, ``checkpoint``) at
-   the same width and depth, three spawned party processes on the card
+   the same width, depth ``PARTY_LAYERS``, three spawned party processes on the card
    with ``transport="cuda"``: alice is the async root (``async_buffer_k``
    2, the JAX package's other defaults), the membership coordinator and
    a serving engine each version publishes into; bob trains every round
@@ -160,16 +170,17 @@ Phases:
    its position's replayed logits, and the key's threefry ``uniform`` and
    ``gumbel`` words on the card equal the CPU's bitwise. (b)
    ``examples/fedavg_lora.py`` on
-   the dense model in two spawned party processes, ``transport="cuda"``,
-   rank 8 on the attention targets, 2 rounds of 3 local steps at batch
-   12: the merged models hash the same in both parties every round, the
+   the dense model at depth ``PARTY_LAYERS`` in two spawned party
+   processes, ``transport="cuda"``, rank 8 on the attention targets, one
+   round of 3 local steps at batch 12: the merged models hash the same in
+   both parties every round, the
    root's aggregate is bitwise the CPU fold of the two pushed adapter
    trees, the frozen base is bitwise unchanged, each party launched K1-K3.
    Prints the adapter bytes pushed a round against the base's, each
    round's wall, each party's launches and peak memory.
 
 10. privacy: secure aggregation (``rayfed_tpu_torch.privacy``,
-   ``fed_aggregate(secure=True)``) at the same width and depth, three
+   ``fed_aggregate(secure=True)``) at the same width, depth ``PARTY_LAYERS``, three
    spawned party processes on the card with ``transport="cuda"`` and
    ``config["privacy"]``: each party takes one bf16 AdamW step (batch
    cut to 4, so the three share the card), then alice folds the three
@@ -217,7 +228,8 @@ Phases:
    the card is snapshotted there into one ``cudaMalloc`` buffer when it
    resolves, only a descriptor crosses the socket, and the receiver
    pulls it by CUDA IPC. (a) Phase 5's round program at its width, depth
-   and batch: its checks (a)-(g), and every params, aggregate and bf16
+   and batch, one round (``DMA_ROUNDS``): its checks (a)-(g), and every
+   params, aggregate and bf16
    push pulled by the ``ipc`` engine, none by another; the root's
    aggregate on the card bitwise the CPU fold of the two trees; each
    sender's lane holds no snapshot after the pulls. (b) A 4 MiB tree
@@ -245,8 +257,8 @@ Phases:
    its plain version and SDPA (its backend named), with FLOPs, bytes and
    the bound. (c) Phase 4's round loop at ``WIDE``: its checks, and the
    train steps launch every bf16 D = 256 kernel and no D <= 128 one. (d)
-   Phase 6's transformer program at ``WIDE`` in two party processes with
-   ``transport="cuda"``: its checks (a)-(f), the root's aggregate bitwise
+   Phase 6's transformer program at ``WIDE``, depth ``PARTY_LAYERS``, in
+   two party processes with ``transport="cuda"``: its checks (a)-(f), the root's aggregate bitwise
    the CPU fold of the two pushed trees, each party's steps on the D =
    256 kernels alone. (e) Phase 4b at ``WIDE`` (f32 steps, the batch-1
    loss and gradients against the dense attention's), then one round of
@@ -254,7 +266,7 @@ Phases:
    no f32 D <= 128 one. Prints each part's wall.
 
 13. ops: the engine's operational planes around the flagship round, at
-   phase 4's width and depth: two spawned party processes on the card
+   phase 4's width, depth ``PARTY_LAYERS``: two spawned party processes on the card
    over mutual TLS on the TCP lane (certificates from
    ``tools/generate_tls_certs.py``), telemetry on (the collector at
    alice, 150 ms pushes, an HTTP endpoint), and a seeded fault schedule
@@ -290,7 +302,24 @@ Phases:
    parallelism over more than one rank are held on the CPU (gloo,
    ``tests/test_torch_parallel.py``).
 
-Every phase prints its wall seconds. It needs a CUDA card and exits
+15. multiproc: a party over two processes (``config["jax_distributed"]``,
+   :func:`rayfed_tpu_torch.mesh.init_distributed`) at the flagship width,
+   depth ``PARTY_LAYERS``: alice's leader and follower share the card in a
+   gloo party group with a ``data = 2`` party mesh, bob is one process,
+   all on ``transport="cuda"``. Checks (a)-(f) of :func:`phase_multiproc`:
+   each of alice's processes takes one data-parallel bf16 step on half of
+   phase 4's batch (K1-K3 launched in each), their params bitwise equal
+   and the loss within 1e-5 and the gradient (each leaf's first AdamW
+   moment) within 2e-2 in relative norm of a one-process step over the
+   whole batch; the leader's push reaches bob bitwise, one frame an
+   edge; bob's tree reaches both of alice's processes bitwise (the
+   follower's through the leader's relay: keys in the party group's
+   store, the bytes point to point over its gloo group), placed on the card as
+   replicated DTensors; the aggregate is the same in both and bitwise the
+   CPU fold; bob's error reaches both as ``FedRemoteError``; no relay key
+   is left. Prints the relay's ms and GB/s and each process's step ms.
+
+Every phase prints its wall seconds and its budget. It needs a CUDA card and exits
 non-zero without one. The last two lines are the kernel table (twelve
 kernels: K1-K3 in bf16 and in f32, each up to D = 128 and at D = 256)
 and ``{"ok": true, "device": {...}}`` as JSON.
@@ -307,6 +336,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from datetime import timedelta
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -316,7 +346,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = dict(vocab=32768, d_model=2048, n_heads=16, n_layers=12,
                 d_ff=5632, seq=2048, batch=12)
 # What this run cuts to stay well inside its time limit: depth only.
+# The one-process phases (4, 4b, 9 (a), 12 (c) and (e), 14) run
+# SMOKE_LAYERS; the phases of spawned party processes (5, 6, 8, 9 (b), 10,
+# 11 (a), 12 (d), 13, 15) run PARTY_LAYERS, which keeps the flagship width
+# and every stacked (n_layers, ...) leaf (their numbers are not
+# comparable with runs of those phases at depth 4).
 SMOKE_LAYERS = 4
+PARTY_LAYERS = 1
 # Phase 12: the flagship width in 8 heads of 256, Gemma 2B's query layout
 # (hidden_size 2048, num_attention_heads 8, head_dim 256 in Google's
 # published gemma-2b config; only the shape is taken). H*D is the
@@ -397,6 +433,63 @@ class SmokeError(RuntimeError):
 def require(cond, what):
     if not cond:
         raise SmokeError(what)
+
+
+# ---------------------------------------------------------------------------
+# The run's budget: each phase's seconds, a watchdog over the whole run
+# ---------------------------------------------------------------------------
+
+#: Seconds each phase of the whole run may take: the sum is the run's
+#: budget (PERF.md section 5 holds each phase's measured walls beside it).
+#: A phase over its budget is printed as such; the watchdog and each
+#: phase's join deadlines are what fail a run.
+PHASE_BUDGET_S = {1: 2, 2: 32, 3: 19, 4: 4, "4b": 7, 5: 45, 6: 45, 7: 35,
+                  8: 70, 9: 32, 10: 60, 11: 32, 12: 90, 13: 75, 14: 14,
+                  15: 35}
+#: The whole run fails this many seconds after ``main`` starts, naming the
+#: phase still running, before any outer clock cuts it with nothing said.
+WATCHDOG_S = 900
+#: Seconds every ``torch.distributed`` wait of the run may take.
+DIST_TIMEOUT_S = 120
+# The phase that ``_phase_begin`` last set, which the watchdog names.
+_running = {"phase": None}
+
+
+def _phase_begin(n):
+    """Mark phase ``n`` as running (the watchdog names it); its start."""
+    _running["phase"] = n
+    return time.perf_counter()
+
+
+def _phase_wall(n, t0, smi):
+    wall = time.perf_counter() - t0
+    budget = PHASE_BUDGET_S.get(n)
+    over = "" if budget is None or wall <= budget else ", OVER BUDGET"
+    print(f"[phase {n}] {wall:.1f} s (budget {budget} s{over}) on {smi}")
+
+
+def start_watchdog(limit_s=WATCHDOG_S):
+    """A daemon thread that fails the run ``limit_s`` seconds from now:
+    it names the running phase on stderr, kills every live child process
+    and exits with code 1. Returns an event that stops it when set."""
+    import threading
+
+    done = threading.Event()
+
+    def watch():
+        if done.wait(limit_s):
+            return
+        print(f"chip_smoke: FAILED: phase {_running['phase']} still running "
+              f"after {limit_s:g} s", file=sys.stderr, flush=True)
+        import multiprocessing
+
+        for child in multiprocessing.active_children():
+            child.kill()
+        os._exit(1)
+
+    threading.Thread(target=watch, name="chip-smoke-watchdog",
+                     daemon=True).start()
+    return done
 
 
 # ---------------------------------------------------------------------------
@@ -1166,7 +1259,11 @@ def phase_f32(device, cfg, *, batch, seq, steps=F32_STEPS, lr=1e-3,
 # ---------------------------------------------------------------------------
 
 FED_ROUNDS = 2
-FED_JOIN_TIMEOUT_S = 480
+# Each party job's join deadline: at most three times its phase's wall
+# and never above 240 s. Phases 5, 6 and 12 (d) share this one: walls
+# 58.2, 52.9 and 86.8 s in a whole run on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md section 5), as are the walls below.
+FED_JOIN_TIMEOUT_S = 150
 # Retry fast while the peer comes up; no payload cap (a params push is
 # 1.36 GB at the flagship width, past the 500 MB default).
 FED_COMM = {"retry_policy": {"max_attempts": 30, "initial_backoff_ms": 100,
@@ -1174,9 +1271,17 @@ FED_COMM = {"retry_policy": {"max_attempts": 30, "initial_backoff_ms": 100,
             "messages_max_size_in_bytes": 0}
 
 
+#: Bytes of one piece of a leaf that :func:`_tree_digest` hashes on its
+#: own thread: the embedding and the LM head are two thirds of a
+#: flagship tree's bytes, and hashed whole they would take two threads.
+DIGEST_PIECE = 64 << 20
+
+
 def _tree_digest(tree):
-    """sha256 of each tensor leaf's bytes (bf16 through its int16 view);
-    a CUDA leaf is copied to host first. The leaves hash on threads."""
+    """sha256 of each tensor leaf's bytes (bf16 through its int16 view):
+    of a leaf over ``DIGEST_PIECE`` bytes, the sha256 of its pieces'
+    sha256s. The pieces are copied to host (from a card) and hashed on
+    threads."""
     import hashlib
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1184,19 +1289,32 @@ def _tree_digest(tree):
 
     from rayfed_tpu_torch import tree_util
 
-    def one(x):
-        x = x.detach().cpu().contiguous()
-        if x.dtype == torch.bfloat16:
-            x = x.view(torch.int16)
-        return hashlib.sha256(x.numpy().tobytes()).hexdigest()
-
     leaves = tree_util.tree_flatten(tree)[0]
     if any(x.is_cuda for x in leaves):
         # The pool's copies run on its threads' streams: finish the work
         # queued on this thread's first.
         torch.cuda.synchronize()
+    pieces = []
+    for x in leaves:
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        flat = x.contiguous().reshape(-1)
+        per = max(1, DIGEST_PIECE // flat.element_size())
+        pieces.append([flat[i:i + per]
+                       for i in range(0, max(flat.numel(), 1), per)])
+
+    def one(piece):
+        return hashlib.sha256(piece.cpu().numpy().data).digest()
+
     with ThreadPoolExecutor(8) as pool:
-        return list(pool.map(one, leaves))
+        done = iter(pool.map(one, [p for ps in pieces for p in ps]))
+        out = []
+        for ps in pieces:
+            got = [next(done) for _ in ps]
+            out.append(got[0].hex() if len(got) == 1
+                       else hashlib.sha256(b"".join(got)).hexdigest())
+        return out
 
 
 def _tree_nbytes(tree):
@@ -1506,14 +1624,55 @@ def _fed_program_python_io(party, addresses, *args):
     return _fed_program(party, addresses, *args)
 
 
-def fed_party(program, party, addresses, out_path, *args):
-    """A party process of phases 5 and 6 (spawned): runs ``program(party,
-    addresses, *args)`` and writes its result, or the error, as JSON to
-    ``out_path``."""
+def fed_party(program, party, addresses, out_path, t_spawn, *args):
+    """A party process of the multi-process phases (spawned): runs
+    ``program(party, addresses, *args)`` and writes its result, or the
+    error, as JSON to ``out_path``, with its setup seconds apart from its
+    work (``setup``): from ``t_spawn`` (the parent's ``time.time()`` at
+    the spawn) to this function, the imports, the card's context and
+    the models' initialization (``init_params``, synchronized); the
+    program's ``fed.init`` and ``fed.shutdown`` are timed apart from the
+    rest of its work."""
     import traceback
 
+    setup = {"spawn": time.time() - t_spawn}
     try:
+        t = time.perf_counter()
+        import torch
+
+        import rayfed_tpu_torch  # noqa: F401
+        from rayfed_tpu_torch.models import transformer as tfm
+        from rayfed_tpu_torch.parallel import train  # noqa: F401
+
+        setup["import"] = time.perf_counter() - t
+        t = time.perf_counter()
+        if torch.cuda.is_available():
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+        setup["context"] = time.perf_counter() - t
+        setup["model init"] = 0.0
+        init_params = tfm.init_params
+
+        def timed_init(*a, **kw):
+            t = time.perf_counter()
+            out = init_params(*a, **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            setup["model init"] += time.perf_counter() - t
+            return out
+
+        tfm.init_params = timed_init
+        import rayfed_tpu_torch as fed
+
+        for name in ("init", "shutdown"):
+            setup[f"fed.{name}"] = 0.0
+            setattr(fed, name, _timed(getattr(fed, name), setup,
+                                      f"fed.{name}"))
+        t = time.perf_counter()
         result = dict(ok=True, **program(party, addresses, *args))
+        setup["work"] = (time.perf_counter() - t - setup["model init"]
+                         - setup["fed.init"] - setup["fed.shutdown"])
+        result["setup"] = setup
     except BaseException:  # noqa: BLE001 - reported to the parent
         result = dict(ok=False, error=traceback.format_exc())
         print(f"party {party} failed:\n{result['error']}", file=sys.stderr,
@@ -1523,12 +1682,40 @@ def fed_party(program, party, addresses, out_path, *args):
     sys.exit(0 if result["ok"] else 1)
 
 
+def _timed(fn, into, key):
+    """``fn`` adding its seconds to ``into[key]``."""
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            into[key] += time.perf_counter() - t
+
+    return timed
+
+
 def _free_port():
+    """A localhost port for a party's listener or a store, held back from
+    the kernel's own picks until its owner binds it. A port that is only
+    found free and closed can be handed out again as the local port of
+    any later connection or ``bind(0)`` (a gloo pair, a store client)
+    before the party process binds it, which then fails with EADDRINUSE.
+    So the port is left in TIME_WAIT (one accepted connection, closed
+    from the server's side): for the next 60 s the kernel gives it to no
+    connect or ``bind(0)``, while a listener that sets SO_REUSEADDR, as
+    the port's proxies and ``TCPStore`` do, binds it at once."""
     import socket
 
     with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+        s.listen(1)
+        name = s.getsockname()
+        with socket.socket() as c:
+            c.connect(name)
+            conn, _ = s.accept()
+            conn.close()
+        return name[1]
 
 
 def phase_fed(device, cfg, *, batch, seq, rounds=FED_ROUNDS, local_steps=2,
@@ -1558,45 +1745,95 @@ def phase_fed(device, cfg, *, batch, seq, rounds=FED_ROUNDS, local_steps=2,
     return check_fed(results, device, wall, label, io_path)
 
 
-def spawn_parties(program, args, timeout_s, names=None):
-    """Run ``program(party, addresses, *args)`` in one spawned process per
-    party (``names``, by default ``PARTIES``') over localhost TCP; returns
-    each party's result and the wall time from spawn to exit. Fails on a
-    party's error, a missing result or the join timeout (every process is
-    stopped first)."""
+#: What every party process imports: the forkserver that forks them
+#: imports it once (``party_context``), so a party process starts with it
+#: loaded instead of importing torch anew (about 10 s a process on the
+#: host of an H100 machine, PERF.md section 5).
+PARTY_PRELOAD = ["numpy", "torch", "rayfed_tpu_torch",
+                 "rayfed_tpu_torch.models.transformer",
+                 "rayfed_tpu_torch.parallel.train"]
+
+
+def party_context():
+    """The multiprocessing context of the party processes: a forkserver
+    (a fresh process, started once, that never touches the card) with
+    ``PARTY_PRELOAD`` imported; each party process is forked from it and
+    makes its own CUDA context."""
     import multiprocessing
 
-    mp = multiprocessing.get_context("spawn")
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(PARTY_PRELOAD)
+    return ctx
+
+
+def start_party_server():
+    """Start the party processes' forkserver on a thread, so its imports
+    overlap the run's first phases."""
+    import threading
+    from multiprocessing import forkserver
+
+    party_context()
+    threading.Thread(target=forkserver.ensure_running,
+                     name="party-forkserver", daemon=True).start()
+
+
+def spawn_parties(program, args, timeout_s, names=None, processes=None):
+    """Run ``program(party, addresses, *args)`` in one spawned process per
+    party (``names``, by default ``PARTIES``') over localhost TCP; returns
+    each party's result and the wall time from spawn to exit, and prints
+    each process's setup seconds (spawn, import, card context, model
+    init) apart from its work. ``processes`` maps a party to a list of
+    extra arguments, one process each, appended after ``args`` (a party
+    over several processes; its results are a list). Fails on a party's
+    error, a missing result or the join deadline ``timeout_s`` (every
+    process is stopped first)."""
+    mp = party_context()
     names = names or [n for n, _ in PARTIES]
     addresses = {n: f"127.0.0.1:{_free_port()}" for n in names}
+    processes = processes or {}
+    runs = [(n, i, tuple(extra)) for n in names
+            for i, extra in enumerate(processes.get(n, [()]))]
     with tempfile.TemporaryDirectory() as tmp:
-        outs = {n: os.path.join(tmp, f"{n}.json") for n in names}
-        procs = {n: mp.Process(target=fed_party, name=f"party-{n}", args=(
-            program, n, addresses, outs[n]) + tuple(args))
-            for n in names}
+        outs = {(n, i): os.path.join(tmp, f"{n}-{i}.json") for n, i, _ in runs}
+        t_spawn = time.time()
+        procs = {(n, i): mp.Process(
+            target=fed_party, name=f"party-{n}-{i}", args=(
+                program, n, addresses, outs[n, i], t_spawn) + tuple(args)
+            + extra) for n, i, extra in runs}
         t0 = time.perf_counter()
         for p in procs.values():
             p.start()
         deadline = time.monotonic() + timeout_s
         for p in procs.values():
             p.join(max(0.0, deadline - time.monotonic()))
-        late = [n for n, p in procs.items() if p.is_alive()]
+        late = [p.name for p in procs.values() if p.is_alive()]
         for p in procs.values():
             if p.is_alive():
                 p.kill()
                 p.join()
         wall = time.perf_counter() - t0
-        require(not late, f"party processes {late} did not finish within "
-                          f"{timeout_s} s")
+        require(not late, f"{program.__name__}: party processes {late} did "
+                          f"not finish within their deadline of {timeout_s} s")
         results = {}
-        for n, p in procs.items():
-            require(os.path.exists(outs[n]),
-                    f"party {n} exited with code {p.exitcode} and no result")
-            with open(outs[n]) as f:
-                results[n] = json.load(f)
-            require(results[n]["ok"] and p.exitcode == 0,
-                    f"party {n} failed (exit code {p.exitcode}):\n"
-                    f"{results[n].get('error')}")
+        for (n, i), p in procs.items():
+            require(os.path.exists(outs[n, i]),
+                    f"{p.name} exited with code {p.exitcode} and no result")
+            with open(outs[n, i]) as f:
+                res = json.load(f)
+            require(res["ok"] and p.exitcode == 0,
+                    f"{p.name} failed (exit code {p.exitcode}):\n"
+                    f"{res.get('error')}")
+            if n in processes:
+                results.setdefault(n, []).append(res)
+            else:
+                results[n] = res
+    setups = ", ".join(
+        f"{p.name} " + " ".join(f"{k} {v:.1f}" for k, v in
+                                (res["setup"].items()))
+        for (n, i), p in procs.items()
+        for res in [results[n][i] if n in processes else results[n]])
+    print(f"[setup] {program.__name__} in {wall:.1f} s (deadline "
+          f"{timeout_s} s), seconds a process: {setups}")
     return results, wall
 
 
@@ -1695,6 +1932,8 @@ def compare_io_paths(runs):
 # Phase 6: the JAX package's FedAvg programs on the port
 # ---------------------------------------------------------------------------
 
+# Two rounds: check (a) reads the global tree the second round's train
+# task receives.
 PROGRAM_ROUNDS = 2
 # Check (b)'s three-party weights: inexact in bf16, their total in f32.
 W3 = (0.37, 1.7, 1000.5)
@@ -1816,7 +2055,8 @@ def _lm_program(party, addresses, device, cfg_kw, batch, seq, rounds,
                         [reduce_by_plan(plan3, on_cpu, w)])
                     elements3 += leaves[0].numel()
         return dict(
-            started=started, mismatched=mismatched,
+            started=started, check_s=time.time() - started,
+            mismatched=mismatched,
             elements=sum(x.numel() for x in got),
             mismatched3=mismatched3, elements3=elements3,
             landed=sorted({str(x.device)
@@ -1967,7 +2207,9 @@ def phase_programs(device, cfg, *, batch, seq, rounds=PROGRAM_ROUNDS,
     print(f"[programs] {label} federated_transformer: two party processes "
           f"({devices}, IO path {paths}), {rounds} rounds in {wall:.1f} s "
           f"from spawn to exit; round walls "
-          + ", ".join(f"{w:.2f} s" for w in res["round_walls"]))
+          + ", ".join(f"{w:.2f} s" for w in res["round_walls"])
+          + "; the root's checks of each round "
+          + ", ".join(f"{c['check_s']:.2f} s" for c in res["checks"]))
     print(f"[programs] {label} aggregate eval loss {res['evals']}; fold "
           f"bitwise each round ({res['checks'][0]['elements']} elements; "
           f"three-party folds {res['checks'][0]['elements3']} elements); "
@@ -2023,12 +2265,14 @@ SERVE_SEED = 7
 SERVE_F32_LAYERS = 2
 SERVE_LOGIT_TOL = 1e-4
 # The two-process run: its depth, requests and join timeout.
-SERVE_FED_LAYERS = 4
-# Phase 7's depth in the whole run: cut from the flagship's 12 so
-# that phase 14 fits the run's time; --serving-only keeps full depth.
-SERVE_LAYERS = 8
+SERVE_FED_LAYERS = 1
+# Phase 7's depth in the whole run: cut from the flagship's 12 so that
+# the run fits its budget (depth 1: runs at depth 8 or 12 are not
+# comparable); --serving-only keeps full depth.
+SERVE_LAYERS = 1
 SERVE_FED_REQUESTS = 8
-SERVE_FED_TIMEOUT_S = 300
+# Phase 7's two-process part (phase 7: 57.2 s).
+SERVE_FED_TIMEOUT_S = 150
 
 
 def serve_prompts(n, lo, hi, vocab, seed=SERVE_SEED):
@@ -2766,7 +3010,9 @@ ASYNC_CAROL_ROUND = 3
 ASYNC_CUT_VERSION = 2
 ASYNC_LOCAL_STEPS = 2
 ASYNC_TOKEN = "chip-smoke-async"
-ASYNC_TIMEOUT_S = 600
+# Phase 8's join deadline (phase 8: 77.7 s); its waits inside take a
+# half or a quarter of it.
+ASYNC_TIMEOUT_S = 220
 # bob's seeded straggler schedule: a delay drawn from the seed before each
 # of his local trainings, plus a stall in the round before carol's offer
 # that also lasts until her offer (a newer round tag) has landed, so that
@@ -3346,9 +3592,10 @@ REMAT_MODES = ("attn", False, True)
 FAMILY_REMAT_CHECK = (2, 2)
 # The LoRA FedAvg round: examples/fedavg_lora.py at the flagship width,
 # with the example's adapters (its RANK on the attention targets) and its
-# LOCAL_STEPS.
-FAMILY_LORA_ROUNDS = 2
-FAMILY_LORA_TIMEOUT_S = 420
+# LOCAL_STEPS; one round: a second repeats the first's checks.
+FAMILY_LORA_ROUNDS = 1
+# Phase 9 (b)'s join deadline (phase 9: 33.0 s).
+FAMILY_LORA_TIMEOUT_S = 90
 # The MoE decode check: f32 compute at depth 2 (as phase 7's (d)), cached
 # prefill and decode logits within SERVE_LOGIT_TOL of a full forward's
 # norm; then greedy tokens from the bf16 MoE model of (a).
@@ -3695,13 +3942,14 @@ def phase_lora(device, cfg, *, batch, seq, rounds=FAMILY_LORA_ROUNDS,
 
 def phase_family(device, cfg, *, batch, seq, label="", steps=FAMILY_STEPS,
                  mode_steps=FAMILY_MODE_STEPS,
-                 lora_timeout_s=FAMILY_LORA_TIMEOUT_S):
+                 lora_timeout_s=FAMILY_LORA_TIMEOUT_S, lora_cfg=None):
     """Phase 9: (a) the MoE model (``cfg`` with ``FAMILY_EXPERTS``
     experts) trained under ``remat="attn"`` and, for the comparison, under
     ``remat=False`` and ``True``; the three modes' loss and gradients
     bitwise equal at ``FAMILY_REMAT_CHECK``; (c) MoE cached decode; (b)
-    the LoRA FedAvg round on the dense ``cfg``. Returns a summary with the
-    MoE steps' launches (``launches``, remat="attn")."""
+    the LoRA FedAvg round on the dense ``lora_cfg`` (default ``cfg``).
+    Returns a summary with the MoE steps' launches (``launches``,
+    remat="attn")."""
     import dataclasses
     import gc
 
@@ -3765,7 +4013,8 @@ def phase_family(device, cfg, *, batch, seq, label="", steps=FAMILY_STEPS,
     gc.collect()
     if on_cuda:
         torch.cuda.empty_cache()
-    lora_out = phase_lora(device, cfg, batch=batch, seq=seq, label=label,
+    lora_out = phase_lora(device, lora_cfg or cfg, batch=batch, seq=seq,
+                          label=label,
                           timeout_s=lora_timeout_s)
     return dict(modes=modes, launches=launches, agree=agree, decode=dec,
                 lora=lora_out)
@@ -3792,7 +4041,8 @@ PRIVACY_CHECK_WORDS = 1 << 20
 # plaintext fold's two sums and reciprocal product, within eight f32
 # epsilons of the entries' mean magnitude.
 PRIVACY_MEAN_ULPS = 8 * 2.0 ** -23
-PRIVACY_TIMEOUT_S = 480
+# Phase 10's join deadline (phase 10: 90.7 s).
+PRIVACY_TIMEOUT_S = 240
 PRIVACY_DROPOUT_DOMAIN = "smoke-dropout"
 # The DP job (checks (g)-(i)), in the same three processes after the
 # secure one: each party clips its update to DP_CLIP_FRACTION of the
@@ -4589,10 +4839,10 @@ def run_privacy(smi, f32_push=None):
     """Phase 10 at the flagship width, depth cut as phase 4's, batch cut
     to PRIVACY_BATCH."""
     print("[privacy] reduced " + json.dumps(
-        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS],
+        {"n_layers": [FLAGSHIP["n_layers"], PARTY_LAYERS],
          "batch": [FLAGSHIP["batch"], PRIVACY_BATCH]}))
-    t = time.perf_counter()
-    out = phase_privacy("cuda", _flagship_cfg(SMOKE_LAYERS),
+    t = _phase_begin(10)
+    out = phase_privacy("cuda", _flagship_cfg(PARTY_LAYERS),
                         batch=PRIVACY_BATCH, seq=FLAGSHIP["seq"],
                         label=f"on {smi}:", f32_push=f32_push)
     _phase_wall(10, t, smi)
@@ -4602,7 +4852,12 @@ def run_privacy(smi, f32_push=None):
 # Phase 11: the device-DMA push lane
 # ---------------------------------------------------------------------------
 
-DMA_TIMEOUT_S = 300
+# Each of phase 11's jobs' join deadline (phase 11: 38.8 s).
+DMA_TIMEOUT_S = 110
+# Phase 11 (a)'s rounds of phase 5's program on the DMA lane: one. A
+# second repeats the first's checks on the lane; what it adds, a round
+# starting from the loaded aggregate, phase 5's native run checks.
+DMA_ROUNDS = 1
 
 
 def _fmt_parts(parts):
@@ -4755,7 +5010,7 @@ def phase_dma(device, cfg, *, batch, seq, label="", fed_push=None,
     root, other = (n for n, _ in PARTIES)
     results, wall = spawn_parties(
         _fed_program, (device, dataclasses.asdict(cfg), batch, seq,
-                       FED_ROUNDS, 2, 1e-3, True), timeout_s)
+                       DMA_ROUNDS, 2, 1e-3, True), timeout_s)
     check_fed(results, device, wall, f"{label} (a)", dma=True)
     res = results[root]
     lanes = res["lanes"]
@@ -4770,8 +5025,8 @@ def phase_dma(device, cfg, *, batch, seq, label="", fed_push=None,
                 f"elements")
     # The root pulls each round's params and the bf16 tree; the other
     # party each round's aggregate.
-    _require_ipc_only(lanes[root], root, FED_ROUNDS + 1, "(a)")
-    _require_ipc_only(lanes[other], other, FED_ROUNDS, "(a)")
+    _require_ipc_only(lanes[root], root, DMA_ROUNDS + 1, "(a)")
+    _require_ipc_only(lanes[other], other, DMA_ROUNDS, "(a)")
 
     full = dataclasses.replace(cfg, n_layers=FLAGSHIP["n_layers"])
     pushed, push_wall = spawn_parties(
@@ -4852,9 +5107,9 @@ def phase_dma(device, cfg, *, batch, seq, label="", fed_push=None,
 def run_dma(smi, fed_push=None):
     """Phase 11 at the flagship width, depth cut as phase 4's for (a)."""
     print("[dma] reduced " + json.dumps(
-        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
-    t = time.perf_counter()
-    out = phase_dma("cuda", _flagship_cfg(SMOKE_LAYERS),
+        {"n_layers": [FLAGSHIP["n_layers"], PARTY_LAYERS]}))
+    t = _phase_begin(11)
+    out = phase_dma("cuda", _flagship_cfg(PARTY_LAYERS),
                     batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                     label=f"on {smi}:", fed_push=fed_push)
     _phase_wall(11, t, smi)
@@ -4917,6 +5172,7 @@ def phase_wide(smi):
     (e) the same in f32: :func:`phase_wide_f32`, whose steps must launch
     every f32 D = 256 kernel and no f32 D <= 128 one. Returns ({kernel:
     results}, {kernel: launches of (c)'s, (d)'s and (e)'s train steps})."""
+    import dataclasses
     import gc
 
     import torch
@@ -4949,8 +5205,12 @@ def phase_wide(smi):
     gc.collect()
     torch.cuda.empty_cache()
 
+    print("[wide] (d) reduced " + json.dumps(
+        {"n_layers": [WIDE["n_layers"], PARTY_LAYERS]}))
     t = time.perf_counter()
-    prog = phase_programs("cuda", cfg, batch=WIDE["batch"], seq=WIDE["seq"],
+    prog = phase_programs("cuda", dataclasses.replace(cfg,
+                                                      n_layers=PARTY_LAYERS),
+                          batch=WIDE["batch"], seq=WIDE["seq"],
                           label=f"8 heads of 256 on {smi}:",
                           kernels=WIDE_KERNELS, cnn=False)
     print(f"[wide] (d) engine round in {time.perf_counter() - t:.1f} s")
@@ -4978,7 +5238,7 @@ def phase_wide(smi):
 
 def run_wide(smi):
     """Phase 12 with its wall."""
-    t = time.perf_counter()
+    t = _phase_begin(12)
     out = phase_wide(smi)
     _phase_wall(12, t, smi)
     return out
@@ -5034,10 +5294,11 @@ OPS_REPLAY_TIMEOUT_S = 3.0
 # OPS_SAMPLE and OPS_SAMPLE seeded others (a CPU fold of the whole 1.36 GB
 # tree takes about half a minute of the host's eight cores).
 OPS_SAMPLE = 1 << 16
-OPS_JOIN_TIMEOUT_S = 420
+# Phase 13's join deadline (phase 13: 86.3 s).
+OPS_JOIN_TIMEOUT_S = 240
 # How long bob waits after his rounds for his pushes to be acknowledged:
 # a TLS push of the flagship tree and its one crc resend.
-OPS_SETTLE_S = 180.0
+OPS_SETTLE_S = 120.0
 
 
 def ops_schedule(seed):
@@ -5601,9 +5862,9 @@ def run_ops(smi):
     """Phase 13 at the flagship width, depth cut as phase 4's; returns the
     parties' bf16 kernel launches."""
     print("[ops] reduced " + json.dumps(
-        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
-    t = time.perf_counter()
-    full = phase_ops("cuda", _flagship_cfg(SMOKE_LAYERS),
+        {"n_layers": [FLAGSHIP["n_layers"], PARTY_LAYERS]}))
+    t = _phase_begin(13)
+    full = phase_ops("cuda", _flagship_cfg(PARTY_LAYERS),
                      batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                      label=f"on {smi}:")
     _phase_wall(13, t, smi)
@@ -5682,7 +5943,8 @@ def phase_sharded(cfg, *, batch, seq, smi, steps=SHARDED_STEPS, lr=1e-3,
 
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
-                            f"{_free_port()}", rank=0, world_size=1)
+                            f"{_free_port()}", rank=0, world_size=1,
+                            timeout=timedelta(seconds=DIST_TIMEOUT_S))
     launches = dict.fromkeys(BF16_KERNELS, 0)
     try:
         mesh = pm.build_mesh(mesh_shape=[1, 1, 1], axis_names=MESH_NAMES)
@@ -5750,7 +6012,7 @@ def run_sharded(smi):
     """Phase 14 at the flagship width, depth cut as phase 4's."""
     print("[sharded] reduced " + json.dumps(
         {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
-    t = time.perf_counter()
+    t = _phase_begin(14)
     launches = phase_sharded(_flagship_cfg(SMOKE_LAYERS),
                              batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                              smi=smi)
@@ -5758,8 +6020,340 @@ def run_sharded(smi):
     return launches
 
 
-def _phase_wall(n, t0, smi):
-    print(f"[phase {n}] {time.perf_counter() - t0:.1f} s on {smi}")
+# ---------------------------------------------------------------------------
+# Phase 15: a party over two processes (multi-process parties)
+# ---------------------------------------------------------------------------
+
+#: The receive deadline of phase 15's job, which the relay and the party
+#: group take too (ms).
+MULTIPROC_RECV_MS = 60_000
+# Phase 15's join deadline (phase 15: 46.1 s).
+MULTIPROC_TIMEOUT_S = 135
+# Phase 15's data-parallel loss against the one-process step's: the CPU
+# tests' tolerance (tests/test_torch_multihost_party.py), rtol and atol.
+MULTIPROC_LOSS_TOL = 1e-5
+# Phase 15's data-parallel gradient against the one-process step's, read
+# from each leaf's first AdamW moment (0.1 g after one step): the largest
+# ||m_dp - m_one|| / ||m_one|| over the leaves. The two steps round their
+# bf16 gradients in other orders (two halves summed over gloo against one
+# batch), a few units of bf16's 2^-8 at most; a reduction that returns
+# one process's gradient, or the sum for the mean, is off by 0.3 to 1.
+MULTIPROC_MOMENT_TOL = 2e-2
+MULTIPROC_COMM = dict(FED_COMM, recv_timeout_in_ms=MULTIPROC_RECV_MS,
+                      continue_waiting_for_data_sending_on_error=True)
+
+
+def _moment_errors(params, opt, params_one, opt_one):
+    """{leaf path: ||m - m_one|| / ||m_one||} of the first AdamW moments
+    of two steps' optimizers over the same tree (the data-parallel one's
+    moments may be replicated DTensors)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from rayfed_tpu_torch.parallel.sharding import leaf_paths
+
+    out = {}
+    for (path, p), (_, q) in zip(leaf_paths(params), leaf_paths(params_one)):
+        m = opt.state[p]["exp_avg"]
+        m = (m.to_local() if isinstance(m, DTensor) else m).float()
+        m1 = opt_one.state[q]["exp_avg"].float()
+        out[path] = float(
+            torch.linalg.vector_norm(m - m1)
+            / torch.linalg.vector_norm(m1).clamp_min(1e-30))
+    return out
+
+
+def _plain_digest(tree):
+    """:func:`_tree_digest` of a tree whose leaves may be replicated
+    DTensors (each process's local copy is the whole leaf)."""
+    from torch.distributed.tensor import DTensor
+
+    from rayfed_tpu_torch import tree_util
+
+    return _tree_digest(tree_util.tree_map(
+        lambda x: x.to_local() if isinstance(x, DTensor) else x, tree))
+
+
+def _multiproc_program(party, addresses, device, cfg_kw, batch, seq,
+                       coordinator, pid=0):
+    """Phase 15's driver, the same in every process: alice runs as two
+    processes (``pid`` 0, the leader, and 1) joined by
+    ``config["jax_distributed"]`` with a ``data = 2`` party mesh, bob as
+    one. Returns what the parent checks (a)-(f) and prints."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import mesh as fed_mesh
+    from rayfed_tpu_torch import tracing, tree_util
+    from rayfed_tpu_torch.data import synthetic_lm_dataset
+    from rayfed_tpu_torch.exceptions import FedRemoteError
+    from rayfed_tpu_torch.federated import fed_aggregate
+    from rayfed_tpu_torch.models import transformer as tfm
+    from rayfed_tpu_torch.ops import flash_attention as fa
+    from rayfed_tpu_torch.ops.aggregate import tree_mean
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+    from rayfed_tpu_torch.proxy import barriers
+
+    cfg = tfm.TransformerConfig(**cfg_kw)
+    on_cuda = torch.device(device).type == "cuda"
+    config = {"cross_silo_comm": MULTIPROC_COMM}
+    if party == "alice":
+        config["jax_distributed"] = {"coordinator_address": coordinator,
+                                     "num_processes": 2, "process_id": pid}
+        config["party_mesh"] = {"mesh_shape": [2], "axis_names": ["data"]}
+        if not on_cuda:
+            config["party_mesh"]["device_type"] = "cpu"
+    tracing.enable()
+    fed.init(addresses=addresses, party=party, logging_level="warning",
+             transport="cuda" if on_cuda else "tcp", config=config)
+    dev = fed_mesh.get_party_device() or torch.device(device)
+    out = dict(party=party, pid=pid)
+    if party == "alice":
+        out["backend"] = fed_mesh.party_group()["backend"]
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize()
+
+    @fed.remote
+    def dp_step():
+        """(a) One data-parallel step over the party mesh, each process on
+        its half of phase 4's batch; then, at the leader, the one-process
+        step over the whole batch from the same params."""
+        blk = torch.as_tensor(next(synthetic_lm_dataset(
+            cfg.vocab, batch * (seq + 1), seq, seed=1).batches(batch)))
+        x, y = blk[:, :-1], blk[:, 1:]
+        init_fn, step_fn = make_fed_train_step(
+            cfg, fed_mesh.get_party_mesh(), lr=1e-3, attn="flash")
+        params, opt = init_fn(0)
+        fa.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, x, y)
+        loss = float(loss)
+        sync()
+        step_ms = 1e3 * (time.perf_counter() - t)
+        launches = dict(fa.LAUNCHES)
+        res = dict(loss=loss, step_ms=step_ms, launches=launches,
+                   replicated=all(
+                       isinstance(p, DTensor) and all(
+                           isinstance(q, Replicate) for q in p.placements)
+                       for p in tree_util.tree_flatten(params)[0]))
+        if pid == 0:
+            init1, step1 = make_fed_train_step(cfg, dev, lr=1e-3,
+                                               attn="flash")
+            p1, o1 = init1(0)
+            p1, o1, loss1 = step1(p1, o1, x.to(dev), y.to(dev))
+            res["one_process_loss"] = float(loss1)
+            res["moment_err"] = _moment_errors(params, opt, p1, o1)
+            del p1, o1
+        res["digest"] = _plain_digest(params)
+        return res, params
+
+    @fed.remote
+    def bob_tree():
+        return tfm.init_params(2, cfg, dev)
+
+    @fed.remote
+    def digest(tree):
+        return _plain_digest(tree)
+
+    @fed.remote
+    def held(tree):
+        """(c) Where bob's tree landed in this process, and its bytes."""
+        leaves = tree_util.tree_flatten(tree)[0]
+        return dict(digest=_plain_digest(tree), placed=sorted({
+            f"{type(x).__name__}:{x.device.type}:"
+            + ",".join(type(p).__name__ for p in getattr(x, "placements",
+                                                           ()))
+            for x in leaves}))
+
+    @fed.remote
+    def cpu_fold(mine, theirs, agg):
+        """(d) The aggregate against the CPU fold of the same trees."""
+        def host(t):
+            return tree_util.tree_map(
+                lambda x: (x.to_local() if isinstance(x, DTensor) else x)
+                .detach().cpu(), t)
+        want = tree_mean(host(mine), host(theirs))
+        got = host(agg)
+        return sum(int((_int_view(a) != _int_view(b)).sum()) for a, b in zip(
+            tree_util.tree_flatten(got)[0], tree_util.tree_flatten(want)[0]))
+
+    @fed.remote
+    def boom():
+        raise ValueError("bob's task failed on purpose")
+
+    @fed.remote
+    def after(x):
+        return x
+
+    step, mine = dp_step.party("alice").options(num_returns=2).remote()
+    out["step"] = fed.get(step)
+    # (b) alice's tree to bob: the leader's push, the follower's none.
+    out["pushed_digest"] = fed.get(digest.party("bob").remote(mine))
+    # (c) bob's tree to both of alice's processes.
+    theirs = bob_tree.party("bob").remote()
+    out["bob_digest"] = fed.get(digest.party("bob").remote(theirs))
+    out["held"] = fed.get(held.party("alice").remote(theirs))
+    # (d) the aggregate at alice, in both processes, and the CPU fold.
+    agg = fed_aggregate({"alice": mine, "bob": theirs}, op="mean")
+    out["agg_digest"] = fed.get(digest.party("alice").remote(agg))
+    out["fold_mismatched"] = fed.get(cpu_fold.party("alice").remote(
+        mine, theirs, agg))
+    if party == "bob":
+        frames = [(s.upstream_seq_id, s.downstream_seq_id)
+                  for s in tracing.get_spans("decode") if s.peer == "alice"]
+        out["frames"] = dict(n=len(frames), edges=len(set(frames)))
+    # (e) an error at bob reaches both of alice's processes.
+    try:
+        fed.get(after.party("alice").remote(boom.party("bob").remote()))
+        out["remote_error"] = None
+    except FedRemoteError as e:
+        out["remote_error"] = ["FedRemoteError", str(e)]
+    except ValueError as e:
+        out["remote_error"] = ["ValueError", str(e)]
+    out["relay"] = barriers.relay_stats()
+    if party == "alice":
+        # (f) every follower's gets have returned, so each has acked.
+        dist.monitored_barrier(timeout=timedelta(seconds=DIST_TIMEOUT_S))
+        if pid == 0:
+            out["keys_left"] = barriers.relay_keys_left()
+    fed.shutdown()
+    # The party group outlives fed.shutdown; this process is done with it.
+    fed_mesh.shutdown_distributed()
+    return out
+
+
+def phase_multiproc(device, cfg, *, batch, seq, label="",
+                    timeout_s=MULTIPROC_TIMEOUT_S):
+    """Phase 15: :func:`_multiproc_program` in three spawned processes,
+    alice's two one party over a party group (gloo: they share the one
+    card), bob's one; checked: (a) each of alice's processes' step
+    launched K1-K3 and left params bitwise equal to the other's, whose
+    loss is within ``MULTIPROC_LOSS_TOL`` and whose gradient (each leaf's
+    first AdamW moment) is within ``MULTIPROC_MOMENT_TOL`` in relative
+    norm of a one-process step over the whole batch; (b) bob got alice's tree bitwise, one frame an edge from
+    alice; (c) both of alice's processes hold bob's tree bitwise as bob
+    hashed it, placed on the card (replicated DTensors on the data mesh);
+    (d) the aggregate is the same in both of alice's processes and
+    bitwise the CPU fold; (e) bob's error reaches both as
+    ``FedRemoteError``; (f) no relay key is left in the party's store.
+    Prints the relay's ms and GB/s (and the leader's encode and hand-on
+    ms) and each process's step ms. Returns
+    the bf16 kernels' launches of both of alice's steps."""
+    import dataclasses
+
+    import torch
+
+    coordinator = f"127.0.0.1:{_free_port()}"
+    results, wall = spawn_parties(
+        _multiproc_program, (device, dataclasses.asdict(cfg), batch, seq,
+                             coordinator), timeout_s, names=["alice", "bob"],
+        processes={"alice": [(0,), (1,)]})
+    leader, follower = results["alice"]
+    bob = results["bob"]
+    alice = (leader, follower)
+    on_card = torch.device(device).type == "cuda"
+    for r in alice:
+        # Both processes on the one card (or the CPU): NCCL refuses two
+        # ranks on one card.
+        require(r["backend"] == "gloo",
+                f"alice's party group runs {r['backend']}, not gloo")
+        if on_card:
+            require(all(r["step"]["launches"][k] > 0 for k in BF16_KERNELS),
+                    f"(a) alice process {r['pid']}'s step did not launch "
+                    f"every bf16 kernel: {r['step']['launches']}")
+        require(r["step"]["replicated"],
+                f"(a) process {r['pid']}'s params are not replicated DTensors")
+    require(leader["step"]["digest"] == follower["step"]["digest"],
+            "(a) alice's two processes hold different params after the step")
+    require(leader["step"]["loss"] == follower["step"]["loss"],
+            "(a) alice's two processes disagree on the step's loss")
+    one = leader["step"]["one_process_loss"]
+    dp = leader["step"]["loss"]
+    require(abs(dp - one) <= MULTIPROC_LOSS_TOL * (1 + abs(one)),
+            f"(a) the data-parallel loss {dp!r} is not within "
+            f"{MULTIPROC_LOSS_TOL} of the one-process step's {one!r}")
+    moments = leader["step"]["moment_err"]
+    worst = max(moments, key=moments.get)
+    require(moments[worst] <= MULTIPROC_MOMENT_TOL,
+            f"(a) the data-parallel gradient (first AdamW moment) of "
+            f"{worst} is {moments[worst]:.3e} off the one-process step's "
+            f"(relative norm; at most {MULTIPROC_MOMENT_TOL})")
+    for r in (leader, follower, bob):
+        require(r["pushed_digest"] == leader["step"]["digest"],
+                f"(b) bob's copy of alice's tree differs from hers "
+                f"({r['party']} {r['pid']})")
+    require(bob["frames"]["n"] == bob["frames"]["edges"] > 0,
+            f"(b) bob decoded {bob['frames']['n']} frames from alice over "
+            f"{bob['frames']['edges']} edges: a follower sent one")
+    for r in alice:
+        require(r["held"]["digest"] == bob["bob_digest"],
+                f"(c) alice process {r['pid']} holds other bytes of bob's "
+                "tree than bob hashed")
+        want = [f"DTensor:{'cuda' if on_card else 'cpu'}:Replicate"]
+        require(r["held"]["placed"] == want,
+                f"(c) alice process {r['pid']} holds bob's tree as "
+                f"{r['held']['placed']}, not {want}")
+        require(r["agg_digest"] == leader["agg_digest"],
+                "(d) alice's two processes hold different aggregates")
+        require(r["fold_mismatched"] == 0,
+                f"(d) the aggregate differs from the CPU fold in "
+                f"{r['fold_mismatched']} elements (process {r['pid']})")
+        require(r["remote_error"] and r["remote_error"][0] == "FedRemoteError",
+                f"(e) bob's error reached alice process {r['pid']} as "
+                f"{r['remote_error']}")
+    require(leader["keys_left"] == [],
+            f"(f) relay keys left in the party's store: "
+            f"{leader['keys_left']}")
+    relays = [x for x in follower["relay"] if x["role"] == "follower"]
+    big = max(relays, key=lambda x: x["nbytes"])
+    # The leader encodes the value it received, on its receive callback
+    # before its own consumer gets it, then hands the bytes to the store
+    # or the bulk group: both delay the leader's copy of the task.
+    pub = [x for x in leader["relay"]
+           if x["role"] == "leader" and x["key"] == big["key"]]
+    require(len(pub) == 1, f"(c) the leader published {big['key']} "
+            f"{len(pub)} times")
+    print(f"[multiproc] {label} alice over two processes ({leader['backend']}"
+          f" party group), bob one; {wall:.1f} s from spawn to exit")
+    print(f"[multiproc] {label} (a) data-parallel step (data = 2, {batch} "
+          f"rows, each process half): ms {leader['step']['step_ms']:.1f} / "
+          f"{follower['step']['step_ms']:.1f}, loss {dp:.6f} against the "
+          f"one-process step's {one:.6f}; first AdamW moment off the "
+          f"one-process step's by at most {moments[worst]:.3e} ({worst}, "
+          f"relative norm, {len(moments)} leaves); bf16 launches "
+          f"{[{k: r['step']['launches'][k] for k in BF16_KERNELS} for r in alice]}")
+    print(f"[multiproc] {label} (c) relay of bob's tree to the follower: "
+          f"{big['nbytes']} B in {big['relay_ms']:.1f} ms "
+          f"({big['nbytes'] / big['relay_ms'] / 1e6:.3f} GB/s, from the "
+          f"leader's encode to the bytes at the follower; the follower "
+          f"waited and received for {big['get_ms']:.1f} ms, decoded and "
+          f"placed in {big['decode_ms']:.1f} ms; the leader encoded it in "
+          f"{pub[0]['encode_ms']:.1f} ms and handed it on in "
+          f"{pub[0]['set_ms']:.1f} ms); {len(relays)} values relayed, "
+          f"{sum(x['nbytes'] for x in relays)} B in all")
+    print(f"[multiproc] {label} (b) bob decoded {bob['frames']['n']} frames "
+          f"from alice over {bob['frames']['edges']} edges; (d) aggregate "
+          f"bitwise the CPU fold in both processes; (e) {leader['remote_error']}"
+          f"; (f) no relay key left")
+    return {k: leader["step"]["launches"][k] + follower["step"]["launches"][k]
+            for k in BF16_KERNELS}
+
+
+def run_multiproc(smi):
+    """Phase 15 at the flagship width, depth PARTY_LAYERS."""
+    print("[multiproc] reduced " + json.dumps(
+        {"n_layers": [FLAGSHIP["n_layers"], PARTY_LAYERS]}))
+    t = _phase_begin(15)
+    launches = phase_multiproc("cuda", _flagship_cfg(PARTY_LAYERS),
+                               batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
+                               label=f"on {smi}:")
+    _phase_wall(15, t, smi)
+    return launches
 
 
 def _flagship_cfg(n_layers, shape=FLAGSHIP):
@@ -5771,13 +6365,16 @@ def _flagship_cfg(n_layers, shape=FLAGSHIP):
 
 
 def run_family(smi):
-    """Phase 9 at the flagship width, depth cut as phase 4's."""
+    """Phase 9 at the flagship width, depth cut as phase 4's; (b), the
+    LoRA program's party processes, at depth PARTY_LAYERS."""
     print("[family] reduced " + json.dumps(
-        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
-    t = time.perf_counter()
+        {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS],
+         "(b) n_layers": [FLAGSHIP["n_layers"], PARTY_LAYERS]}))
+    t = _phase_begin(9)
     out = phase_family("cuda", _flagship_cfg(SMOKE_LAYERS),
                        batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
-                       label=f"on {smi}:")
+                       label=f"on {smi}:",
+                       lora_cfg=_flagship_cfg(PARTY_LAYERS))
     _phase_wall(9, t, smi)
     return out
 
@@ -5785,12 +6382,14 @@ def run_family(smi):
 def main(argv):
     import torch
 
-    t0 = time.perf_counter()
+    start_watchdog()
+    t0 = _phase_begin(1)
     name, smi = phase_device()
+    start_party_server()
     _phase_wall(1, t0, smi)
     if argv == ["--wide-only"]:
         # Phases 2 and 12 alone, in a fresh process (no kernel line).
-        t = time.perf_counter()
+        t = _phase_begin(2)
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
         run_wide(smi)
@@ -5798,9 +6397,19 @@ def main(argv):
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
         return
+    if argv == ["--multiproc-only"]:
+        # Phases 2 and 15 alone, in a fresh process (no kernel line).
+        t = _phase_begin(2)
+        phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
+        _phase_wall(2, t, smi)
+        run_multiproc(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if argv == ["--sharded-only"]:
         # Phases 2 and 14 alone, in a fresh process (no kernel line).
-        t = time.perf_counter()
+        t = _phase_begin(2)
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
         run_sharded(smi)
@@ -5810,7 +6419,7 @@ def main(argv):
         return
     if argv == ["--ops-only"]:
         # Phases 2 and 13 alone, in a fresh process (no kernel line).
-        t = time.perf_counter()
+        t = _phase_begin(2)
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
         run_ops(smi)
@@ -5820,7 +6429,7 @@ def main(argv):
         return
     if argv == ["--dma-only"]:
         # Phases 2 and 11 alone, in a fresh process (no kernel line).
-        t = time.perf_counter()
+        t = _phase_begin(2)
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
         run_dma(smi)
@@ -5830,7 +6439,7 @@ def main(argv):
         return
     if argv == ["--privacy-only"]:
         # Phases 2 and 10 alone, in a fresh process (no kernel line).
-        t = time.perf_counter()
+        t = _phase_begin(2)
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
         run_privacy(smi)
@@ -5840,7 +6449,7 @@ def main(argv):
         return
     if argv == ["--family-only"]:
         # Phases 2 and 9 alone, in a fresh process (no kernel line).
-        t = time.perf_counter()
+        t = _phase_begin(2)
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
         run_family(smi)
@@ -5850,13 +6459,13 @@ def main(argv):
         return
     if argv == ["--async-only"]:
         # Phases 2 and 8 alone, in a fresh process (no kernel line).
-        t = time.perf_counter()
+        t = _phase_begin(2)
         phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
         _phase_wall(2, t, smi)
-        t = time.perf_counter()
+        t = _phase_begin(8)
         print("[async] reduced " + json.dumps(
-            {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}))
-        phase_async("cuda", _flagship_cfg(SMOKE_LAYERS),
+            {"n_layers": [FLAGSHIP["n_layers"], PARTY_LAYERS]}))
+        phase_async("cuda", _flagship_cfg(PARTY_LAYERS),
                     batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                     label=f"on {smi}:")
         _phase_wall(8, t, smi)
@@ -5874,12 +6483,12 @@ def main(argv):
     require(not argv, f"unknown arguments {argv}; the options are "
                       "--serving-only, --async-only, --family-only, "
                       "--privacy-only, --dma-only, --wide-only, "
-                      "--ops-only and --sharded-only")
-    t = time.perf_counter()
+                      "--ops-only, --sharded-only and --multiproc-only")
+    t = _phase_begin(2)
     phase_build(FLAGSHIP["d_model"] // FLAGSHIP["n_heads"])
     _phase_wall(2, t, smi)
 
-    t = time.perf_counter()
+    t = _phase_begin(3)
     kern = phase_kernels("cuda", FLAGSHIP["batch"], FLAGSHIP["seq"],
                          FLAGSHIP["n_heads"],
                          FLAGSHIP["d_model"] // FLAGSHIP["n_heads"], smi)
@@ -5888,7 +6497,7 @@ def main(argv):
     cfg = _flagship_cfg(SMOKE_LAYERS)
     reduced = {"n_layers": [FLAGSHIP["n_layers"], SMOKE_LAYERS]}
     print("[slice] reduced " + json.dumps(reduced))
-    t = time.perf_counter()
+    t = _phase_begin(4)
     summary = phase_slice("cuda", cfg, batch=FLAGSHIP["batch"],
                           seq=FLAGSHIP["seq"], label=f"on {smi}:")
     _phase_wall(4, t, smi)
@@ -5905,7 +6514,7 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     print("[f32] reduced " + json.dumps(reduced))
-    t = time.perf_counter()
+    t = _phase_begin("4b")
     f32 = phase_f32("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
                     label=f"on {smi}:")
     _phase_wall("4b", t, smi)
@@ -5917,25 +6526,29 @@ def main(argv):
     launches.update({n: f32["launches"][n] for n in F32_KERNELS})
     gc.collect()
     torch.cuda.empty_cache()
+    party_cfg = _flagship_cfg(PARTY_LAYERS)
+    reduced = {"n_layers": [FLAGSHIP["n_layers"], PARTY_LAYERS]}
     print("[fed] reduced " + json.dumps(reduced))
-    t = time.perf_counter()
-    fed = {io: phase_fed("cuda", cfg, batch=FLAGSHIP["batch"],
+    t = _phase_begin(5)
+    # The Python IO path's run repeats the native run's checks on one
+    # round: it is there for the split beside the native one.
+    fed = {io: phase_fed("cuda", party_cfg, batch=FLAGSHIP["batch"],
                          seq=FLAGSHIP["seq"], label=f"on {smi} ({io} IO):",
-                         io_path=io)
-           for io in ("native", "python")}
+                         io_path=io, rounds=rounds)
+           for io, rounds in (("native", FED_ROUNDS), ("python", 1))}
     compare_io_paths(fed)
     _phase_wall(5, t, smi)
     print("[programs] reduced " + json.dumps(reduced))
-    t = time.perf_counter()
-    phase_programs("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
-                   label=f"on {smi}:")
+    t = _phase_begin(6)
+    phase_programs("cuda", party_cfg, batch=FLAGSHIP["batch"],
+                   seq=FLAGSHIP["seq"], label=f"on {smi}:")
     _phase_wall(6, t, smi)
 
     import dataclasses
 
     gc.collect()
     torch.cuda.empty_cache()
-    t = time.perf_counter()
+    t = _phase_begin(7)
     print("[serve] reduced " + json.dumps(
         {"n_layers": [FLAGSHIP["n_layers"], SERVE_LAYERS]}))
     phase_serving_all(dataclasses.replace(cfg, n_layers=SERVE_LAYERS), smi)
@@ -5943,9 +6556,9 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     print("[async] reduced " + json.dumps(reduced))
-    t = time.perf_counter()
-    phase_async("cuda", cfg, batch=FLAGSHIP["batch"], seq=FLAGSHIP["seq"],
-                label=f"on {smi}:")
+    t = _phase_begin(8)
+    phase_async("cuda", party_cfg, batch=FLAGSHIP["batch"],
+                seq=FLAGSHIP["seq"], label=f"on {smi}:")
     _phase_wall(8, t, smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5986,7 +6599,14 @@ def main(argv):
     # Phase 14's sharded steps (bf16, D = 128), (a) and (b).
     for kern_name, n in run_sharded(smi).items():
         launches[kern_name] += n
-    print(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Phase 15's data-parallel step in both of alice's processes.
+    for kern_name, n in run_multiproc(smi).items():
+        launches[kern_name] += n
+    print(f"[total] {time.perf_counter() - t0:.1f} s (budget "
+          f"{sum(PHASE_BUDGET_S.values())} s, watchdog {WATCHDOG_S} s) on "
+          f"{smi}")
 
     line = []
     for k in KERNELS:

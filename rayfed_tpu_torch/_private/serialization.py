@@ -465,6 +465,45 @@ def _tensor_to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return t.view(torch.int16).numpy(), name
 
 
+class ShardedLeaf:
+    """A leaf that crosses the wire as the JAX package's ``sharr``
+    descriptor: a DTensor sharded over a multi-process party's ranks,
+    with every distinct shard in hand (``proxy/barriers.py`` gathers the
+    followers' shards to the leader). ``mesh_axes`` / ``mesh_shape`` are
+    the DeviceMesh's dims, ``spec`` one entry a tensor dim (None, a mesh
+    dim name or a list of them, as the JAX package's ``PartitionSpec``),
+    ``shards`` ``[(region, tensor)]`` with ``region`` ``[[start, stop],
+    ...]`` a dim, one a distinct shard."""
+
+    def __init__(self, dtype: torch.dtype, shape, mesh_axes, mesh_shape,
+                 spec, shards) -> None:
+        self.dtype = dtype
+        self.shape = [int(d) for d in shape]
+        self.mesh_axes = [str(a) for a in mesh_axes]
+        self.mesh_shape = [int(d) for d in mesh_shape]
+        self.spec = list(spec)
+        self.shards = sorted(shards, key=lambda e: tuple(
+            a for ab in e[0] for a in ab))
+
+    def encode(self, offset: int):
+        """(desc, buffers, nbytes) of the ``sharr`` leaf at ``offset``,
+        shards in the JAX package's order (by region)."""
+        descs, buffers, total, name = [], [], 0, None
+        for region, t in self.shards:
+            arr, name = _tensor_to_host(t)
+            buffers.append(_array_buffer(arr))
+            descs.append({"i": [list(r) for r in region],
+                          "off": offset + total, "n": arr.nbytes})
+            total += arr.nbytes
+        desc = {"t": "sharr",
+                "dtype": name or _CARRIED_NAMES.get(self.dtype)
+                or str(self.dtype).replace("torch.", ""),
+                "shape": self.shape,
+                "mesh": {"axes": self.mesh_axes, "shape": self.mesh_shape},
+                "spec": self.spec, "shards": descs}
+        return desc, buffers, total
+
+
 def _downcast(arr: np.ndarray, wire_dtype: str) -> np.ndarray:
     """The lossy wire cast of a native-order f32/f64 host array, rounded
     bit for bit as the JAX package rounds it: numpy's cast to float16;
@@ -597,7 +636,12 @@ def try_encode_tree(
     buffers: List[Any] = []
     offset = 0
     for leaf in leaves:
-        if _is_array_leaf(leaf):
+        if isinstance(leaf, ShardedLeaf):
+            desc, bufs, nbytes = leaf.encode(offset)
+            descs.append(desc)
+            buffers.extend(bufs)
+            offset += nbytes
+        elif _is_array_leaf(leaf):
             if isinstance(leaf, torch.Tensor):
                 host = None
             else:

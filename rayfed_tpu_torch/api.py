@@ -27,7 +27,12 @@ Differences from the reference (SURVEY.md §7):
    it, CUDA tensors staged to host when the pushed value resolves;
  - ``transport='cuda'`` (the JAX package's ``'tpu'``) additionally places
    received tensors on the party's card, bound by ``init`` from
-   ``config['party_mesh']`` (one device) or the current card.
+   ``config['party_mesh']`` (one device) or the current card;
+ - a party over several processes (``config['jax_distributed']``) joins a
+   ``torch.distributed`` group (``mesh.init_distributed``) in place of
+   the JAX coordination service; its leader (process 0) owns the wire and
+   relays what it receives to the followers over the group. The group
+   outlives ``shutdown``, as ``jax.distributed``'s does.
 
 This package ports the JAX package's engine without the planes still to
 port (ROADMAP Queue 1): ``init`` refuses their config blocks, before any
@@ -70,10 +75,6 @@ logger = logging.getLogger(__name__)
 # Config blocks of planes this package has not ported yet -> the ROADMAP
 # Queue 1 item that brings each. None of them is stubbed to succeed.
 _UNPORTED_BLOCKS = {
-    "jax_distributed": (
-        "multi-process parties (torch.distributed over a TCPStore) are "
-        "ROADMAP Queue 1 item 17"
-    ),
     "collective": (
         "the cross-party collective lane is ROADMAP Queue 1 item 12b"
     ),
@@ -157,9 +158,15 @@ def init(
             validated strictly before any state is built, and so is
             ``telemetry`` (:class:`~rayfed_tpu_torch.telemetry.config.TelemetryConfig`:
             the per-party agent, and the collector with its optional
-            HTTP endpoint at the collector party). The blocks of planes
-            not ported yet (``jax_distributed``, ``collective``) and a
-            ``party_mesh`` over more than one device are refused.
+            HTTP endpoint at the collector party).
+            ``jax_distributed`` (``coordinator_address``,
+            ``num_processes``, ``process_id``, optional
+            ``local_device_ids``) makes this process one of a party's
+            processes: process 0, the leader, owns the wire, the KV's
+            clearing and the resilience, membership, privacy and
+            telemetry planes; a ``party_mesh`` over several devices then
+            spans the party group's ranks. The block of the plane not
+            ported yet (``collective``) is refused.
         tls_config: ``{ca_cert, cert, key}`` file paths for mutual TLS.
         logging_level: root logging level.
         sender_proxy_cls / receiver_proxy_cls: custom transport classes
@@ -184,6 +191,23 @@ def init(
     config = config or {}
     transport = transport or config.get("transport", "tcp")
     comm_dict = config.get("cross_silo_comm") or {}
+    # A party over several processes: config['jax_distributed'] =
+    # {coordinator_address, num_processes, process_id} joins THIS party's
+    # processes into one torch.distributed group. Process 0 is the party
+    # leader: it alone owns the wire; followers run the same program.
+    jax_dist = config.get("jax_distributed")
+    party_process_id = int(jax_dist.get("process_id", 0)) if jax_dist else 0
+    party_num_processes = (
+        int(jax_dist.get("num_processes", 1)) if jax_dist else 1
+    )
+    if config.get("collective") is not None and party_num_processes > 1:
+        raise ValueError(
+            "config['collective'] and a multi-host party "
+            "(config['jax_distributed']) cannot share a process: the "
+            "party's private process group would be mistaken for the "
+            "joint all-parties group. Aggregate multi-host parties over "
+            "the push lane."
+        )
     if (
         transport == "grpc"
         and isinstance(comm_dict, dict)
@@ -244,18 +268,24 @@ def init(
         from rayfed_tpu_torch import async_rounds as _async_rounds
 
         _async_rounds.validate_async_config(aggregation_dict)
-    # The party's card: bound when the job places on it (transport
-    # 'cuda') or names it (party_mesh); resolved here so a multi-device
-    # mesh, or no card at all, is refused before any state is built.
+    # The party's device: bound when the job places on it (transport
+    # 'cuda'), names it (party_mesh) or spans several processes;
+    # resolved here so a mesh over several devices in one process, or no
+    # card at all, is refused before any state is built.
     party_mesh_dict = config.get("party_mesh")
     party_mesh_cfg = None
-    if party_mesh_dict is not None or transport == "cuda":
+    local_device_ids = (jax_dist or {}).get("local_device_ids")
+    binds_device = (party_mesh_dict is not None or transport == "cuda"
+                    or jax_dist is not None)
+    if binds_device:
         from rayfed_tpu_torch import mesh as fed_mesh
 
         if party_mesh_dict is not None:
             party_mesh_cfg = fed_config.PartyMeshConfig.from_dict(
                 party_mesh_dict)
-        fed_mesh.resolve_party_device(party_mesh_cfg)
+        fed_mesh.resolve_party_device(
+            party_mesh_cfg, num_processes=party_num_processes,
+            local_device_ids=local_device_ids)
 
     if job_name is None:
         job_name = constants.DEFAULT_JOB_NAME
@@ -297,14 +327,26 @@ def init(
         continue_waiting_for_data_sending_on_error=(
             cross_silo_comm_config.continue_waiting_for_data_sending_on_error
         ),
-        # Every party is one process (multi-process parties are refused
-        # above): this process is the party's leader and owns the wire.
-        party_process_id=0,
-        party_num_processes=1,
+        party_process_id=party_process_id,
+        party_num_processes=party_num_processes,
     )
 
-    if party_mesh_dict is not None or transport == "cuda":
-        fed_mesh.init_party_device(party_mesh_cfg)
+    if binds_device:
+        fed_mesh.init_party_device(
+            party_mesh_cfg, num_processes=party_num_processes,
+            local_device_ids=local_device_ids)
+    if jax_dist is not None:
+        # The party's processes join their group (the JAX package's
+        # jax.distributed join), on the job's receive deadline, and its
+        # mesh spans the group's ranks.
+        recv_ms = cross_silo_comm_config.recv_timeout_in_ms
+        fed_mesh.init_distributed(
+            jax_dist["coordinator_address"], party_num_processes,
+            party_process_id, local_device_ids,
+            device=fed_mesh.get_party_device(),
+            timeout_s=recv_ms / 1000 if recv_ms else None)
+        if party_num_processes > 1:
+            fed_mesh.init_party_mesh(party_mesh_cfg)
 
     tls_config = {} if tls_config is None else tls_config
     if tls_config:
@@ -314,12 +356,13 @@ def init(
 
     kv_store = config.get("kv_store")
     if kv_store is not None:
-        # Shared (file-backed) KV; this single-process party is its
-        # leader, so it clears it on shutdown.
+        # Shared (file-backed) KV so every process of a multi-process
+        # party reads the same cluster/job config; only the leader clears
+        # it on shutdown.
         internal_kv.kv_configure(
             backend=kv_store.get("backend", "memory"),
             path=kv_store.get("path"),
-            clear_on_reset=True,
+            clear_on_reset=party_process_id == 0,
         )
     internal_kv.kv_initialize(job_name)
     cluster_config = {
@@ -356,7 +399,15 @@ def init(
     )
 
     use_global_proxy = cross_silo_comm_dict.get("use_global_proxy", True)
-    if receiver_sender_proxy_cls is not None:
+    if party_process_id != 0:
+        # Follower process of a multi-process party: the leader owns the
+        # wire (listen port, sends, receives); this process runs the
+        # party's tasks and gets received values from the leader's relay.
+        logger.info(
+            "Joined party %s as follower process %d; proxies stay on the "
+            "leader.", party, party_process_id,
+        )
+    elif receiver_sender_proxy_cls is not None:
         barriers.start_sender_receiver_proxy(
             addresses=addresses,
             party=party,
@@ -423,7 +474,7 @@ def init(
     # sender, so a partitioned link takes the heartbeats down with the
     # data.
     resilience_dict = config.get("resilience") or {}
-    if resilience_dict:
+    if resilience_dict and party_process_id == 0:
         from rayfed_tpu_torch.resilience import inject as _inject
         from rayfed_tpu_torch.resilience import liveness as _liveness
 
@@ -456,7 +507,7 @@ def init(
     # coordinator control handler + liveness DEAD escalation). AFTER the
     # resilience block — the coordinator's manager wires itself onto the
     # just-started monitor.
-    if membership_cfg is not None:
+    if membership_cfg is not None and party_process_id == 0:
         from rayfed_tpu_torch.membership import (
             MembershipManager,
             MembershipView,
@@ -485,9 +536,9 @@ def init(
 
     # Privacy plane (docs/privacy.md): the manager owns the pairwise seed
     # store and the ``prv:`` control handler. AFTER membership (dropout
-    # recovery consults the roster). This process is the party's leader,
-    # which owns the control handlers.
-    if privacy_cfg is not None:
+    # recovery consults the roster). Only the party's leader, which owns
+    # the control handlers.
+    if privacy_cfg is not None and party_process_id == 0:
         from rayfed_tpu_torch.privacy.manager import install_privacy
 
         install_privacy(job_name, party, privacy_cfg)
@@ -496,12 +547,12 @@ def init(
     # the collector/HTTP endpoint at the collector party. AFTER the
     # membership block so the collector's fleet view can consult the
     # installed manager from its first scrape.
-    if telemetry_cfg is not None:
+    if telemetry_cfg is not None and party_process_id == 0:
         from rayfed_tpu_torch import telemetry as _telemetry
 
         _telemetry.start(job_name, party, dict(addresses), telemetry_cfg)
 
-    if config.get("barrier_on_initializing", False):
+    if config.get("barrier_on_initializing", False) and party_process_id == 0:
         barriers.ping_others(addresses=addresses, self_party=party, max_retries=3600)
 
 
@@ -629,6 +680,9 @@ def _shutdown_impl(intended: bool = True):
     if _serving_client is not None:
         _serving_client.set_default_serving_config(None)
     barriers.stop_proxies(job_name=ctx.get_job_name())
+    # A multi-process party's group outlives the job, as the JAX
+    # package's jax.distributed group does: a later init reuses it
+    # (mesh.shutdown_distributed destroys it).
     fed_config.reset_config_cache()
     # FedSanitizer probe state is per-job: a new job's seq ids start over,
     # so the monotonicity watermarks (and the other probe maps) must not

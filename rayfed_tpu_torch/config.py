@@ -468,22 +468,27 @@ GrpcCrossSiloMessageConfig = TcpCrossSiloMessageConfig
 
 @dataclasses.dataclass
 class PartyMeshConfig:
-    """Device topology for one party (no reference equivalent). In this
-    package a party runs on one card (``mesh.resolve_party_device``): a
-    mesh over more than one device is a multi-process party (ROADMAP
-    Queue 1 item 17), and ``fed.init`` refuses it until then.
+    """Device topology for one party (no reference equivalent). A
+    one-process party runs on one card (``mesh.resolve_party_device``);
+    in torch a mesh over several devices takes one process per device, a
+    multi-process party (``config["jax_distributed"]``), whose mesh is a
+    DeviceMesh over its process group's ranks (``mesh.init_party_mesh``).
 
     Attributes:
-        device_ids: CUDA device indices (``cuda:<i>``) forming this
-            party's mesh, one entry (None = all local devices, which must
-            be one).
-        mesh_shape: logical mesh shape over those devices (one device).
+        device_ids: one process: the CUDA device index (``cuda:<i>``) of
+            the party's card, one entry (None = all local devices, which
+            must be one). Several processes: the group ranks forming the
+            mesh (None = all).
+        mesh_shape: logical mesh shape over those devices or ranks.
         axis_names: logical axis names, e.g. ("data",).
+        device_type: "cpu" asks for the CPU (the JAX package ignores the
+            key); None or "cuda", the party's card.
     """
 
     device_ids: Optional[List[int]] = None
     mesh_shape: Optional[List[int]] = None
     axis_names: Optional[List[str]] = None
+    device_type: Optional[str] = None
 
     @classmethod
     def from_dict(cls, data: Optional[Dict[str, Any]]) -> "PartyMeshConfig":

@@ -27,6 +27,7 @@ routes every data send's completion future into the cleanup drain queue
 from __future__ import annotations
 
 import logging
+import sys
 import time
 from concurrent.futures import Future
 from typing import Callable, Dict, Optional, Type
@@ -401,6 +402,16 @@ def send(
     upstream_seq_id = _stamp_epoch(upstream_seq_id)
     downstream_seq_id = _stamp_epoch(downstream_seq_id)
     ctx = get_global_context()
+    if ctx is not None and not ctx.is_party_leader():
+        # Follower process of a multi-process party: the leader's identical
+        # program performs the one real push for this DAG edge; this
+        # process hands the leader its shards of a sharded DTensor leaf.
+        _post_shards_at_resolution(
+            data, _shard_key(ctx.get_job_name(), upstream_seq_id,
+                             downstream_seq_id))
+        done: Future = Future()
+        done.set_result(True)
+        return done
     sp = _sender_proxies.peek()
     assert sp is not None, "sender proxy not started; call fed.init()"
     data = _capture_for_send(
@@ -464,7 +475,7 @@ def _host_snapshot(value, quantize: bool = False):
     devices = set()
     for x in leaves:
         if isinstance(x, torch.Tensor):
-            x = x.detach()
+            x = _local_whole(x).detach()
             if x.device.type == "cuda" and not (
                     quantize and x.is_floating_point()
                     and x.element_size() > 2):
@@ -476,6 +487,237 @@ def _host_snapshot(value, quantize: bool = False):
     for dev in devices:
         torch.cuda.synchronize(dev)
     return tree_util.tree_unflatten(out, spec)
+
+
+def _dtensor_type():
+    """``DTensor``, or None while ``torch.distributed.tensor`` has not
+    defined it: then no DTensor exists, and nothing is imported here (the
+    send path runs on many threads, and a first import racing another
+    thread's sees a partly initialized module)."""
+    return getattr(sys.modules.get("torch.distributed.tensor"), "DTensor",
+                   None)
+
+
+def _local_whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor leaf as the plain tensor of its whole value, which this
+    process holds when every placement replicates it (the dense path, as
+    the JAX package sends a replicated array). In a multi-process party a
+    sharded leaf took the ``sharr`` path before (:func:`_gather_shards`);
+    anywhere else, and for a ``Partial`` leaf, this process does not hold
+    the whole value, and the push fails."""
+    dtensor = _dtensor_type()
+    if dtensor is None or not isinstance(x, dtensor):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    if all(isinstance(p, Replicate) for p in x.placements):
+        return x.to_local()
+    raise ValueError(
+        f"a pushed DTensor placed {list(x.placements)} is not held whole by "
+        "this process: outside a multi-process party (config["
+        "'jax_distributed']) gather it first (sharding.gather_params)")
+
+
+#: Bytes of the largest value the party group's store carries itself.
+#: torch's TCPStore (its libuv server) refuses a message over 8 MiB, and
+#: its message path carried 0.088 GB/s between two processes on an H100
+#: machine's host, so a larger value goes point to point (:func:`_bulk_put`).
+STORE_INLINE = 4 << 20
+
+
+def _bulk_put(group, key: str, blob, dsts) -> None:
+    """``blob`` for the processes ``dsts`` under ``key`` in the party
+    group's store: up to :data:`STORE_INLINE` bytes the store holds the
+    value itself (``=`` and the bytes); a larger one goes point to point
+    over the party's gloo ``bulk`` group, tagged from a counter in the
+    store, which holds ``p2p:<tag>:<bytes>`` under ``key``. The sends are
+    waited on a thread, within the group's deadline."""
+    import threading
+    import warnings
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    store = group["store"]
+    if len(blob) <= STORE_INLINE:
+        store.set(key, b"=" + blob)
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # gloo only reads it
+        buf = torch.frombuffer(blob, dtype=torch.uint8)
+    tag = int(store.add("fedtpu_bulk_tag", 1))
+    store.set(key, f"p2p:{tag}:{len(blob)}")
+    works = [dist.isend(buf, dst=d, group=group["bulk"], tag=tag)
+             for d in dsts]
+
+    def wait(buf=buf):
+        for w in works:
+            try:
+                w.wait(timedelta(seconds=group["timeout_s"]))
+            except Exception:  # noqa: BLE001 - the receiver's wait reports
+                logger.warning("bulk send under %s failed", key,
+                               exc_info=True)
+
+    threading.Thread(target=wait, name="fedtpu-bulk-send",
+                     daemon=True).start()
+
+
+def _bulk_take(group, key: str, src: int, timeout_s: float, what: str):
+    """The value :func:`_bulk_put` put under ``key`` (sent by process
+    ``src``), waiting at most ``timeout_s`` for it; a ``TimeoutError``
+    names ``what`` and the key."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    store = group["store"]
+    try:
+        store.wait([key], timedelta(seconds=timeout_s))
+    except Exception as e:  # noqa: BLE001 - the store's timeout
+        raise TimeoutError(f"{what}: nothing under {key} within "
+                           f"{timeout_s} s") from e
+    head = store.get(key)
+    if head[:1] == b"=":
+        return memoryview(head)[1:]
+    _, tag, n = head.decode().split(":")
+    buf = torch.empty(int(n), dtype=torch.uint8)
+    try:
+        dist.irecv(buf, src=src, group=group["bulk"], tag=int(tag)).wait(
+            timedelta(seconds=timeout_s))
+    except Exception as e:  # noqa: BLE001 - gloo's timeout
+        raise TimeoutError(f"{what}: the {n} bytes under {key} did not "
+                           f"arrive within {timeout_s} s") from e
+    return memoryview(buf.numpy())
+
+
+def _shard_key(job_name: str, upstream_seq_id, downstream_seq_id) -> str:
+    return f"fedtpu_shards:{job_name}:{upstream_seq_id}:{downstream_seq_id}"
+
+
+def _sharded(x) -> bool:
+    """Whether ``x`` is a DTensor sharded over more than one rank."""
+    dtensor = _dtensor_type()
+    if dtensor is None or not isinstance(x, dtensor):
+        return False
+    from torch.distributed.tensor import Shard
+
+    return any(
+        isinstance(p, Shard) and x.device_mesh.size(i) > 1
+        for i, p in enumerate(x.placements))
+
+
+def _shard_owners(x) -> dict:
+    """{region: rank} of a sharded DTensor: each distinct shard's region
+    (``((start, stop), ...)`` a dim, ``torch.chunk``'s split, a dim
+    sharded over several mesh dims split in the mesh's order) and the
+    lowest rank that holds it."""
+    import itertools
+
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    ranks = mesh.mesh
+    owners: dict = {}
+    for coord in itertools.product(*(range(n) for n in ranks.shape)):
+        region = [[0, int(d)] for d in x.shape]
+        for i, p in enumerate(x.placements):
+            if isinstance(p, Shard):
+                a, b = region[p.dim]
+                chunk = -(-(b - a) // ranks.shape[i])
+                lo = min(a + coord[i] * chunk, b)
+                region[p.dim] = [lo, min(lo + chunk, b)]
+        key = tuple(tuple(r) for r in region)
+        rank = int(ranks[coord])
+        owners[key] = min(rank, owners.get(key, rank))
+    return owners
+
+
+def _post_shards_at_resolution(data, key_prefix: str) -> None:
+    """A follower's part of a push: when ``data`` resolves, its local
+    shards of every sharded DTensor leaf go to the party group's store
+    under ``key_prefix:<rank>``, if this rank owns a shard the leader
+    lacks (:func:`_shard_owners`)."""
+    from rayfed_tpu_torch import mesh
+
+    group = mesh.party_group()
+    if group is None:
+        return
+
+    def post(value) -> None:
+        try:
+            leaves = tree_util.tree_flatten(value)[0]
+        except Exception:  # noqa: BLE001 - unflattenable: nothing sharded
+            return
+        sharded = [x for x in leaves if _sharded(x)]
+        if not any(group["rank"] in _shard_owners(x).values()
+                   for x in sharded):
+            return
+        blob, _ = _relay_encode([x.to_local() for x in sharded], False)
+        _bulk_put(group, f"{key_prefix}:{group['rank']}", blob, [0])
+
+    if not isinstance(data, Future):
+        post(data)
+        return
+
+    def resolved(f: Future) -> None:
+        if f.exception() is None:
+            try:
+                post(f.result())
+            except Exception:  # noqa: BLE001 - the leader's wait reports it
+                logger.warning("failed to post shards under %s",
+                               key_prefix, exc_info=True)
+
+    data.add_done_callback(resolved)
+
+
+def _gather_shards(value, key_prefix: str):
+    """The leader's part of a push: every sharded DTensor leaf of
+    ``value`` becomes a ``ShardedLeaf`` (the ``sharr`` descriptor) with
+    each distinct shard, its own and those the followers posted under
+    ``key_prefix:<rank>`` (read within the party group's deadline, then
+    deleted), and every replicated one its local, whole tensor. Anything
+    else is left as it is."""
+    from rayfed_tpu_torch import mesh
+    from rayfed_tpu_torch._private.serialization import ShardedLeaf
+
+    group = mesh.party_group()
+    if group is None:
+        return value
+    try:
+        leaves, spec = tree_util.tree_flatten(value)
+    except Exception:  # noqa: BLE001 - unflattenable: nothing sharded
+        return value
+    idx = [i for i, x in enumerate(leaves) if _sharded(x)]
+    leaves = [x if i in idx or not isinstance(x, torch.Tensor)
+              else _local_whole(x) for i, x in enumerate(leaves)]
+    if not idx:
+        return tree_util.tree_unflatten(leaves, spec)
+    # A DTensor exists, so its module is fully imported.
+    from torch.distributed.tensor import Shard
+
+    owners = {i: _shard_owners(leaves[i]) for i in idx}
+    me, store = group["rank"], group["store"]
+    posted = {}
+    for rank in sorted({r for i in idx for r in owners[i].values()} - {me}):
+        key = f"{key_prefix}:{rank}"
+        posted[rank] = _relay_decode(_bulk_take(
+            group, key, rank, group["timeout_s"],
+            f"the party leader's shards from process {rank}"))[0]
+        store.delete_key(key)
+    for j, i in enumerate(idx):
+        x = leaves[i]
+        dm = x.device_mesh
+        names = list(dm.mesh_dim_names or
+                     [f"dim{k}" for k in range(dm.ndim)])
+        dims = [[names[k] for k, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim == d]
+                for d in range(x.ndim)]
+        leaves[i] = ShardedLeaf(
+            x.dtype, x.shape, names, list(dm.shape),
+            [None if not n else n[0] if len(n) == 1 else n for n in dims],
+            [(region, x.to_local() if rank == me else posted[rank][j])
+             for region, rank in owners[i].items()])
+    return tree_util.tree_unflatten(leaves, spec)
 
 
 def _capture_for_send(dest_party: str, data, upstream_seq_id="",
@@ -509,18 +751,27 @@ def _capture_for_send(dest_party: str, data, upstream_seq_id="",
     it was captured, fails the send (the peer gets an error envelope)
     instead of shipping bytes the producer never returned."""
 
+    ctx = get_global_context()
+    key_prefix = None
+    if ctx is not None and ctx.get_party_num_processes() > 1:
+        key_prefix = _shard_key(ctx.get_job_name(), upstream_seq_id,
+                                downstream_seq_id)
+
     def capture(value, versions=None):
         with tracing.span(
             "stage", dest_party, str(upstream_seq_id), str(downstream_seq_id)
         ) as sp:
             _check_unmutated(value, versions)
+            whole = value
+            if key_prefix is not None:
+                whole = _gather_shards(value, key_prefix)
             out = None
             if dma_device is not None:
                 from rayfed_tpu_torch.proxy.cuda import dma
 
-                out = dma.snapshot(value, dma_device)
+                out = dma.snapshot(whole, dma_device)
             if out is None:
-                out = _host_snapshot(value, quantize)
+                out = _host_snapshot(whole, quantize)
                 sp.set_nbytes(_tensor_nbytes(out))
             else:
                 sp.set_nbytes(out.nbytes)
@@ -572,10 +823,205 @@ def _tensor_nbytes(value) -> int:
     return sum(x.nbytes for x in leaves if isinstance(x, torch.Tensor))
 
 
+def _relay_key(job_name: str, upstream_seq_id, curr_seq_id) -> str:
+    return f"fedtpu_relay:{job_name}:{upstream_seq_id}:{curr_seq_id}"
+
+
+#: The relay's per-value records, newest last (bounded):
+#: ``{"key", "role", "nbytes", "encode_ms", "set_ms"}`` at the leader,
+#: ``{"key", "role", "nbytes", "relay_ms", "get_ms", "decode_ms"}`` at a
+#: follower (``relay_ms``: from the leader's encode to the value in hand,
+#: on the host's clock).
+_relay_log: list = []
+_RELAY_LOG_MAX = 1024
+# Relay keys the leader published this process's life, for the check
+# that the followers' acks deleted them (``relay_keys_left``).
+_relay_published: list = []
+
+
+def _relay_record(rec: dict) -> None:
+    _relay_log.append(rec)
+    del _relay_log[:-_RELAY_LOG_MAX]
+
+
+def relay_stats() -> list:
+    """The relay's records in this process (see ``_relay_log``)."""
+    return list(_relay_log)
+
+
+def relay_keys_left() -> list:
+    """The relay keys this leader published that are still in the party
+    group's store (the last follower's ack deletes each)."""
+    from rayfed_tpu_torch import mesh
+
+    group = mesh.party_group()
+    if group is None:
+        return []
+    store = group["store"]
+    return [k for k in _relay_published if store.check([k])]
+
+
+def _relay_encode(value, is_error: bool) -> tuple:
+    """The relay's bytes of ``value``: a 4-byte header length, a msgpack
+    header (payload kind and meta, the error flag, whether the tensor
+    leaves were on a card, the encode's start on the host's clock) and
+    the port's serialization of the payload (``_private/serialization``).
+    The relay is internal to the party, so it needs no JAX-package
+    reader. Returns (blob, payload bytes)."""
+    import struct
+
+    from rayfed_tpu_torch._private import msgpack_codec as msgpack
+    from rayfed_tpu_torch._private import serialization
+
+    t0 = time.time()
+    on_card = False
+    try:
+        leaves = tree_util.tree_flatten(value)[0]
+        on_card = any(isinstance(x, torch.Tensor) and x.device.type == "cuda"
+                      for x in leaves)
+    except Exception:  # noqa: BLE001 - unflattenable values use pickle
+        pass
+    kind, meta, buffers = serialization.encode_payload(value)
+    head = msgpack.packb({"k": kind, "m": meta, "e": bool(is_error),
+                          "c": on_card, "t": t0}, use_bin_type=True)
+    return (b"".join([struct.pack("<I", len(head)), head, *buffers]),
+            sum(memoryview(b).nbytes for b in buffers))
+
+
+def _relay_decode(blob: bytes):
+    """(value, is_error, leaves were on a card, encode start)."""
+    import struct
+
+    from rayfed_tpu_torch._private import msgpack_codec as msgpack
+    from rayfed_tpu_torch._private import serialization
+
+    (n,) = struct.unpack_from("<I", blob, 0)
+    head = msgpack.unpackb(bytes(blob[4:4 + n]), raw=False)
+    payload = memoryview(blob)[4 + n:]
+    # Intra-party channel: the bytes come from this party's own leader
+    # over its private store (one trust domain), so the pickle lane
+    # (error envelopes) decodes unrestricted.
+    value = serialization.decode_payload(head["k"], head["m"], payload)
+    return value, bool(head["e"]), bool(head["c"]), float(head["t"])
+
+
+def _relay_publish(group, key: str, value, is_error: bool) -> None:
+    """The leader's side: ``value`` (or its error) under ``key`` in the
+    party group's store, its bytes point to point when they are many
+    (:func:`_bulk_put`). A value that cannot be
+    encoded or stored publishes an error instead, so the followers fail
+    fast rather than wait out their deadline; nothing raises here (the
+    leader's own consumer must get its value either way)."""
+    t0 = time.perf_counter()
+    try:
+        blob, nbytes = _relay_encode(value, is_error)
+        t1 = time.perf_counter()
+        _bulk_put(group, key, blob, range(1, group["world"]))
+    except Exception as e:  # noqa: BLE001 - reported to the followers
+        logger.warning("failed to relay a received value to the party's "
+                       "followers", exc_info=True)
+        try:
+            blob, nbytes = _relay_encode(RuntimeError(
+                f"the party leader could not relay the received value: "
+                f"{e!r}"), True)
+            t1 = time.perf_counter()
+            group["store"].set(key, b"=" + blob)
+        except Exception:  # noqa: BLE001 - the followers' deadline reports
+            logger.warning("failed to relay the error either",
+                           exc_info=True)
+            return
+    _relay_published.append(key)
+    del _relay_published[:-_RELAY_LOG_MAX]
+    _relay_record(dict(key=key, role="leader", nbytes=nbytes,
+                       encode_ms=1e3 * (t1 - t0),
+                       set_ms=1e3 * (time.perf_counter() - t1)))
+
+
+def _relay_timeout_s(ctx, group) -> float:
+    """A follower's relay deadline: the job's receive deadline
+    (``cross_silo_comm.recv_timeout_in_ms``), else the party group's."""
+    from rayfed_tpu_torch import config as fed_config
+
+    comm = fed_config.CrossSiloMessageConfig.from_dict(
+        fed_config.get_job_config(ctx.get_job_name())
+        .cross_silo_comm_config_dict)
+    if comm.recv_timeout_in_ms:
+        return comm.recv_timeout_in_ms / 1000
+    return group["timeout_s"]
+
+
+def _relay_fetch(ctx, key: str) -> Future:
+    """A follower's side: the leader's relayed value (or its error) for
+    ``key``, placed as the leader's value is (on this process's card when
+    the leader's leaves were on its card, then on the party mesh). The
+    last follower's ack deletes the key. A value that does not come
+    within the deadline fails the future, naming the key."""
+    import threading
+
+    from rayfed_tpu_torch import mesh
+
+    out: Future = Future()
+    group = mesh.party_group()
+    if group is None:
+        out.set_exception(RuntimeError(
+            "follower process has no party group to receive relayed values "
+            "from (was jax_distributed configured?)"))
+        return out
+    store = group["store"]
+    timeout_s = _relay_timeout_s(ctx, group)
+    n_followers = group["world"] - 1
+
+    def fetch() -> None:
+        t0 = time.perf_counter()
+        try:
+            blob = _bulk_take(group, key, 0, timeout_s,
+                              f"follower process {group['rank']}'s relay")
+            t1 = time.perf_counter()
+            value, is_error, on_card, t_enc = _relay_decode(blob)
+            if on_card and not is_error:
+                dev = mesh.get_party_device()
+                value = tree_util.tree_map(
+                    lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                    else x, value)
+            if not is_error:
+                value = mesh.place_received(value)
+            _relay_record(dict(
+                key=key, role="follower", nbytes=len(blob),
+                relay_ms=1e3 * (time.time() - t_enc),
+                get_ms=1e3 * (t1 - t0),
+                decode_ms=1e3 * (time.perf_counter() - t1)))
+            del blob
+        except BaseException as e:  # noqa: BLE001 - surfaced to the get
+            out.set_exception(e)
+            return
+        try:
+            if store.add(f"{key}:ack", 1) >= n_followers:
+                store.delete_key(key)
+                store.delete_key(f"{key}:ack")
+        except Exception:  # noqa: BLE001 - the check reads what is left
+            logger.warning("relay ack of %s failed", key, exc_info=True)
+        if is_error and isinstance(value, BaseException):
+            if isinstance(value, FedRemoteError):
+                ctx.set_last_received_error(value)
+            out.set_exception(value)
+        else:
+            executor.set_result_versioned(out, value)
+
+    threading.Thread(target=fetch, name="fedtpu-relay-recv",
+                     daemon=True).start()
+    return out
+
+
 def recv(party: str, src_party: str, upstream_seq_id, curr_seq_id) -> Future:
     """Future for data addressed to (upstream_seq_id, curr_seq_id). If the
     payload is a FedRemoteError envelope, the future raises it and the error
     is recorded on the context (ref ``barriers.py:222-234``).
+
+    In a multi-process party the leader makes the one wire receive and
+    relays the value, or its error, to the followers through the party
+    group (:func:`_bulk_put`; the JAX package relays over its
+    coordination service); every process's copy of the consuming task gets its
+    arguments, placed on the party mesh when it spans several ranks.
 
     The seq-id pair ``("ping", "ping")`` is reserved for the readiness
     barrier (see ``send``); no payload ever arrives under it, so waiting
@@ -583,17 +1029,35 @@ def recv(party: str, src_party: str, upstream_seq_id, curr_seq_id) -> Future:
     _reject_reserved_seq_ids(upstream_seq_id, curr_seq_id)
     upstream_seq_id = _stamp_epoch(upstream_seq_id)
     curr_seq_id = _stamp_epoch(curr_seq_id)
+    ctx = get_global_context()
+    if ctx is not None and not ctx.is_party_leader():
+        return _relay_fetch(
+            ctx, _relay_key(ctx.get_job_name(), upstream_seq_id, curr_seq_id))
     rp = _receiver_proxies.peek()
     assert rp is not None, "receiver proxy not started; call fed.init()"
     raw = rp.get_data(src_party, upstream_seq_id, curr_seq_id)
     out: Future = Future()
+    group = None
+    if ctx is not None and ctx.get_party_num_processes() > 1:
+        from rayfed_tpu_torch import mesh
+
+        group = mesh.party_group()
+    key = _relay_key(ctx.get_job_name() if ctx is not None else "",
+                     upstream_seq_id, curr_seq_id)
 
     def _chain(f: Future) -> None:
         try:
             value = f.result()
         except BaseException as e:  # noqa: BLE001
+            # The followers learn of wire failures too, or they would
+            # sit out their whole relay deadline on a dead edge.
+            if group is not None:
+                _relay_publish(group, key, e, True)
             out.set_exception(e)
             return
+        if group is not None:
+            _relay_publish(group, key, value,
+                           isinstance(value, FedRemoteError))
         if isinstance(value, FedRemoteError):
             logger.debug(
                 "Receiving exception from %s: %s; raising to consumer.",
@@ -604,6 +1068,10 @@ def recv(party: str, src_party: str, upstream_seq_id, curr_seq_id) -> Future:
                 ctx.set_last_received_error(value)
             out.set_exception(value)
         else:
+            if group is not None:
+                from rayfed_tpu_torch import mesh
+
+                value = mesh.place_received(value)
             executor.set_result_versioned(out, value)
 
     raw.add_done_callback(_chain)

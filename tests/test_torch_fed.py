@@ -506,8 +506,6 @@ def test_executor_shutdown_joins_its_lanes_and_frees_their_tasks():
 # ---------------------------------------------------------------------------
 
 _REFUSED = [
-    ({"jax_distributed": {"num_processes": 2, "process_id": 0}}, "item 17"),
-    ({"party_mesh": {"device_ids": [0, 1]}}, "item 17"),
     ({"collective": {"coordinator": "127.0.0.1:1"}}, "item 12"),
     ({"cross_silo_comm": {"same_mesh_push": True}}, "item 12b"),
     ({"transport": "tpu"}, "item 4"),

@@ -244,8 +244,10 @@ def test_fedavg_trainer_converges():
 _REFUSED_INIT = [
     ({"aggregation": {"topology": "tree", "async_bufer_k": 2}},
      ValueError, "unknown aggregation config key 'async_bufer_k'"),
-    ({"party_mesh": {"device_ids": [0, 1]}}, NotImplementedError, "item 17"),
-    ({"party_mesh": {"mesh_shape": [2, 2]}}, NotImplementedError, "item 17"),
+    ({"party_mesh": {"device_ids": [0, 1]}}, ValueError,
+     "one process per device"),
+    ({"party_mesh": {"mesh_shape": [2, 2]}}, ValueError,
+     "one process per device"),
     ({"transport": "cuda"}, RuntimeError, "no CUDA|none is available"),
     ({"party_mesh": {"device_ids": [0]}}, RuntimeError, "none is available"),
     ({"transport": "tpu"}, ImportError, "counterpart .* transport='cuda'"),
@@ -253,7 +255,8 @@ _REFUSED_INIT = [
 
 
 @pytest.mark.parametrize("config, exc, match", _REFUSED_INIT,
-                         ids=["async_keys", "two_devices", "mesh_shape",
+                         ids=["async_keys", "two_devices_in_one_process",
+                              "mesh_shape_in_one_process",
                               "cuda_without_a_card", "device_without_a_card",
                               "tpu_names_cuda"])
 def test_init_refuses_before_building_state(config, exc, match):

@@ -128,11 +128,20 @@ def test_attention_over_a_sharded_sequence_is_refused(ranks, what):
 @pytest.mark.parametrize("what, exc_text", [
     ("not_covered", "does not cover 4 devices"),
     ("expert", "item 13b"),
-    ("init_distributed", "item 17"),
 ])
 def test_build_mesh_errors(ranks, what, exc_text):
     msg = case_result(ranks[0], "build_mesh")[what]
     assert msg is not None and exc_text in msg, msg
+
+
+def test_init_distributed_reuses_the_group(ranks):
+    """A process whose group is up joins its party by reusing it, if the
+    group is the party's: a join naming another world size is refused
+    (the relay would wait for processes that are not the party's)."""
+    res = case_result(ranks[0], "build_mesh")
+    assert res["init_distributed"] == ["gloo", 4]
+    msg = res["init_distributed_mismatch"]
+    assert msg is not None and "rank 0 of 4, not as process 0 of 2" in msg
 
 
 def test_build_mesh_names_and_subsets(ranks):

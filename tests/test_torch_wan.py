@@ -479,8 +479,28 @@ def test_cancel_peer_inflight_reclaims_undelivered_chunks():
         sender.close()
 
 
+class _FakeClock:
+    """``lanes``' clock for one test: ``monotonic`` reads a time that only
+    ``sleep`` advances, so the hold-off windows are exact however loaded
+    the host is; anything else is the real ``time`` module's."""
+
+    def __init__(self):
+        self.now = time.monotonic()
+
+    def monotonic(self):
+        return self.now
+
+    def sleep(self, seconds):
+        self.now += seconds
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
 @pytest.mark.skipif(not lanes.shm_available(), reason="no shm support")
-def test_repromotion_probe_gate_and_hysteresis():
+def test_repromotion_probe_gate_and_hysteresis(monkeypatch):
+    clock = _FakeClock()
+    monkeypatch.setattr(lanes, "time", clock)
     sender = lanes.ShmSender("job", "alice", "bob", _ShmCfg())
     header = {"pkind": "tree"}
     try:
@@ -489,7 +509,7 @@ def test_repromotion_probe_gate_and_hysteresis():
         assert sender.demotions == 1
         # Hold-off running: the lane stays demoted, no probe yet.
         assert not sender.eligible(header, 1000)
-        time.sleep(0.08)  # past the 50ms base hold-off
+        clock.sleep(0.08)  # past the 50ms base hold-off
         # Exactly ONE probe opens; a second concurrent push stays out.
         assert sender.eligible(header, 1000)
         assert sender.probing
@@ -502,9 +522,9 @@ def test_repromotion_probe_gate_and_hysteresis():
         # break backs off twice as long (base * 2^(demotions-1)).
         sender.mark_broken()
         assert sender.demotions == 2
-        time.sleep(0.08)  # one base interval: NOT enough the second time
+        clock.sleep(0.08)  # one base interval: NOT enough the second time
         assert not sender.eligible(header, 1000)
-        time.sleep(0.05)
+        clock.sleep(0.05)
         assert sender.eligible(header, 1000)  # 2x base elapsed: probe opens
     finally:
         sender.close()

@@ -252,6 +252,8 @@ def _sequence_refusals(payload):
 
 
 def _build_mesh_errors(payload):
+    import torch.distributed as dist
+
     from rayfed_tpu_torch import mesh as pm
 
     return {
@@ -267,9 +269,14 @@ def _build_mesh_errors(payload):
         "subset": list(pm.build_mesh(
             device_ids=[0, 1], mesh_shape=[2], device_type="cpu"
         ).mesh_dim_names),
-        "init_distributed": _raises(
-            lambda: pm.init_distributed("127.0.0.1:1", 2, 0),
-            NotImplementedError),
+        # The group is up: a join that names another world size is
+        # refused, one that names this rank of this world reuses it.
+        "init_distributed_mismatch": _raises(
+            lambda: pm.init_distributed("127.0.0.1:1", 2, 0), ValueError),
+        "init_distributed": [
+            pm.init_distributed("127.0.0.1:1", dist.get_world_size(),
+                                dist.get_rank()),
+            pm.party_group()["world"]],
     }
 
 
@@ -613,4 +620,384 @@ PROGRAMS = {
 
 WORLD = {"sharding": 4, "parallel": math.prod(PARALLEL_SHAPE), "decode": 4}
 
-__all__ = ["run_ranks", "case_result", "one_rank_mesh", "PROGRAMS", "WORLD"]
+
+# ---------------------------------------------------------------------------
+# Multi-process parties: alice over two processes, bob in one
+# (test_torch_multihost_party.py)
+# ---------------------------------------------------------------------------
+
+#: Seconds a party process's program may take (each of its waits has a
+#: shorter deadline of its own: RELAY_RECV_MS, the group's timeout).
+PARTY_TIMEOUT_S = 120
+#: The job's receive deadline, which the relay and the party group take.
+RELAY_RECV_MS = 60_000
+#: (party, process id) of each process of the multi-process job.
+PARTY_ROLES = [("alice", 0), ("alice", 1), ("bob", 0)]
+
+
+def _party_main(party, pid, program, payload, addresses, coordinator, kv_dir,
+                out_path):
+    import torch
+
+    torch.set_num_threads(1)
+    try:
+        res = PARTY_PROGRAMS[program](party, pid, payload, addresses,
+                                      coordinator, kv_dir)
+    except Exception:  # noqa: BLE001 - reported to the test
+        res = {"error": traceback.format_exc()}
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def run_party_processes(program: str, payload=None, roles=PARTY_ROLES,
+                        timeout: float = PARTY_TIMEOUT_S):
+    """Run the fed program ``program`` (a name in ``PARTY_PROGRAMS``) in
+    one spawned process per ``(party, process id)`` of ``roles``, alice's
+    processes one party over a gloo group; {(party, pid): result}, where
+    a program that raised gives ``{"error": traceback}``."""
+    from tests.utils import get_addresses
+
+    addresses = get_addresses(sorted({p for p, _ in roles}))
+    coordinator = get_addresses(["coord"])["coord"]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {r: os.path.join(tmp, f"{r[0]}-{r[1]}.pkl") for r in roles}
+        procs = {r: MP.Process(target=_party_main, args=(
+            r[0], r[1], program, payload, addresses, coordinator, tmp,
+            outs[r])) for r in roles}
+        for p in procs.values():
+            p.start()
+        for p in procs.values():
+            p.join(timeout=timeout)
+        alive = [r for r, p in procs.items() if p.is_alive()]
+        for r in alive:
+            procs[r].terminate()
+            procs[r].join()
+        missing = [r for r in roles if not os.path.exists(outs[r])]
+        if alive or missing:
+            raise AssertionError(
+                f"{program}: processes {alive} timed out, {missing} left no "
+                f"result (exit codes "
+                f"{ {r: p.exitcode for r, p in procs.items()} })")
+        out = {}
+        for r in roles:
+            with open(outs[r], "rb") as f:
+                out[r] = pickle.load(f)
+        return out
+
+
+def party_result(results, role):
+    """One process's result, or its failure with the traceback."""
+    res = results[role]
+    if isinstance(res, dict) and "error" in res:
+        raise AssertionError(f"process {role} failed:\n{res['error']}")
+    return res
+
+
+def _digest(tree):
+    """Each tensor leaf's dtype, shape and bytes (a DTensor's local part)."""
+    import hashlib
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from rayfed_tpu_torch import tree_util
+
+    out = []
+    for x in tree_util.tree_flatten(tree)[0]:
+        if not isinstance(x, torch.Tensor):
+            out.append(x)
+            continue
+        if isinstance(x, DTensor):
+            x = x.to_local()
+        x = x.detach().cpu().contiguous()
+        raw = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+        out.append((str(x.dtype), tuple(x.shape),
+                    hashlib.sha256(raw.numpy().tobytes()).hexdigest()))
+    return out
+
+
+def _relay_tree():
+    """bob's pushed tree: f32, bf16 and int64 leaves and a scalar; 10 MiB
+    in all, so the relay carries it point to point (past
+    ``STORE_INLINE``)."""
+    import torch
+
+    g = torch.Generator().manual_seed(7)
+    return {"w": torch.randn(640, 4096, generator=g),
+            "bf16": torch.randn(3, 130, generator=g).to(torch.bfloat16),
+            "nested": [torch.arange(12, dtype=torch.int64).reshape(3, 4),
+                       {"b": torch.randn(5, generator=g)}],
+            "step": 3}
+
+
+def _multihost(party, pid, payload, addresses, coordinator, kv_dir):
+    """One process of the multi-process job. alice runs as two processes
+    (leader 0, follower 1) joined by ``config["jax_distributed"]`` over a
+    gloo group with a ``data = 2`` party mesh on the CPU; bob as one."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import mesh as fed_mesh
+    from rayfed_tpu_torch import tracing
+    from rayfed_tpu_torch.exceptions import FedRemoteError
+    from rayfed_tpu_torch.privacy.manager import get_privacy_manager
+    from rayfed_tpu_torch.proxy import barriers
+    from tests.utils import FAST_COMM_CONFIG
+
+    cfg = {"cross_silo_comm": dict(
+               FAST_COMM_CONFIG, recv_timeout_in_ms=RELAY_RECV_MS,
+               continue_waiting_for_data_sending_on_error=True),
+           "privacy": {"secure_aggregation": True, "mask_seed": 11}}
+    if party == "alice":
+        cfg["jax_distributed"] = {"coordinator_address": coordinator,
+                                  "num_processes": 2, "process_id": pid}
+        cfg["kv_store"] = {"backend": "file", "path": kv_dir}
+        cfg["party_mesh"] = {"mesh_shape": [2], "axis_names": ["data"],
+                             "device_type": "cpu"}
+    tracing.enable()
+    fed.init(addresses=addresses, party=party, config=cfg)
+    out = {"leader": fed.is_party_leader(),
+           "proxies": (barriers.sender_proxy() is not None,
+                       barriers.receiver_proxy() is not None),
+           "privacy_plane": get_privacy_manager() is not None}
+    if party == "alice":
+        from rayfed_tpu_torch.config import PartyMeshConfig
+
+        group = fed_mesh.party_group()
+        m = fed_mesh.get_party_mesh()
+        out.update(backend=group["backend"], world=group["world"],
+                   mesh=dict(zip(m.mesh_dim_names, m.shape)))
+        # The party mesh's other forms over the same group, then the
+        # job's again.
+        out["mesh_forms"] = {}
+        for form, mcfg in (("device_ids", {"device_ids": [0, 1]}),
+                           ("mesh_shape", {"mesh_shape": [2, 1],
+                                           "axis_names": ["data", "model"]})):
+            m2 = fed_mesh.init_party_mesh(PartyMeshConfig.from_dict(
+                dict(mcfg, device_type="cpu")))
+            out["mesh_forms"][form] = dict(zip(m2.mesh_dim_names, m2.shape))
+        fed_mesh.init_party_mesh(PartyMeshConfig.from_dict(
+            cfg["party_mesh"]))
+
+    # The mirror of tests/test_multihost_party.py: a computation whose
+    # all-reduce spans both of alice's processes, consumed at bob.
+    @fed.remote
+    def train_step():
+        x = torch.tensor([10.0 * (dist.get_rank() + 1)])
+        dist.all_reduce(x)
+        return float(x)
+
+    @fed.remote
+    def consume(v):
+        assert v == 30.0, v
+        return v * 2
+
+    out["aggregate"] = fed.get(consume.party("bob").remote(
+        train_step.party("alice").remote()))
+
+    @fed.remote
+    def produce():
+        return torch.arange(8, dtype=torch.float32)
+
+    @fed.remote
+    def consume_on_alice(arr):
+        return float(arr.sum())
+
+    out["inbound"] = fed.get(consume_on_alice.party("alice").remote(
+        produce.party("bob").remote()))
+
+    # The relay of a tree, bitwise, placed on the party mesh.
+    @fed.remote
+    def bob_tree():
+        return _relay_tree()
+
+    @fed.remote
+    def held(tree):
+        leaves = [x for x in [tree["w"], tree["bf16"], tree["nested"][0]]]
+        return {"digest": _digest(tree), "step": tree["step"],
+                "replicated": all(isinstance(x, DTensor) and all(
+                    isinstance(p, Replicate) for p in x.placements)
+                    for x in leaves)}
+
+    tree = bob_tree.party("bob").remote()
+    out["held"] = fed.get(held.party("alice").remote(tree))
+    out["sent_digest"] = _digest(_relay_tree())
+
+    # alice pushes to bob: one frame an edge, the leader's.
+    @fed.remote
+    def alice_tree():
+        return {"a": torch.full((4, 4), float(dist.get_rank() == 0))}
+
+    @fed.remote
+    def bob_reads(tree):
+        return float(tree["a"].sum())
+
+    out["alice_push"] = fed.get(bob_reads.party("bob").remote(
+        alice_tree.party("alice").remote()))
+
+    # A tree sharded by the rules over a data x model = 1 x 2 mesh of
+    # alice's processes: placed by the rules, pushed as ``sharr`` (the
+    # follower hands the leader its shards), decoded whole at bob.
+    @fed.remote
+    def sharded_tree():
+        tm = _mesh((1, 2), ("data", "model"))
+        return fed_mesh.place_received(_sharded_source(), mesh=tm)
+
+    @fed.remote
+    def whole_digest(tree):
+        return _digest(tree)
+
+    @fed.remote
+    def local_shapes(tree):
+        from rayfed_tpu_torch.parallel import sharding as shd
+
+        return {path: [tuple(v.to_local().shape), tuple(v.shape),
+                       [type(p).__name__ + str(getattr(p, "dim", ""))
+                        for p in v.placements]]
+                for path, v in shd.leaf_paths(tree)}
+
+    sharded = sharded_tree.party("alice").remote()
+    out["sharded_shapes"] = fed.get(local_shapes.party("alice").remote(
+        sharded))
+    out["sharded_at_bob"] = fed.get(whole_digest.party("bob").remote(sharded))
+
+    @fed.remote
+    def sharded_wire():
+        """The leader's ``sharr`` encoding of the same tree, the
+        follower's shards gathered through the store."""
+        from rayfed_tpu_torch._private import serialization
+
+        tm = _mesh((1, 2), ("data", "model"))
+        tree = fed_mesh.place_received(_sharded_source(), mesh=tm)
+        key = "fedtpu_shards:test:wire:0"
+        if pid != 0:
+            barriers._post_shards_at_resolution(tree, key)
+            return None
+        kind, meta, bufs = serialization.encode_payload(
+            barriers._gather_shards(tree, key))
+        return {"kind": kind, "meta": meta,
+                "payload": b"".join(bytes(b) for b in bufs)}
+
+    # Each of alice's processes gets its own result: the leader's is the
+    # encoding.
+    out["sharr"] = fed.get(sharded_wire.party("alice").remote())
+    out["full_digest"] = _digest(_sharded_source())
+
+    # The data = 2 train step over the party mesh.
+    @fed.remote
+    def dp_steps():
+        from rayfed_tpu_torch.parallel import sharding as shd
+
+        init_fn, step_fn = _steps_fn(fed_mesh.get_party_mesh())
+        params, opt = init_fn(payload["init"])
+        losses = []
+        for _ in range(2):
+            params, opt, loss = step_fn(params, opt, payload["inputs"],
+                                        payload["targets"])
+            losses.append(float(loss))
+        return {"losses": losses,
+                "digest": _digest(shd.gather_params(params))}
+
+    out["dp"] = fed.get(dp_steps.party("alice").remote())
+    # An error at bob reaches both of alice's processes.
+    @fed.remote
+    def boom():
+        raise ValueError("bob's task failed")
+
+    @fed.remote
+    def after(x):
+        return x
+
+    try:
+        fed.get(after.party("alice").remote(boom.party("bob").remote()))
+        out["remote_error"] = None
+    except FedRemoteError as e:
+        out["remote_error"] = ("FedRemoteError", str(e))
+    except ValueError as e:  # bob's own task raises at bob
+        out["remote_error"] = ("ValueError", str(e))
+
+    if party == "bob":
+        out["frames"] = [
+            (s.upstream_seq_id, s.downstream_seq_id)
+            for s in tracing.get_spans("decode") if s.peer == "alice"]
+    if party == "alice":
+        # Every follower's gets have returned, so each has acked.
+        dist.monitored_barrier(timeout=timedelta(seconds=PARTY_TIMEOUT_S))
+        if pid == 0:
+            out["relayed"] = len(barriers.relay_stats())
+            out["keys_left"] = barriers.relay_keys_left()
+    out["relay"] = barriers.relay_stats()
+    fed.shutdown()
+    # The party group outlives fed.shutdown; the process is done with it.
+    fed_mesh.shutdown_distributed()
+    return out
+
+
+def _sharded_source():
+    """The tiny model's leaves that the rules shard over ``model`` (``wq``
+    on its output features, ``w_down`` on its input) and one they
+    replicate (``embed``), as plain tensors."""
+    from rayfed_tpu_torch.models import transformer as tfm
+
+    params = tfm.init_params(0, _tiny_f32(), "cpu")
+    return {"layers": {"wq": params["layers"]["wq"],
+                       "w_down": params["layers"]["w_down"]},
+            "embed": params["embed"]}
+
+
+def _steps_fn(mesh_or_device):
+    from rayfed_tpu_torch.parallel.train import make_fed_train_step
+
+    return make_fed_train_step(_tiny_f32(), mesh_or_device, lr=LR,
+                               attn="xla")
+
+
+def _rejoin(party, pid, payload, addresses, coordinator, kv_dir):
+    """One of alice's two processes in a one-party job, run twice: the
+    first ``fed.init`` joins the party group, ``fed.shutdown`` leaves it
+    up and the second ``fed.init`` reuses it; a task's all-reduce spans
+    both processes each time. ``shutdown_distributed`` then destroys
+    it."""
+    import torch
+    import torch.distributed as dist
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import mesh as fed_mesh
+    from tests.utils import FAST_COMM_CONFIG
+
+    cfg = {"cross_silo_comm": dict(FAST_COMM_CONFIG,
+                                   recv_timeout_in_ms=RELAY_RECV_MS),
+           "jax_distributed": {"coordinator_address": coordinator,
+                               "num_processes": 2, "process_id": pid},
+           "party_mesh": {"mesh_shape": [2], "axis_names": ["data"],
+                          "device_type": "cpu"}}
+
+    @fed.remote
+    def total(k):
+        x = torch.tensor([float(k * (dist.get_rank() + 1))])
+        dist.all_reduce(x)
+        return float(x)
+
+    out = {"runs": []}
+    for k in (1, 10):
+        fed.init(addresses={"alice": addresses["alice"]}, party=party,
+                 config=cfg)
+        group = fed_mesh.party_group()
+        out["runs"].append(dict(
+            total=fed.get(total.party("alice").remote(k)),
+            world=group["world"], owned=group["owned"],
+            store=id(group["store"])))
+        fed.shutdown()
+        out["runs"][-1]["up"] = fed_mesh.party_group() is group
+    fed_mesh.shutdown_distributed()
+    out["left"] = (fed_mesh.party_group() is None
+                   and not dist.is_initialized())
+    return out
+
+
+PARTY_PROGRAMS = {"multihost": _multihost, "rejoin": _rejoin}
+
+__all__ = ["run_ranks", "case_result", "one_rank_mesh", "PROGRAMS", "WORLD",
+           "run_party_processes", "party_result", "PARTY_PROGRAMS"]
