@@ -25,11 +25,13 @@ faulted kernels on the same inputs at the main-path shape and at phase
 12's (``WIDE``, the D = 256 tile plans), in both dtypes, the f32 ones
 with the exact-f32 reading:
 
-- "skip", one fault in each flash kernel, bf16 and f32 (each loop serves
-  both of its dtype's tile plans): K1 and K2 skip the keys of 64-row
-  tile SKIP_KT, K3 the queries of 64-row tile SKIP_QT (a mid-sequence
-  tile dropped for the late rows or the early keys). Every output (O,
-  dq, dk, dv) of every kernel at both head dims must be past its limit.
+- "skip", one fault in each flash kernel, bf16 and f32 (each loop of
+  ``flash_attention.cu`` and ``flash_attention_f32.cu`` serves both of
+  its dtype's tile plans but bf16 K1 and K3 at D = 256, which are
+  ``flash_attention_d256.cu``'s): K1 and K2 skip the keys of 64-row tile
+  SKIP_KT, K3 the queries of 64-row tile SKIP_QT (a mid-sequence tile
+  dropped for the late rows or the early keys). Every output (O, dq, dk,
+  dv) of every kernel at both head dims must be past its limit.
 - "split", one fault in the f32 split helper: ``lo`` is zeroed, so each
   product of the f32 K1, K2 and K3 is one TF32 product. Their exact-f32
   readings (O, lse, dq, dk, dv against a tenth of the TF32 plain
@@ -61,8 +63,12 @@ SKIP_QT = 24  # queries 1536..1599 at a 64-row tile
 # so the ring runs on. K1 and K2 skip the key steps within SKIP_KT (bf16
 # K1 steps 128 keys, so keys 1024..1151, 64 at D = 256; bf16 K2 steps 64,
 # exactly SKIP_KT, 32 at D = 256; f32 K1 and K2 step kN = 32, two steps,
-# 16 at D = 256, four); K3 the query steps within SKIP_QT. The split
-# fault zeroes the low TF32 part of every split value.
+# 16 at D = 256, four); K3 the query steps within SKIP_QT. The
+# warp-specialised bf16 K1 and K3 at D = 256 run no block-wide barrier:
+# there the fault masks the skipped tile's scores (K1, every key of the
+# tile starting in SKIP_KT's 64 keys) or zeroes its P^T (K3), which both
+# of K3's consumers read. The split fault zeroes the low TF32 part of
+# every split value.
 FAULTS = {
     "flash_attention.cu": [
         # K1: the key-tile loop, once tile kt is in shared memory.
@@ -77,6 +83,15 @@ FAULTS = {
         ("    __syncthreads();  // query tile qt has landed in stage st\n",
          f"    if (q0 / 64 == {SKIP_QT}) {{ __syncthreads(); continue; }}\n",
          1, "skip"),
+    ],
+    "flash_attention_d256.cu": [
+        # K1 at D = 256: the softmax of a key tile, score by score.
+        ("      float x = s[4 * i + e] * scale_log2;\n",
+         f"      if (k0 / 64 == {SKIP_KT}) x = kNegBig;\n", 1, "skip"),
+        # K3 at D = 256: consumer V's P^T, before consumer K reads it.
+        ("          x[4 * j + e] = v;\n",
+         f"          if (q0 / 64 == {SKIP_QT}) x[4 * j + e] = 0.0f;\n", 1,
+         "skip"),
     ],
     "flash_attention_f32.cu": [
         # K1 f32: the key-step loop, once step kt is in its ring stage.

@@ -42,8 +42,10 @@ Phases:
    process per source); each kernel's registers, spills, shared memory
    and resident blocks per SM at the flagship head dim and at D = 256,
    their own tile plan (no kernel may spill), and,
-   where the toolkit's ``cuobjdump`` runs, the tensor-core (HMMA, HGMMA)
-   and FFMA instructions in each kernel's SASS.
+   where the toolkit's ``cuobjdump`` runs, the tensor-core (HMMA, HGMMA),
+   FFMA, TMA (UTMALDG) and mbarrier (SYNCS) instructions in each kernel's
+   SASS; the bf16 K1 and K3 at D = 256 must issue HGMMA, UTMALDG and
+   SYNCS.
 3. kernels: each flash kernel against its plain PyTorch version on the
    card, the bf16 ones and the f32 ones, at the flagship attention shape
    and at small shapes (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every
@@ -410,10 +412,13 @@ PARTIES = (("alice", 1), ("bob", 2))
 # Each TPU kernel (rayfed_tpu/ops/flash_attention.py) takes bf16 or f32
 # and any head dim; the port has a Hopper kernel for each dtype, each in
 # two tile plans (head dims up to 128, and 256), each counted apart
-# (``flash_attention.LAUNCHES``).
+# (``flash_attention.LAUNCHES``). The bf16 K1 and K3 at D = 256 are
+# warp-specialised kernels in a source of their own.
+D256_SOURCE_KERNELS = ("flash_fwd_d256", "flash_bwd_dkv_d256")
 KERNELS = [
     dict(name=name + sfx, route="cuda",
-         source=f"rayfed_tpu_torch/csrc/flash_attention{src}.cu",
+         source="rayfed_tpu_torch/csrc/flash_attention"
+         f"{'_d256' if name + sfx in D256_SOURCE_KERNELS else src}.cu",
          replaces=f"rayfed_tpu/ops/flash_attention.py:{line}")
     for sfx, src in (("", ""), ("_d256", ""), ("_f32", "_f32"),
                      ("_f32_d256", "_f32"))
@@ -539,7 +544,7 @@ def phase_build(head_dim):
         log = f.read()
     for line in ptxas_report(log):
         print(f"[build] {line}")
-    counts = sass_counts(path)
+    counts = sass_counts(path, SASS_OPS + TMA_SASS_OPS)
     if counts is None:
         print("[build] SASS instruction counts: no cuobjdump in the toolkit")
     for d in (head_dim, WIDE_HEAD_DIM):
@@ -556,19 +561,28 @@ def phase_build(head_dim):
         for name in resources if counts is not None else ():
             c = counts.get(f"{name}<{d}>", {})
             print(f"[build] {name}<{d}> SASS: " + ", ".join(
-                f"{c.get(op, 0)} {op}" for op in SASS_OPS))
+                f"{c.get(op, 0)} {op}" for op in SASS_OPS + TMA_SASS_OPS))
+            if d == WIDE_HEAD_DIM and name in ("flash_fwd_kernel",
+                                               "flash_bwd_dkv_kernel"):
+                require(all(c.get(op, 0) for op in ("HGMMA",)
+                            + TMA_SASS_OPS),
+                        f"{name}<{d}> is not the warp-specialised TMA "
+                        f"kernel: SASS {c}")
     return secs
 
 
 KERNEL_RE = r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_f32)?_kernel)ILi(\d+)E"
 # Tensor-core products (mma.sync, wgmma) and CUDA-core f32 multiply-adds.
 SASS_OPS = ("HMMA", "HGMMA", "FFMA")
+# TMA tensor copies and mbarrier operations: the warp-specialised bf16 K1
+# and K3 at D = 256 must issue both.
+TMA_SASS_OPS = ("UTMALDG", "SYNCS")
 
 
-def sass_counts(path):
-    """{"kernel<D>": {op: instructions}} for ``SASS_OPS`` in the SASS of
-    the library at ``path`` (``cuobjdump -sass``); None where the toolkit
-    has no ``cuobjdump`` or it fails."""
+def sass_counts(path, ops=SASS_OPS):
+    """{"kernel<D>": {op: instructions}} for ``ops`` in the SASS of the
+    library at ``path`` (``cuobjdump -sass``); None where the toolkit has
+    no ``cuobjdump`` or it fails."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
     tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
@@ -578,21 +592,21 @@ def sass_counts(path):
                          text=True, timeout=300)
     if out.returncode != 0:
         return None
-    return parse_sass_counts(out.stdout)
+    return parse_sass_counts(out.stdout, ops)
 
 
-def parse_sass_counts(sass):
+def parse_sass_counts(sass, ops=SASS_OPS):
     """:func:`sass_counts` from the text of ``cuobjdump -sass``."""
     counts, kernel = {}, None
-    ops = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    pattern = re.compile(r"\b(" + "|".join(ops) + r")\b")
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(KERNEL_RE, line)
             kernel = f"{m.group(1)}<{m.group(2)}>" if m else None
             if kernel:
-                counts.setdefault(kernel, dict.fromkeys(SASS_OPS, 0))
+                counts.setdefault(kernel, dict.fromkeys(ops, 0))
         elif kernel:
-            m = ops.search(line)
+            m = pattern.search(line)
             if m:
                 counts[kernel][m.group(1)] += 1
     return counts
@@ -611,12 +625,15 @@ def kernel_resources(log, head_dim, names=None):
 
 
 def ptxas_report(log):
-    """Each kernel's registers and spills from ``nvcc -Xptxas -v``."""
+    """Each kernel's registers and spills from ``nvcc -Xptxas -v``; the
+    lines of an entry function that is no flash kernel go under "?"."""
     out, kernel = [], "?"
     for line in log.splitlines():
         m = re.search(KERNEL_RE, line)
         if m:
             kernel = f"{m.group(1)}<{m.group(2)}>"
+        elif "Compiling entry function" in line:
+            kernel = "?"
         elif "registers" in line or "spill" in line:
             out.append(f"{kernel}: " + line.split(":", 1)[-1].strip())
     return out
@@ -5121,9 +5138,11 @@ def run_dma(smi, fed_push=None):
 # ---------------------------------------------------------------------------
 
 # Phase 12 (b): the D = 256 kernels of both dtypes against their plain
-# versions. D = 136, 160 and 192 run zero-padded to 256; bf16 K1 tiles 128
-# queries x 64 keys, K2 128 queries x 32 keys, K3 128 keys x 32 queries;
-# f32 K1 128 queries x 16 keys, K2 64 queries x 16 keys, K3 64 keys x 16
+# versions. D = 136, 160 and 192 run zero-padded to 256; bf16 K1 (warp-
+# specialised: a TMA producer, two consumer warpgroups of 64 queries)
+# tiles 128 queries x 80 keys, K2 128 queries x 32 keys, K3 (warp-
+# specialised: dV and dK in the two consumers) 64 keys x 64 queries; f32
+# K1 128 queries x 16 keys, K2 64 queries x 16 keys, K3 64 keys x 16
 # queries.
 WIDE_SHAPES = [
     (1, 256, 256, 2, 256, 0),

@@ -19,15 +19,18 @@ other, on one card:
     python3 chip_tile_sweep.py base kFwdN=64 kDqWG=1 kDkvWG=1,kDkvM=32 base
     python3 chip_tile_sweep.py base kDqF32W=4,kDqF32N=64 base
     python3 chip_tile_sweep.py base kFwdF32N=64 kFwdF32W=4,kFwdF32N=64 base
-    python3 chip_tile_sweep.py base kFwdN256=32 kDkvWG256=1 base
+    python3 chip_tile_sweep.py base kFwd256N=64 kFwd256PingPong=0 base
     python3 chip_tile_sweep.py base kFwdF32W256=4,kFwdF32C256=2 kDqF32C256=1 base
 
 Each argument sets tile constants (``TILE_CONSTANTS``; comma-separated
-``name=value``) of ``rayfed_tpu_torch/csrc/flash_attention.cu`` (bf16)
-or, for the f32 K1-K3 (``F32_TILE_CONSTANTS``: row groups a block, rows
-a ring stage and, at D=256, warps a row group), ``flash_attention_f32.cu``;
-or is ``base``, the sources as committed. The constants ending in 256
-are the D=256 plans'. Per argument, in that order, it copies the port
+``name=value``) of ``rayfed_tpu_torch/csrc/flash_attention.cu`` (bf16),
+of ``flash_attention_d256.cu`` for the warp-specialised bf16 K1 and K3
+at D=256 (``D256_TILE_CONSTANTS``: K1's keys a ring stage, its ring
+stages and ping-pong on or off; K3's ring stages) or, for the f32 K1-K3
+(``F32_TILE_CONSTANTS``: row groups a block, rows a ring stage and, at
+D=256, warps a row group), ``flash_attention_f32.cu``; or is ``base``,
+the sources as committed. The constants with 256 in their names are the
+D=256 plans'. Per argument, in that order, it copies the port
 into ``build/tile_sweep/<i>/``, sets the constants, and in a fresh
 process builds the copy, prints each kernel's resources at the flagship
 head dim and at D=256, holds the kernels of both dtypes to
@@ -54,9 +57,11 @@ F32_TILE_CONSTANTS = ("kFwdF32W", "kFwdF32N", "kDqF32W", "kDqF32N",
                       "kFwdF32C256", "kDqF32W256", "kDqF32N256",
                       "kDqF32C256", "kDkvF32W256", "kDkvF32N256",
                       "kDkvF32C256")
+D256_TILE_CONSTANTS = ("kFwd256N", "kFwd256Stages", "kFwd256PingPong",
+                       "kDkv256Stages")
 TILE_CONSTANTS = ("kFwdWG", "kFwdN", "kDqWG", "kDqN", "kDkvWG",
-                  "kDkvM", "kFwdWG256", "kFwdN256", "kDqWG256", "kDqN256",
-                  "kDkvWG256", "kDkvM256") + F32_TILE_CONSTANTS
+                  "kDkvM", "kDqWG256", "kDqN256") + D256_TILE_CONSTANTS \
+    + F32_TILE_CONSTANTS
 
 RUN = """
 import json, chip_smoke as cs
@@ -106,8 +111,11 @@ def parse_setting(arg):
 
 def source_of(name):
     """The kernel source that defines tile constant ``name``."""
-    return ("flash_attention_f32.cu" if name in F32_TILE_CONSTANTS
-            else "flash_attention.cu")
+    if name in F32_TILE_CONSTANTS:
+        return "flash_attention_f32.cu"
+    if name in D256_TILE_CONSTANTS:
+        return "flash_attention_d256.cu"
+    return "flash_attention.cu"
 
 
 def tiled_source(text, setting):

@@ -54,99 +54,19 @@
 // register A operand of the next wgmma: no score, probability, dS or
 // partial output tile goes through shared memory.
 //
-// Those tiles are the plan for head dims 16, 32, 64 and 128. D = 256 has a
-// plan of its own (kFwdWG256 .. kDkvM256): a 64-row f32 accumulator 256
-// wide is 128 registers a thread and a 256-wide tile twice the bytes, so
-// K1 streams 64-key tiles and K2 32-key tiles, and K3, which cannot hold
-// dK and dV at once (256 registers), sweeps its 32-query tiles twice,
-// accumulating dV in the first sweep and dK in the second.
+// Those tiles are the plan for head dims 16, 32, 64 and 128. At D = 256 a
+// 64-row f32 accumulator 256 wide is 128 registers a thread and a 256-wide
+// tile twice the bytes: K2 keeps this file's shape with 32-key stages
+// (kDqWG256, kDqN256), while K1 and K3 are warp-specialised kernels of
+// their own (flash_attention_d256.cu: a TMA producer warpgroup and two
+// consumers; K3 holds dV in one consumer and dK in the other), to which
+// the C entry points below hand D = 256. The tiles, descriptors and wgmma
+// instructions both files use are in wgmma.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "cp_async.cuh"
+#include "flash_attention_d256.cuh"
+#include "wgmma.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr float kNegBig = -1e30f;
-
-struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* o;
-  const bf16* dout;
-  const float* lse_in;
-  const float* delta_in;
-  bf16* out0;       // o (fwd), dq (dq pass), dk (dkv pass)
-  bf16* out1;       // dv (dkv pass)
-  float* stat_out;  // lse (fwd), delta (dq pass)
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  long long do_sb, do_ss, do_sh;
-  int B, H, Sq, Sk, q_offset;
-  float scale;
-};
-
-// ---------------------------------------------------------------------------
-// Hopper building blocks: cp.async ring (copies in cp_async.cuh),
-// swizzled tiles, wgmma descriptors and instructions
-// ---------------------------------------------------------------------------
-
-constexpr int kWgThreads = 128;  // one warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// Width in elements of a swizzled tile: whole 64-element (128-byte) column
-// blocks. Columns past D are never loaded; they feed only product columns
-// (or terms of a zero-width sum) that are discarded.
-template <int D>
-__host__ __device__ constexpr int dpad() { return D < 64 ? 64 : D; }
-
-// Bytes of an R-row swizzled bf16 tile.
-template <int D, int R>
-__host__ __device__ constexpr int sw_bytes() { return R * dpad<D>() * 2; }
-
-// Byte offset of element (r, c), c a multiple of 8, in an R-row tile laid
-// out for the 128-byte swizzle: 64-column blocks of R rows x 128 bytes
-// each, the 16-byte chunk index XOR-ed with r % 8. Tiles start on 1024-byte
-// boundaries, the swizzle's period.
-template <int R>
-__device__ __forceinline__ uint32_t sw_offset(int r, int c) {
-  return (c / 64) * (R * 128) + r * 128 + ((((c % 64) / 8) ^ (r & 7)) * 16);
-}
-
-// Make this thread's shared-memory writes visible to wgmma's reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Rows [row0, row0 + R) of one (b, h) slice into a swizzled tile, 16 bytes
-// per copy, neighbouring threads on neighbouring chunks of a row; rows at
-// or past n_rows are zero-filled.
-template <int D, int R, int T>
-__device__ __forceinline__ void load_sw_tile(uint32_t dst, const bf16* src,
-                                             long long stride_s, int row0,
-                                             int n_rows) {
-  constexpr int kChunks = D / 8;
-  constexpr int kTotal = R * kChunks;
-#pragma unroll
-  for (int i = 0; i < (kTotal + T - 1) / T; ++i) {
-    const int c = threadIdx.x + i * T;
-    if (kTotal % T == 0 || c < kTotal) {
-      const int r = c / kChunks;
-      const int col = (c % kChunks) * 8;
-      const bool valid = row0 + r < n_rows;
-      const bf16* g = valid ? src + (long long)(row0 + r) * stride_s + col : src;
-      cp_async16(dst + sw_offset<R>(r, col), g, valid);
-    }
-  }
-}
 
 // Key/value tile kt (N rows each) into stage st of a two-stage ring of
 // (K, V) pairs at ring (K1 and K2).
@@ -158,241 +78,6 @@ __device__ __forceinline__ void load_kv_stage(uint32_t ring, int st, int kt,
   load_sw_tile<D, N, T>(sK, kb, p.k_ss, kt * N, p.Sk);
   load_sw_tile<D, N, T>(sK + sw_bytes<D, N>(), vb, p.v_ss, kt * N, p.Sk);
 }
-
-// wgmma matrix descriptor of a tile in the 128-byte swizzle: start address,
-// leading byte offset (LBO), stride byte offset (SBO = 1024, the distance
-// between 8-row groups), layout type 1 (128-byte swizzle), all in the
-// encoding of the PTX ISA's matrix-descriptor format.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
-                                               uint32_t lbo_bytes) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4)
-         | ((uint64_t)((lbo_bytes & 0x3FFFF) >> 4) << 16)
-         | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-// K-major operand: the tile's rows are the M (or N) dimension and its
-// columns the reduction. Step kk covers columns [16 kk, 16 kk + 16): inside
-// a 64-column block the start moves 32 bytes, the hardware applies the
-// swizzle to the address. row0 (a multiple of 8) picks A's 64 rows.
-template <int R>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int row0,
-                                                int kk) {
-  return sw128_desc(tile + (kk / 4) * (R * 128) + row0 * 128 + (kk % 4) * 32,
-                    16);
-}
-// MN-major B operand: the tile's rows are the reduction and its columns N.
-// Step kk covers rows [16 kk, 16 kk + 16); LBO steps between 64-column
-// blocks.
-template <int R>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
-  return sw128_desc(tile + kk * 16 * 128, R * 128);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pin registers in place across the asynchronous wgmma: the compiler may
-// not move their reads or writes over this point.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A warpgroup's m64nN f32 accumulator: thread t holds, for each 8-column
-// group i, d[4i + e] at row 16 (t / 32 % 4) + (t % 32) / 4 + 8 (e / 2) and
-// column 8 i + 2 (t % 4) + e % 2. The register A operand of an m64k16 step
-// kk is the same rows and columns [16 kk, 16 kk + 16) packed as bf16 pairs:
-// a[kk][2 (i % 2) + e / 2] holds d[4i + e], d[4i + e + 1] for i = 2 kk,
-// 2 kk + 1 and e = 0, 2.
-__device__ __forceinline__ int acc_col(int i, int e, int lane) {
-  return 8 * i + 2 * (lane % 4) + (e & 1);
-}
-
-// wgmma.mma_async m64nNk16, bf16 inputs, f32 accumulators, spelled out
-// for each N the kernels use (the PTX names every accumulator register).
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<32> {
-  // D[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T, A and B K-major in shared memory.
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-  // D[64 x 32] += A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared memory.
-  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory.
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-  // D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers, B MN-major in shared memory.
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  // D[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, A and B K-major in shared memory.
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-  // D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers, B MN-major in shared memory.
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-// The D = 256 accumulators (P V, dS K, P^T dO, dS^T Q): one m64n256 product,
-// 128 accumulator registers a thread.
-template <>
-struct Wgmma<256> {
-  // D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers, B MN-major in shared memory.
-  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
 
 // ---------------------------------------------------------------------------
 // K1: the forward
@@ -415,12 +100,6 @@ struct FwdCfg {
 // n128 shape. 255 registers, no spills at D = 128; one block per SM.
 constexpr int kFwdWG = 2;
 constexpr int kFwdN = 128;
-// D = 256: O alone is 128 registers a thread and a 128-key stage of K and V
-// is 128 KiB, so the ring steps 64 keys (S and P then take 48 registers);
-// Q and the ring take 192 KiB of shared memory.
-constexpr int kFwdWG256 = 2;
-constexpr int kFwdN256 = 64;
-
 // One block per (b * h, q tile), the heaviest (last) q tiles first. Online
 // softmax over the key tiles at or below the block's last query row.
 template <int D, int kWG, int kN>
@@ -809,23 +488,10 @@ struct DkvCfg {
 // with two it does not: 255 registers at D = 128, one block per SM.
 constexpr int kDkvWG = 2;
 constexpr int kDkvM = 64;
-// D = 256: dK and dV would be 256 registers a thread, past the 255 a
-// thread may hold, so the kernel sweeps the query tiles twice, dV first,
-// then dK (recomputing S^T, 5 products where one sweep does 4). Resident K
-// and V take 128 KiB, so the ring steps 32 queries (64 KiB).
-constexpr int kDkvWG256 = 2;
-constexpr int kDkvM256 = 32;
-
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
-
 // One block per (b * h, k tile), k tiles in order (the first keys see the
 // most queries, so the heaviest blocks start first). Streams the q tiles
 // from the diagonal on, in the transposed orientation (rows are keys): the
-// warpgroup holds dK and dV for its 64 keys in f32 registers throughout,
-// or, where both do not fit (D = 256), one of them per sweep.
+// warpgroup holds dK and dV for its 64 keys in f32 registers throughout.
 template <int D, int kWG, int kM>
 __global__ void __launch_bounds__(kWgThreads * kWG)
 flash_bwd_dkv_kernel(const Params p) {
@@ -875,189 +541,136 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   };
 
-  // K and V join the first sweep's first copy group.
+  // K and V join the first q tile's copy group.
   if (qt_start < n_qt) {
     load_sw_tile<D, C::kN, C::kThreads>(sK, kb, p.k_ss, k0, p.Sk);
     load_sw_tile<D, C::kN, C::kThreads>(sV, vb, p.v_ss, k0, p.Sk);
+    load_stage(0, qt_start);
+    cp_async_commit();
   }
 
   // This thread's two key rows (see acc_col).
   const int r0 = wg * 64 + warp * 16 + lane / 4;
   const int k_pos0 = k0 + r0;
   const float scale_log2 = p.scale * kLog2e;
-
-  // One sweep over the q tiles: dV (with_dv) and/or dK (with_dk)
-  // accumulated in registers, then written.
-  auto sweep = [&](auto with_dv, auto with_dk) {
-    constexpr bool kDV = decltype(with_dv)::value;
-    constexpr bool kDK = decltype(with_dk)::value;
-    if (qt_start < n_qt) {
-      load_stage(0, qt_start);
-      cp_async_commit();
-    }
-    float dk[kDK ? kDp / 2 : 1];
-    float dv[kDV ? kDp / 2 : 1];
+  float dk[kDp / 2];
+  float dv[kDp / 2];
 #pragma unroll
-    for (int i = 0; i < kDp / 2; ++i) {
-      if constexpr (kDK) dk[i] = 0.0f;
-      if constexpr (kDV) dv[i] = 0.0f;
-    }
-
-    for (int qt = qt_start; qt < n_qt; ++qt) {
-      const int st = (qt - qt_start) & 1;
-      const uint32_t sQ = sQ0 + 2 * st * C::kQBytes;
-      const uint32_t sDO = sQ + C::kQBytes;
-      const float* lse = stat + 2 * st * C::kM;
-      const float* delta = lse + C::kM;
-      if (qt + 1 < n_qt) {
-        load_stage(st ^ 1, qt + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      fence_proxy_async();
-      const int q0 = qt * C::kM;
-      __syncthreads();  // query tile qt has landed in stage st
-
-      // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys (dP^T
-      // for dK alone).
-      float s[C::kM / 2];
-      float dp[kDK ? C::kM / 2 : 1];
-#pragma unroll
-      for (int i = 0; i < C::kM / 2; ++i) {
-        s[i] = 0.0f;
-        if constexpr (kDK) dp[i] = 0.0f;
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        Wgmma<C::kM>::ss(s, kmajor_desc<C::kN>(sK, wg * 64, kk),
-                         kmajor_desc<C::kM>(sQ, 0, kk), kk > 0);
-      }
-      if constexpr (kDK) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          Wgmma<C::kM>::ss(dp, kmajor_desc<C::kN>(sV, wg * 64, kk),
-                           kmajor_desc<C::kM>(sDO, 0, kk), kk > 0);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(s);
-      if constexpr (kDK) fence_regs(dp);
-
-      // P^T = exp(S^T scale - lse) (no running max: lse is given) and
-      // dS^T = P^T (dP^T - delta) scale, both into bf16 A fragments. Mask
-      // only a tile that crosses the diagonal or the end of the queries.
-      const bool masked = wg_k0 + 63 > p.q_offset + q0 || q0 + C::kM > p.Sq;
-      uint32_t pa[kDV ? C::kM / 16 : 1][4];
-      uint32_t da[kDK ? C::kM / 16 : 1][4];
-#pragma unroll
-      for (int i = 0; i < C::kM / 8; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          float pr[2], ds[2];
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int c = acc_col(i, e + x, lane);
-            float v = exp2f(s[4 * i + e + x] * scale_log2 - lse[c] * kLog2e);
-            if (masked) {
-              const int q_row = q0 + c;
-              if (q_row >= p.Sq || p.q_offset + q_row < k_pos0 + 8 * (e / 2)) {
-                v = 0.0f;
-              }
-            }
-            pr[x] = v;
-            if constexpr (kDK) {
-              ds[x] = v * (dp[4 * i + e + x] - delta[c]) * p.scale;
-            }
-          }
-          if constexpr (kDV) {
-            pa[i / 2][2 * (i % 2) + e / 2] = pack_bf16(pr[0], pr[1]);
-          }
-          if constexpr (kDK) {
-            da[i / 2][2 * (i % 2) + e / 2] = pack_bf16(ds[0], ds[1]);
-          }
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q, the A operands from registers.
-      if constexpr (kDV) fence_regs(dv);
-      if constexpr (kDK) fence_regs(dk);
-      wgmma_fence();
-      if constexpr (kDV) {
-#pragma unroll
-        for (int kk = 0; kk < C::kM / 16; ++kk) {
-          Wgmma<kDp>::rs(dv, pa[kk], mnmajor_desc<C::kM>(sDO, kk));
-        }
-      }
-      if constexpr (kDK) {
-#pragma unroll
-        for (int kk = 0; kk < C::kM / 16; ++kk) {
-          Wgmma<kDp>::rs(dk, da[kk], mnmajor_desc<C::kM>(sQ, kk));
-        }
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      if constexpr (kDV) fence_regs(dv);
-      if constexpr (kDK) fence_regs(dk);
-      if constexpr (kDV) fence_regs(pa);
-      if constexpr (kDK) fence_regs(da);
-      __syncthreads();  // stage st is free for tile qt + 2
-    }
-
-    const long long o_ss = (long long)p.H * D;
-    const long long base = (long long)b * p.Sk * o_ss + (long long)h * D;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int row = k0 + r0 + 8 * j;
-      if (row < p.Sk) {
-#pragma unroll
-        for (int i = 0; i < kDp / 8; ++i) {
-          const int c = acc_col(i, 0, lane);
-          if (c < D) {
-            const long long at = base + row * o_ss + c;
-            if constexpr (kDK) {
-              *reinterpret_cast<__nv_bfloat162*>(p.out0 + at) =
-                  __floats2bfloat162_rn(dk[4 * i + 2 * j],
-                                        dk[4 * i + 2 * j + 1]);
-            }
-            if constexpr (kDV) {
-              *reinterpret_cast<__nv_bfloat162*>(p.out1 + at) =
-                  __floats2bfloat162_rn(dv[4 * i + 2 * j],
-                                        dv[4 * i + 2 * j + 1]);
-            }
-          }
-        }
-      }
-    }
-  };
-
-  if constexpr (kDp <= 128) {
-    sweep(Flag<true>(), Flag<true>());
-  } else {
-    sweep(Flag<true>(), Flag<false>());
-    sweep(Flag<false>(), Flag<true>());
+  for (int i = 0; i < kDp / 2; ++i) {
+    dk[i] = 0.0f;
+    dv[i] = 0.0f;
   }
-}
 
-// dims: B, Sq, Sk, H, D, q_offset, then the (b, s, h) element strides of
-// q, k, v, o and dout (15 values; unused ones may be 0).
-Params make_params(const long long* dims, float scale) {
-  Params p = {};
-  p.B = (int)dims[0];
-  p.Sq = (int)dims[1];
-  p.Sk = (int)dims[2];
-  p.H = (int)dims[3];
-  p.q_offset = (int)dims[5];
-  p.q_sb = dims[6];  p.q_ss = dims[7];  p.q_sh = dims[8];
-  p.k_sb = dims[9];  p.k_ss = dims[10]; p.k_sh = dims[11];
-  p.v_sb = dims[12]; p.v_ss = dims[13]; p.v_sh = dims[14];
-  p.o_sb = dims[15]; p.o_ss = dims[16]; p.o_sh = dims[17];
-  p.do_sb = dims[18]; p.do_ss = dims[19]; p.do_sh = dims[20];
-  p.scale = scale;
-  return p;
+  for (int qt = qt_start; qt < n_qt; ++qt) {
+    const int st = (qt - qt_start) & 1;
+    const uint32_t sQ = sQ0 + 2 * st * C::kQBytes;
+    const uint32_t sDO = sQ + C::kQBytes;
+    const float* lse = stat + 2 * st * C::kM;
+    const float* delta = lse + C::kM;
+    if (qt + 1 < n_qt) {
+      load_stage(st ^ 1, qt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    const int q0 = qt * C::kM;
+    __syncthreads();  // query tile qt has landed in stage st
+
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys.
+    float s[C::kM / 2];
+    float dp[C::kM / 2];
+#pragma unroll
+    for (int i = 0; i < C::kM / 2; ++i) {
+      s[i] = 0.0f;
+      dp[i] = 0.0f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<C::kM>::ss(s, kmajor_desc<C::kN>(sK, wg * 64, kk),
+                       kmajor_desc<C::kM>(sQ, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<C::kM>::ss(dp, kmajor_desc<C::kN>(sV, wg * 64, kk),
+                       kmajor_desc<C::kM>(sDO, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(S^T scale - lse) (no running max: lse is given) and
+    // dS^T = P^T (dP^T - delta) scale, both into bf16 A fragments. Mask
+    // only a tile that crosses the diagonal or the end of the queries.
+    const bool masked = wg_k0 + 63 > p.q_offset + q0 || q0 + C::kM > p.Sq;
+    uint32_t pa[C::kM / 16][4];
+    uint32_t da[C::kM / 16][4];
+#pragma unroll
+    for (int i = 0; i < C::kM / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        float pr[2], ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int c = acc_col(i, e + x, lane);
+          float v = exp2f(s[4 * i + e + x] * scale_log2 - lse[c] * kLog2e);
+          if (masked) {
+            const int q_row = q0 + c;
+            if (q_row >= p.Sq || p.q_offset + q_row < k_pos0 + 8 * (e / 2)) {
+              v = 0.0f;
+            }
+          }
+          pr[x] = v;
+          ds[x] = v * (dp[4 * i + e + x] - delta[c]) * p.scale;
+        }
+        pa[i / 2][2 * (i % 2) + e / 2] = pack_bf16(pr[0], pr[1]);
+        da[i / 2][2 * (i % 2) + e / 2] = pack_bf16(ds[0], ds[1]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, the A operands from registers.
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kM / 16; ++kk) {
+      Wgmma<kDp>::rs(dv, pa[kk], mnmajor_desc<C::kM>(sDO, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::kM / 16; ++kk) {
+      Wgmma<kDp>::rs(dk, da[kk], mnmajor_desc<C::kM>(sQ, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    __syncthreads();  // stage st is free for tile qt + 2
+  }
+
+  const long long o_ss = (long long)p.H * D;
+  const long long base = (long long)b * p.Sk * o_ss + (long long)h * D;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = k0 + r0 + 8 * j;
+    if (row < p.Sk) {
+#pragma unroll
+      for (int i = 0; i < kDp / 8; ++i) {
+        const int c = acc_col(i, 0, lane);
+        if (c < D) {
+          const long long at = base + row * o_ss + c;
+          *reinterpret_cast<__nv_bfloat162*>(p.out0 + at) =
+              __floats2bfloat162_rn(dk[4 * i + 2 * j], dk[4 * i + 2 * j + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(p.out1 + at) =
+              __floats2bfloat162_rn(dv[4 * i + 2 * j], dv[4 * i + 2 * j + 1]);
+        }
+      }
+    }
+  }
 }
 
 // A kernel instantiation with its launch shape: threads and shared memory
@@ -1070,15 +683,13 @@ struct Kernel {
   size_t smem;
 };
 
-// Each kernel's tile plan at head dim D: the D <= 128 plan, or the D = 256
-// one.
+// Each kernel's tile plan at head dim D: the D <= 128 plan, or, for K2,
+// the D = 256 one (K1 and K3 at D = 256 are flash_attention_d256.cu's).
 template <int D>
 Kernel fwd_kernel() {
-  constexpr int kWG = D > 128 ? kFwdWG256 : kFwdWG;
-  constexpr int kN = D > 128 ? kFwdN256 : kFwdN;
-  using C = FwdCfg<D, kWG, kN>;
-  return {(const void*)flash_fwd_kernel<D, kWG, kN>, C::kThreads, C::kM,
-          C::kSmem};
+  using C = FwdCfg<D, kFwdWG, kFwdN>;
+  return {(const void*)flash_fwd_kernel<D, kFwdWG, kFwdN>, C::kThreads,
+          C::kM, C::kSmem};
 }
 template <int D>
 Kernel dq_kernel() {
@@ -1090,15 +701,10 @@ Kernel dq_kernel() {
 }
 template <int D>
 Kernel dkv_kernel() {
-  constexpr int kWG = D > 128 ? kDkvWG256 : kDkvWG;
-  constexpr int kM = D > 128 ? kDkvM256 : kDkvM;
-  using C = DkvCfg<D, kWG, kM>;
-  return {(const void*)flash_bwd_dkv_kernel<D, kWG, kM>, C::kThreads, C::kN,
-          C::kSmem};
+  using C = DkvCfg<D, kDkvWG, kDkvM>;
+  return {(const void*)flash_bwd_dkv_kernel<D, kDkvWG, kDkvM>, C::kThreads,
+          C::kN, C::kSmem};
 }
-
-constexpr int kBadHeadDim = -1;
-constexpr int kBadKernel = -2;
 
 // which: 0 = K1, 1 = K2, 2 = K3.
 template <int D>
@@ -1117,7 +723,14 @@ int find_kernel(int which, long long head_dim, Kernel* out) {
     case 32: *out = pick<32>(which); break;
     case 64: *out = pick<64>(which); break;
     case 128: *out = pick<128>(which); break;
-    case 256: *out = pick<256>(which); break;
+    case 256:
+      if (which == 1) {
+        *out = dq_kernel<256>();
+        break;
+      }
+      *out = {nullptr, 0, 0, 0};
+      return rf_d256::kernel_info(which, &out->fn, &out->threads, &out->rows,
+                                  &out->smem);
     default: return kBadHeadDim;
   }
   return out->fn ? 0 : kBadKernel;
@@ -1148,6 +761,7 @@ extern "C" {
 int rf_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, const long long* dims, float scale,
                  void* stream) {
+  if (dims[4] == 256) return rf_d256::fwd(q, k, v, o, lse, dims, scale, stream);
   Params p = make_params(dims, scale);
   p.q = (const bf16*)q;
   p.k = (const bf16*)k;
@@ -1177,6 +791,10 @@ int rf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, const long long* dims, float scale,
                      void* stream) {
+  if (dims[4] == 256) {
+    return rf_d256::dkv(q, k, v, dout, lse, delta, dk, dv, dims, scale,
+                        stream);
+  }
   Params p = make_params(dims, scale);
   p.q = (const bf16*)q;
   p.k = (const bf16*)k;
@@ -1228,6 +846,11 @@ const char* rf_error_string(int code) {
     return "no kernel at this head dim (16, 32, 64, 128 or 256)";
   }
   if (code == kBadKernel) return "no such kernel";
+  if (code == kBadTensorMap) {
+    return "the TMA tensor map refused the layout (cuTensorMapEncodeTiled "
+           "takes a 16-byte aligned start and (b, s, h) strides that are "
+           "multiples of 16 bytes)";
+  }
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -59,6 +59,9 @@ _SIGNATURES = {
 # The f32 kernels (csrc/flash_attention_f32.cu) take the same arguments.
 _SIGNATURES.update({name + "_f32": argtypes
                     for name, argtypes in list(_SIGNATURES.items())})
+# The D = 256 kernels' tile check (csrc/flash_attention_d256.cu): x, dims,
+# b, h, row0, rows, out_tma, out_cp, stream.
+_SIGNATURES["rf_tma_tile_check"] = [_P, _P] + [ctypes.c_int] * 4 + [_P] * 3
 # The device-DMA lane's CUDA IPC calls (csrc/dma_ipc.cu).
 _SIGNATURES.update({
     "rf_dma_handle_size": [],

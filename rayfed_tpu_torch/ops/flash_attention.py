@@ -17,7 +17,8 @@ their plain PyTorch versions (port of ``rayfed_tpu/ops/flash_attention.py``).
 
 The three Pallas TPU kernels take bf16 or f32 inputs; each has two
 hand-written CUDA C++ counterparts for ``sm_90a``, one per dtype: the bf16
-ones on ``wgmma`` (``csrc/flash_attention.cu``), the f32 ones in exact f32
+ones on ``wgmma`` (``csrc/flash_attention.cu``; K1 and K3 at D=256 in
+``csrc/flash_attention_d256.cu``), the f32 ones in exact f32
 (``csrc/flash_attention_f32.cu``): the forward on the CUDA cores, the two
 backward passes on the tensor cores, each f32 product as three TF32
 ``mma.sync`` products:
@@ -51,7 +52,8 @@ lse and the gradients are those of the true D, at the padded D's work
 
 The kernels choose their own tiles (bf16 up to D=128: K1 128 queries x
 128 keys, K2 128 queries x 64 keys, K3 128 keys x 64 queries; bf16 at
-D=256: K1 128 x 64, K2 128 x 32, K3 128 keys x 32 queries in two sweeps;
+D=256: K1 128 x 80 and K3 64 keys x 64 queries, both warp-specialised on
+TMA tensor maps (``csrc/flash_attention_d256.cu``), K2 128 x 32;
 f32 up to D=128: K1 and K2 128 queries x 32 keys, K3 128 keys x 32
 queries; f32 at D=256: K1 128 queries x 16 keys, K2 64 queries x 16
 keys, K3 64 keys x 16 queries, the last two with two warps to each 16
@@ -242,12 +244,19 @@ def _check_qkv(name, x, b, s, h, d, device, dtype, padded=False):
                          f"expected {(b, s, h, d)}")
     if padded:
         return
-    if x.stride(3) != 1 or any(st % 8 for st in x.stride()[:3]) \
-            or x.data_ptr() % 16:
+    bad = [f"stride {st} of dim {i}" for i, st in enumerate(x.stride()[:3])
+           if st % 8]
+    if x.stride(3) != 1:
+        bad.append(f"head-dim stride {x.stride(3)}")
+    if x.data_ptr() % 16:
+        bad.append(f"start {x.data_ptr() % 16} bytes past 16-byte alignment")
+    if bad:
         raise ValueError(
-            f"{name} layout not taken by the kernel: strides {x.stride()} "
-            "need a unit head-dim stride, the others multiples of 8, and a "
-            "16-byte aligned start"
+            f"{name} layout not taken by the kernel ({', '.join(bad)}): "
+            f"strides {x.stride()} need a unit head-dim stride, the others "
+            "multiples of 8 elements (whole 16-byte copies for cp.async and "
+            "the TMA tensor maps of the bf16 D=256 kernels), and a 16-byte "
+            "aligned start"
         )
 
 

@@ -254,3 +254,129 @@ def test_f32_model_takes_the_f32_kernels(cuda_device, width):
             assert {k: n for k, n in fa.LAUNCHES.items() if n}.keys() == {
                 n + sfx for n in names}
     assert abs(losses["auto"] - losses["xla"]) <= 1e-4 * abs(losses["xla"])
+
+
+# The bf16 K1 and K3 at D=256 are warp-specialised: a producer warpgroup
+# feeding TMA copies into a ring, two consumer warpgroups on wgmma
+# (csrc/flash_attention_d256.cu).
+D256_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,row0", [(64, 0), (64, 190), (80, 150),
+                                       (128, 100)])
+def test_tma_tile_matches_cp_async_tile_on_card(cuda_device, rows, row0):
+    # One tile loaded by TMA (the D=256 kernels) and by cp.async (the
+    # D <= 128 kernels' load_sw_tile) lands as the same shared-memory
+    # bytes: the 128-byte swizzle the wgmma descriptors read, rows past S
+    # zero-filled, through a strided (b, s, h) view.
+    import ctypes
+
+    from rayfed_tpu_torch.ops import _native
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows + row0)
+    x = torch.randn((2, 200, 3, 5, 256), generator=g, device=cuda_device,
+                    dtype=torch.float32).to(torch.bfloat16)[:, :, 1]
+    dims = (ctypes.c_longlong * 6)(2, 200, 5, *x.stride()[:3])
+    got = {n: torch.zeros(rows * 512, dtype=torch.uint8, device=cuda_device)
+           for n in ("tma", "cp")}
+    code = _native.lib().rf_tma_tile_check(
+        x.data_ptr(), ctypes.addressof(dims), 1, 3, row0, rows,
+        got["tma"].data_ptr(), got["cp"].data_ptr(),
+        torch.cuda.current_stream(cuda_device).cuda_stream)
+    _native.check(code, "rf_tma_tile_check")
+    torch.cuda.synchronize()
+    assert torch.equal(got["tma"], got["cp"])
+    # Each 64-column block holds `rows` rows of 128 bytes: rows past S =
+    # 200 are zeros, the rest x's values.
+    live = min(rows, 200 - row0) * 128
+    for block in got["tma"].view(4, rows * 128):
+        assert not block[live:].any()
+        assert block[:live].view(torch.bfloat16).float().abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_d256_kernels_resources_on_card(cuda_device):
+    from chip_smoke import kernel_resources
+    from rayfed_tpu_torch.ops import _native
+
+    with open(_native.build() + ".log") as f:
+        log = f.read()
+    for name, r in kernel_resources(log, 256, D256_KERNELS).items():
+        # A producer warpgroup and two consumers; one block per SM; the
+        # launch's registers (168 a thread) are what setmaxnreg moves.
+        assert r["threads"] == 384, (name, r)
+        assert r["blocks_per_sm"] == 1, (name, r)
+        assert r["registers"] <= 168, (name, r)
+        assert 196608 <= r["smem_bytes"] <= 232448, (name, r)
+        assert r["spill_bytes"] == 0, (name, r)
+    assert "Potential Performance Loss" not in "".join(
+        line for line in log.splitlines() if "_d256_cu" in line)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_offset", [0, 64])
+def test_d256_kernels_take_fused_qkv_views_on_card(cuda_device, q_offset):
+    # q, k, v as strided views of one (B, S, 3, H, D) tensor, as a fused
+    # projection gives them: the tensor maps read the (b, s, h) strides.
+    b, s, h, d = 2, 200, 3, 256
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    qkv = torch.randn((b, s, 3, h, d), generator=g, device=cuda_device,
+                      dtype=torch.float32).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn((b, s, h, d), generator=g, device=cuda_device,
+                     dtype=torch.float32).to(torch.bfloat16)
+    assert not q.is_contiguous() and q.stride(1) == 3 * h * d
+    bq = bk = fa._pow2_block(s, 512)
+    o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, bq, bk, q_offset)
+    dq_ref, delta_ref = fa._flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do,
+                                               bq, bk, q_offset)
+    dk_ref, dv_ref = fa._flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta_ref,
+                                             bq, bk, q_offset)
+    fa.reset_launch_counts()
+    o, lse = fa._flash_fwd_cuda(q, k, v, q_offset)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta_ref,
+                                    q_offset)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd_d256"] == 1
+    assert fa.LAUNCHES["flash_bwd_dkv_d256"] == 1
+    assert tile_rel_err(o, o_ref) <= BF16_TILE_REL_TOL
+    assert float((lse - lse_ref).abs().max()) < 1e-3
+    assert tile_rel_err(dk, dk_ref) <= BF16_TILE_REL_TOL
+    assert tile_rel_err(dv, dv_ref) <= BF16_TILE_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,q_offset", [(2, 512, 512, 4, 0),
+                                                (1, 136, 328, 3, 150)])
+def test_d256_kernels_are_deterministic_on_card(cuda_device, b, sq, sk, h,
+                                                q_offset):
+    # No atomics: two launches on the same inputs give the same bits.
+    from chip_smoke import _inputs
+
+    q, k, v, do = _inputs(cuda_device, b, sq, sk, h, 256, 3)
+    o1, lse1 = fa._flash_fwd_cuda(q, k, v, q_offset)
+    o2, lse2 = fa._flash_fwd_cuda(q, k, v, q_offset)
+    _, delta = fa._flash_bwd_dq_cuda(q, k, v, o1, lse1, do, q_offset)
+    dk1, dv1 = fa._flash_bwd_dkv_cuda(q, k, v, do, lse1, delta, q_offset)
+    dk2, dv2 = fa._flash_bwd_dkv_cuda(q, k, v, do, lse1, delta, q_offset)
+    torch.cuda.synchronize()
+    for one, two in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+        assert torch.equal(one, two)
+
+
+@pytest.mark.cuda
+def test_d256_kernels_raise_on_strides_tma_cannot_take(cuda_device):
+    # A TMA tensor map needs (b, s, h) strides of whole 16 bytes: a head
+    # stride of 260 elements (520 bytes) is refused in the wrapper, which
+    # names it, and never goes to another path.
+    x = torch.zeros((1, 64, 2, 260), device=cuda_device,
+                    dtype=torch.bfloat16)[..., :256]
+    y = torch.zeros((1, 64, 2, 256), device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 64, 2), device=cuda_device)
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="stride 260 of dim 2"):
+        fa._flash_fwd_cuda(x, y, y, 0)
+    with pytest.raises(ValueError, match="stride 260 of dim 2"):
+        fa._flash_bwd_dkv_cuda(y, y, x, y, lse, lse, 0)
+    assert not any(fa.LAUNCHES.values())

@@ -39,11 +39,14 @@ def _kinds(name):
 
 
 def test_every_kernel_source_has_its_faults():
-    # One skipped tile per kernel: K1-K3 in bf16 and in f32; one split
-    # fault, in the f32 source, whose K1-K3 split their products.
+    # One skipped tile per kernel: K1-K3 in bf16 and in f32, and the bf16
+    # K1 and K3 at D = 256 in their own source; one split fault, in the
+    # f32 source, whose K1-K3 split their products.
     assert sorted(fc.FAULTS) == ["flash_attention.cu",
+                                 "flash_attention_d256.cu",
                                  "flash_attention_f32.cu"]
     assert _kinds("flash_attention.cu") == ["skip"] * 3
+    assert _kinds("flash_attention_d256.cu") == ["skip"] * 2
     assert _kinds("flash_attention_f32.cu") == ["skip"] * 3 + ["split"]
     assert all(f[3] in fc.FAULT_KINDS
                for faults in fc.FAULTS.values() for f in faults)
@@ -67,7 +70,15 @@ def test_planted_source_inserts_every_fault_after_its_anchor(name):
         len(line) * count for _, line, count, _ in skips)
     # The faults name the tiles the module documents: K1 and K2 a key
     # tile (by step index or first key), K3 a query tile.
-    k1, k2, k3 = (line for _, line, _, _ in skips)
+    lines = [line for _, line, _, _ in skips]
+    if name == "flash_attention_d256.cu":
+        # K1 and K3 at D = 256, warp-specialised: no block-wide barrier to
+        # keep; the skipped tile's scores are masked, its P^T zeroed.
+        k1, k3 = lines
+        assert f"k0 / 64 == {fc.SKIP_KT}) x = kNegBig;" in k1
+        assert f"q0 / 64 == {fc.SKIP_QT}) x[4 * j + e] = 0.0f;" in k3
+        return
+    k1, k2, k3 = lines
     for line in (k1, k2):
         assert (f"kt == {fc.SKIP_KT} " in line
                 or f"k0 / 64 == {fc.SKIP_KT})" in line)
