@@ -27,13 +27,15 @@ with the exact-f32 reading:
 
 - "skip", one fault in each flash kernel, bf16 and f32 (each loop of
   ``flash_attention.cu`` and ``flash_attention_f32.cu`` serves both of
-  its dtype's tile plans but bf16 K1 and K3 at D = 256, which are
-  ``flash_attention_d256.cu``'s): K1 and K2 skip the keys of 64-row tile
-  SKIP_KT, K3 the queries of 64-row tile SKIP_QT (a mid-sequence tile
-  dropped for the late rows or the early keys). Every output (O, dq, dk,
-  dv) of every kernel at both head dims must be past its limit.
-- "split", one fault in the f32 split helper: ``lo`` is zeroed, so each
-  product of the f32 K1, K2 and K3 is one TF32 product. Their exact-f32
+  its dtype's tile plans but the warp-specialised kernels at D = 256:
+  bf16 K1 and K3, ``flash_attention_d256.cu``'s, and f32 K2 and K3,
+  ``flash_attention_f32_d256.cu``'s): K1 and K2 skip the keys of 64-row
+  tile SKIP_KT, K3 the queries of 64-row tile SKIP_QT (a mid-sequence
+  tile dropped for the late rows or the early keys). Every output (O, dq,
+  dk, dv) of every kernel at both head dims must be past its limit.
+- "split", one fault in the f32 split helper (``tf32.cuh``): ``lo`` is
+  zeroed, so each product of the f32 K1, K2 and K3 is one TF32 product.
+  Their exact-f32
   readings (O, lse, dq, dk, dv against a tenth of the TF32 plain
   version's error), at both head dims, must be past their limits; the
   script also prints whether the plain limits alone (2e-5 on O, 1e-4 on
@@ -63,12 +65,13 @@ SKIP_QT = 24  # queries 1536..1599 at a 64-row tile
 # so the ring runs on. K1 and K2 skip the key steps within SKIP_KT (bf16
 # K1 steps 128 keys, so keys 1024..1151, 64 at D = 256; bf16 K2 steps 64,
 # exactly SKIP_KT, 32 at D = 256; f32 K1 and K2 step kN = 32, two steps,
-# 16 at D = 256, four); K3 the query steps within SKIP_QT. The
-# warp-specialised bf16 K1 and K3 at D = 256 run no block-wide barrier:
-# there the fault masks the skipped tile's scores (K1, every key of the
-# tile starting in SKIP_KT's 64 keys) or zeroes its P^T (K3), which both
-# of K3's consumers read. The split fault zeroes the low TF32 part of
-# every split value.
+# K1 16 at D = 256, four); K3 the query steps within SKIP_QT. The
+# warp-specialised kernels at D = 256 run no block-wide barrier: there
+# the fault masks the skipped tile's scores (bf16 K1, every key of the
+# tile starting in SKIP_KT's 64 keys), zeroes its P^T (bf16 K3, which
+# both of its consumers read) or zeroes its P (f32 K2, keys in SKIP_KT's
+# 64; f32 K3, queries in SKIP_QT's 64), which zeroes dS with it. The
+# split fault zeroes the low TF32 part of every split value.
 FAULTS = {
     "flash_attention.cu": [
         # K1: the key-tile loop, once tile kt is in shared memory.
@@ -106,9 +109,24 @@ FAULTS = {
         ("    __syncthreads();  // query tile qt has landed in stage st\n",
          f"    if (q0 / 64 == {SKIP_QT}) {{ __syncthreads(); continue; }}\n",
          1, "skip"),
-        # The split of K1-K3 f32: one TF32 product per f32 product.
+    ],
+    "flash_attention_f32_d256.cu": [
+        # K2 f32 at D = 256: P of a key step, score by score.
+        ("          float pr = expf(s[j][e] * p.scale - lse[e >> 1]);\n",
+         f"          if (k0 / 64 == {SKIP_KT}) pr = 0.f;\n", 1, "skip"),
+        # K3 f32 at D = 256: P^T of a query step, score by score.
+        ("          float pr = expf(s[j][e] * p.scale - lse[c]);\n",
+         f"          if (q0 / 64 == {SKIP_QT}) pr = 0.f;\n", 1, "skip"),
+    ],
+    "tf32.cuh": [
+        # The splits of the f32 kernels (to nearest: K1, and K2 and K3 at D
+        # <= 128; hi = x itself: K2 and K3 at D = 256): one TF32 product
+        # per f32 product.
         ("  lo = __float_as_uint(x - __uint_as_float(hi));\n", "  lo = 0u;\n",
          1, "split"),
+        ("  uint32_t lo = __float_as_uint(x - __uint_as_float(__float_as_uint(x) &\n"
+         "                                                    0xffffe000u));\n",
+         "  lo = 0u;\n", 1, "split"),
     ],
 }
 FAULT_KINDS = ("skip", "split")
@@ -151,8 +169,8 @@ def planted_source(name, text, kind="skip"):
 
 def copy_port(dest, edit):
     """Copy ``chip_smoke.py`` and the port into ``dest`` (emptied first)
-    with each kernel source passed through ``edit(file name, text) ->
-    text``."""
+    with each kernel source and header passed through ``edit(file name,
+    text) -> text``."""
     shutil.rmtree(dest, ignore_errors=True)
     os.makedirs(dest)
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), dest)
@@ -161,7 +179,7 @@ def copy_port(dest, edit):
                     ignore=shutil.ignore_patterns("__pycache__"))
     csrc = os.path.join(dest, "rayfed_tpu_torch", "csrc")
     for name in sorted(os.listdir(csrc)):
-        if name.endswith(".cu"):
+        if name.endswith((".cu", ".cuh")):
             with open(os.path.join(csrc, name)) as f:
                 text = edit(name, f.read())
             with open(os.path.join(csrc, name), "w") as f:

@@ -45,7 +45,7 @@ Phases:
    where the toolkit's ``cuobjdump`` runs, the tensor-core (HMMA, HGMMA),
    FFMA, TMA (UTMALDG) and mbarrier (SYNCS) instructions in each kernel's
    SASS; the bf16 K1 and K3 at D = 256 must issue HGMMA, UTMALDG and
-   SYNCS.
+   SYNCS, the f32 K2 and K3 at D = 256 HMMA, UTMALDG and SYNCS.
 3. kernels: each flash kernel against its plain PyTorch version on the
    card, the bf16 ones and the f32 ones, at the flagship attention shape
    and at small shapes (``q_offset > 0``, ``Sq < Sk``, ragged tiles, every
@@ -412,13 +412,21 @@ PARTIES = (("alice", 1), ("bob", 2))
 # Each TPU kernel (rayfed_tpu/ops/flash_attention.py) takes bf16 or f32
 # and any head dim; the port has a Hopper kernel for each dtype, each in
 # two tile plans (head dims up to 128, and 256), each counted apart
-# (``flash_attention.LAUNCHES``). The bf16 K1 and K3 at D = 256 are
-# warp-specialised kernels in a source of their own.
+# (``flash_attention.LAUNCHES``). The bf16 K1 and K3 and the f32 K2 and K3
+# at D = 256 are warp-specialised kernels in a source of their own each
+# dtype.
 D256_SOURCE_KERNELS = ("flash_fwd_d256", "flash_bwd_dkv_d256")
+F32_D256_SOURCE_KERNELS = ("flash_bwd_dq_f32_d256", "flash_bwd_dkv_f32_d256")
+
+
+def _kernel_source(name, dtype_src):
+    own = "_d256" if name in D256_SOURCE_KERNELS else \
+        "_f32_d256" if name in F32_D256_SOURCE_KERNELS else dtype_src
+    return f"rayfed_tpu_torch/csrc/flash_attention{own}.cu"
+
+
 KERNELS = [
-    dict(name=name + sfx, route="cuda",
-         source="rayfed_tpu_torch/csrc/flash_attention"
-         f"{'_d256' if name + sfx in D256_SOURCE_KERNELS else src}.cu",
+    dict(name=name + sfx, route="cuda", source=_kernel_source(name + sfx, src),
          replaces=f"rayfed_tpu/ops/flash_attention.py:{line}")
     for sfx, src in (("", ""), ("_d256", ""), ("_f32", "_f32"),
                      ("_f32_d256", "_f32"))
@@ -562,9 +570,9 @@ def phase_build(head_dim):
             c = counts.get(f"{name}<{d}>", {})
             print(f"[build] {name}<{d}> SASS: " + ", ".join(
                 f"{c.get(op, 0)} {op}" for op in SASS_OPS + TMA_SASS_OPS))
-            if d == WIDE_HEAD_DIM and name in ("flash_fwd_kernel",
-                                               "flash_bwd_dkv_kernel"):
-                require(all(c.get(op, 0) for op in ("HGMMA",)
+            tensor_op = WARP_SPECIALISED_D256.get(name)
+            if d == WIDE_HEAD_DIM and tensor_op:
+                require(all(c.get(op, 0) for op in (tensor_op,)
                             + TMA_SASS_OPS),
                         f"{name}<{d}> is not the warp-specialised TMA "
                         f"kernel: SASS {c}")
@@ -574,9 +582,13 @@ def phase_build(head_dim):
 KERNEL_RE = r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_f32)?_kernel)ILi(\d+)E"
 # Tensor-core products (mma.sync, wgmma) and CUDA-core f32 multiply-adds.
 SASS_OPS = ("HMMA", "HGMMA", "FFMA")
-# TMA tensor copies and mbarrier operations: the warp-specialised bf16 K1
-# and K3 at D = 256 must issue both.
+# TMA tensor copies and mbarrier operations: the warp-specialised kernels
+# at D = 256 must issue both, beside their tensor-core products (bf16 K1
+# and K3 wgmma, f32 K2 and K3 mma.sync).
 TMA_SASS_OPS = ("UTMALDG", "SYNCS")
+WARP_SPECIALISED_D256 = {
+    "flash_fwd_kernel": "HGMMA", "flash_bwd_dkv_kernel": "HGMMA",
+    "flash_bwd_dq_f32_kernel": "HMMA", "flash_bwd_dkv_f32_kernel": "HMMA"}
 
 
 def sass_counts(path, ops=SASS_OPS):

@@ -66,9 +66,8 @@
 // only when both consumers are done with it, and with the two stages
 // that fit, the next tile's copy would have no time to land.
 
-#include <cuda.h>  // CUtensorMap and its encoding's types; no driver link
-
 #include "flash_attention_d256.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -97,46 +96,14 @@ constexpr int kDkvProducerRegs = 40;
 constexpr int kDkvConsumerRegs = 232;
 
 // ---------------------------------------------------------------------------
-// TMA, mbarriers, named barriers, register hand-over
+// TMA tiles and named barriers (mbarriers and the register hand-over are
+// tma.cuh's)
 // ---------------------------------------------------------------------------
 
 // The tensor maps of a launch: (D, H, S, B) views of q, k, v and dout.
 struct Tma256 {
   CUtensorMap q, k, v, d;
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// Arrive and add `bytes` to the transaction count the phase waits for.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-// A consumer warp is done with a ring stage: one arrival a warp.
-__device__ __forceinline__ void release_stage(uint32_t bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
-}
 
 // Rows [row0, row0 + R) of head h, batch b, all 256 columns, as four
 // 64-column boxes into the R-row swizzled tile at dst (sw_offset<R>'s
@@ -145,15 +112,7 @@ template <int R>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int row0, int h,
                                          int b) {
-#pragma unroll
-  for (int cb = 0; cb < kD / 64; ++cb) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-        :: "r"(dst + cb * R * 128), "l"((uint64_t)map), "r"(bar),
-           "r"(cb * 64), "r"(h), "r"(row0), "r"(b)
-        : "memory");
-  }
+  tma_boxes<R, kD / 64>(dst, map, bar, row0, h, b, 64);
 }
 
 // Named barriers 1.. (0 is __syncthreads) over the two consumers.
@@ -167,31 +126,10 @@ __device__ __forceinline__ void bar_arrive(int id) {
                : "memory");
 }
 
-template <int R>
-__device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-template <int R>
-__device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
-}
-
 // Wait until at most N of this warpgroup's wgmma groups are in flight.
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// The (b * h, row tile) of this block. The launch grid is (B * H, row
-// tiles), but its linear index is read head-major: the blocks of one head
-// run together, so the tiles they stream (K1: K and V; K3: Q and dO) come
-// from device memory once and from L2 for the head's other blocks, where
-// b * h fastest would keep some 132 heads' tiles live at once, far past
-// L2. Within a head, tile t = 0 is the heaviest.
-__device__ __forceinline__ void block_tile(int* bh, int* t) {
-  const long long lin = blockIdx.x + (long long)gridDim.x * blockIdx.y;
-  *bh = (int)(lin / gridDim.y);
-  *t = (int)(lin % gridDim.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -704,58 +642,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ Tma256 tm, const Params p) {
 // Host side
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, reached through the runtime so the library
-// needs no link to the driver.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
-
-// The (D, H, S, B) tensor map of a bf16 (B, S, H, 256) tensor with
-// element strides sb, ss, sh (unit on D), read in boxes of 64 columns x
-// `rows` rows in the 128-byte swizzle; rows past S read as zeros. A dim
-// of size 1 is never stepped, so its stride is given as a contiguous
-// layout's. Returns 0 or kBadTensorMap.
+// The tensor map of a bf16 (B, S, H, 256) tensor (tma.cuh's, in boxes of
+// 64 columns x `rows` rows). Returns 0 or kBadTensorMap.
 int encode_map(CUtensorMap* map, const void* ptr, long long B, long long S,
                long long H, long long sb, long long ss, long long sh,
                int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kBadTensorMap;
-  if (H == 1) sh = kD;
-  if (S == 1) ss = H * sh;
-  if (B == 1) sb = S * ss;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
+  return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kD, B, S,
+                    H, sb, ss, sh, rows) ? 0 : kBadTensorMap;
 }
 
 using FwdC = Fwd256Cfg<kFwd256N, kFwd256Stages>;

@@ -49,7 +49,14 @@
 // hi(a) hi(b), the two corrections issued into the f32 accumulator before
 // the large one (as CUTLASS's OpMultiplyAddFastF32 does); the dropped
 // lo(a) lo(b) term is below 2^-22 of the product, so the sums keep f32's
-// digits where one TF32 product keeps three. Every product is split: S,
+// digits where one TF32 product keeps three. K2 and K3 at D = 256
+// (flash_attention_f32_d256.cu) split otherwise: hi = x itself, which the
+// tensor core reads truncated to TF32, and lo = x - hi read truncated in
+// turn, so each operand reaches the product within 2^-20 |x|, toward
+// zero, and the dropped term is below 2^-20 of the product: two
+// operations a value where the nearest split takes three, 9-11 % faster
+// on an H100, every reading still within the exact-f32 limit (PERF.md).
+// Every product is split: S,
 // then acc += P V (K1); S and dP, then dQ += dS K (K2); S^T and dP^T,
 // then dV += P^T dO and dK += dS^T Q (K3), the register operands P and dS
 // too. The tensor core's f32 accumulation does not round to nearest, so
@@ -74,7 +81,7 @@
 // addressing), and splits them in registers.
 //
 // A block of kW warps owns 16 kW resident rows, 16 a warp (the m16 of its
-// products; in K2 and K3 at D = 256, below, kC = 2 warps to each 16):
+// products; in K1 at D = 256, below, kC warps to each 16):
 // queries in K1; queries with their dO, lse and delta in K2; keys with
 // their values in K3. Every tile is raw f32, split at every read (K1's Q
 // split once, as it lands, into {hi, lo} pairs, was slower: PERF.md).
@@ -101,59 +108,36 @@
 // K1 and K2 mask only a step that crosses the warp's diagonal or the end
 // of the keys.
 //
-// That is the plan for head dims 16, 32, 64 and 128. D = 256 has one of
-// its own (kFwdF32W256 .. kDkvF32C256): a 16-row f32 accumulator 256 wide
-// is 128 registers a thread, K3's dK and dV 256, past the 255 a thread
-// has, and a 128-row tile at row stride 260 floats is 133,120 B, so two
-// of them and a ring of 32-row stages pass the 232,448 B a block has. K1
-// keeps one warp a row group, 8 warps (128 queries, 128-register O
-// accumulators, 255 registers, no spill) against 16-row stages, 199,680
-// B. In K2 and K3, kC = 2 warps share each 16-row group, each owning half
-// of the output columns (its accumulators are then those of D = 128), and
-// each computes the group's whole S and dP itself: the second warp's
-// scores repeat the first's (K2 5/3x the products, K3 1.5x), with no
-// exchange through shared memory. Their blocks hold 4 row groups (64
-// resident rows) in 8 warps against 16-row stages: K2 199,680 B, K3
-// 199,936 B. chip_tile_sweep.py timed the others (PERF.md): K1 with two
-// warps a group is 1.35x slower, K2 and K3 on 4 warps slower still.
+// That is the plan for head dims 16, 32, 64 and 128. K1 has one of its
+// own at D = 256 (kFwdF32W256 .. kFwdF32C256): a 16-row f32 accumulator
+// 256 wide is 128 registers a thread, and a 128-row tile at row stride 260
+// floats is 133,120 B, so two of them and a ring of 32-row stages pass the
+// 232,448 B a block has. K1 keeps one warp a row group, 8 warps (128
+// queries, 128-register O accumulators, 255 registers, no spill) against
+// 16-row stages, 199,680 B; chip_tile_sweep.py timed two warps a group
+// (kFwdF32C256 = 2, each owning half of the output columns) 1.35x slower
+// (PERF.md). K2 and K3 at D = 256 are warp-specialised kernels of their
+// own (flash_attention_f32_d256.cu: a TMA producer warpgroup, two warps to
+// each 16-row group summing half-D partial scores), to which the C entry
+// points below hand that head dim. The split and the TF32 products all of
+// them use are in tf32.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "flash_attention_f32_d256.cuh"
+#include "tf32.cuh"
 
 namespace {
-
-constexpr float kNegBig = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 
 template <int D>
 struct Cfg {
   static constexpr int kLD = D + 4;  // row stride of a D-wide tile
 };
 
-struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* o;
-  const float* dout;
-  const float* lse_in;
-  const float* delta_in;
-  float* out0;      // o (fwd), dq (dq pass), dk (dkv pass)
-  float* out1;      // dv (dkv pass)
-  float* stat_out;  // lse (fwd), delta (dq pass)
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  long long do_sb, do_ss, do_sh;
-  int B, H, Sq, Sk, q_offset;
-  float scale;
-};
-
 // ---------------------------------------------------------------------------
-// Each f32 product as three TF32 mma.sync products
+// Tile plans, and the fragments of row-major tiles
 // ---------------------------------------------------------------------------
 
 // kW groups of 16 resident rows, kC warps a group (each owning D / kC of
@@ -186,56 +170,11 @@ constexpr int kDqF32W = 8;
 constexpr int kDqF32N = 32;
 constexpr int kDkvF32W = 8;
 constexpr int kDkvF32N = 32;
-// D = 256, all against 16-row stages, 8 warps, one block per SM: K1 8
-// row groups of one warp (128 queries), K2 and K3 4 row groups of two
-// warps (64 queries or keys).
+// K1 at D = 256: 8 row groups of one warp (128 queries) against 16-row
+// stages, one block per SM.
 constexpr int kFwdF32W256 = 8;
 constexpr int kFwdF32N256 = 16;
 constexpr int kFwdF32C256 = 1;
-constexpr int kDqF32W256 = 4;
-constexpr int kDqF32N256 = 16;
-constexpr int kDqF32C256 = 2;
-constexpr int kDkvF32W256 = 4;
-constexpr int kDkvF32N256 = 16;
-constexpr int kDkvF32C256 = 2;
-
-// x as hi + lo for the TF32 products. hi is x rounded to TF32 (10
-// mantissa bits, to nearest, ties away from zero, low 13 bits clear):
-// for finite x the bits of cvt.rna.tf32.f32, which compiles to an inf/NaN
-// test, a predicated add and a mask, where this is an add and a mask
-// (every value here is finite). lo = x - hi is exact in f32 and goes to
-// the product as it is: a TF32 operand is read from its upper 19 bits, so
-// the product takes lo rounded toward zero, within 2^-21 |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a b, a 16 x 8 (row) by 8 x 8 (col) TF32 product into f32. With
-// g = lane / 4, t = lane % 4 a thread holds A's (g, t), (g + 8, t),
-// (g, t + 4), (g + 8, t + 4), B's (k t, n g), (k t + 4, n g) and the
-// accumulator's (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in f32: the corrections lo(a) hi(b) and hi(a) lo(b) first,
-// then hi(a) hi(b).
-__device__ __forceinline__ void mma_f32(float (&d)[4],
-                                        const uint32_t (&a_hi)[4],
-                                        const uint32_t (&a_lo)[4],
-                                        const uint32_t (&b_hi)[2],
-                                        const uint32_t (&b_lo)[2]) {
-  mma_tf32(d, a_lo, b_hi);
-  mma_tf32(d, a_hi, b_lo);
-  mma_tf32(d, a_hi, b_hi);
-}
 
 // A fragment, split: rows r0 .. r0 + 15 and columns k0 .. k0 + 7 of a
 // row-major tile of row stride LD.
@@ -497,10 +436,10 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
 // scale - lse) and dS = P (dP - delta) scale in registers, dQ += dS K.
 // ---------------------------------------------------------------------------
 
-template <int D, int kW, int kN, int kC>
-__global__ void __launch_bounds__(32 * kW * kC, 1)
+template <int D, int kW, int kN>
+__global__ void __launch_bounds__(32 * kW, 1)
     flash_bwd_dq_f32_kernel(const Params p) {
-  using C = TcCfg<D, kW, kN, kC>;
+  using C = TcCfg<D, kW, kN, 1>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* DOs = Qs + C::kResident;
@@ -509,8 +448,7 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
   // The last query tiles see the most keys: they go in the first wave.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kM;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = threadIdx.x / 32 / kC * 16;     // this warp's first row
-  const int c0 = threadIdx.x / 32 % kC * C::kDC;  // and output column
+  const int r0 = threadIdx.x / 32 * 16;  // this warp's first row
   const float* q = p.q + b * p.q_sb + h * p.q_sh;
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
   const float* v = p.v + b * p.v_sb + h * p.v_sh;
@@ -544,7 +482,7 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
     const long long at = ((long long)b * p.Sq + row) * p.H + h;
     delta[e] = sum;
     lse[e] = valid ? p.lse_in[at] : 0.f;
-    if (valid && t == 0 && c0 == 0) p.stat_out[at] = sum;
+    if (valid && t == 0) p.stat_out[at] = sum;
   }
 
   // This warp's first and last query positions.
@@ -552,7 +490,7 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
   const int q_last = p.q_offset + min(q0 + r0 + 15, p.Sq - 1);
   const int block_last = p.q_offset + min(q0 + C::kM, p.Sq) - 1;
   const int n_kt = min(block_last / kN + 1, (p.Sk + kN - 1) / kN);
-  float dq[C::kDC / 8][4] = {};
+  float dq[D / 8][4] = {};
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int st = kt & 1;
@@ -587,7 +525,7 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
           s[j][e] = pr * (dp[j][e] - delta[e >> 1]) * p.scale;  // dS
         }
       }
-      pv_tc<D, kN, C::kDC>(s, Ks + c0, dq);
+      pv_tc<D, kN, D>(s, Ks, dq);
     }
     __syncthreads();  // stage st is free for tile kt + 2
   }
@@ -599,8 +537,8 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
     const int row = q0 + r0 + g + 8 * e;
     if (row < p.Sq) {
 #pragma unroll
-      for (int i = 0; i < C::kDC / 8; ++i) {
-        *reinterpret_cast<float2*>(dqb + row * o_ss + c0 + 8 * i + 2 * t) =
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<float2*>(dqb + row * o_ss + 8 * i + 2 * t) =
             make_float2(dq[i][2 * e], dq[i][2 * e + 1]);
       }
     }
@@ -614,10 +552,10 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
 // P^T and dS^T in registers, dV += P^T dO, dK += dS^T Q.
 // ---------------------------------------------------------------------------
 
-template <int D, int kW, int kN, int kC>
-__global__ void __launch_bounds__(32 * kW * kC, 1)
+template <int D, int kW, int kN>
+__global__ void __launch_bounds__(32 * kW, 1)
     flash_bwd_dkv_f32_kernel(const Params p) {
-  using C = TcCfg<D, kW, kN, kC>;
+  using C = TcCfg<D, kW, kN, 1>;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + C::kResident;
@@ -627,8 +565,7 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
   // The first key tiles see the most queries, and run in the first wave.
   const int k0 = blockIdx.y * C::kM;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = threadIdx.x / 32 / kC * 16;     // this warp's first row
-  const int c0 = threadIdx.x / 32 % kC * C::kDC;  // and output column
+  const int r0 = threadIdx.x / 32 * 16;  // this warp's first row
   const int k_first = k0 + r0;           // and its first key
   const float* q = p.q + b * p.q_sb + h * p.q_sh;
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
@@ -661,7 +598,7 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
     load_stage(0, qt0);
     cp_async_commit();
   }
-  float dk[C::kDC / 8][4] = {}, dv[C::kDC / 8][4] = {};
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int st = (qt - qt0) & 1;
@@ -702,7 +639,7 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
           s[j][e] = pr;  // P^T
         }
       }
-      pv_tc<D, kN, C::kDC>(s, DOs + c0, dv);
+      pv_tc<D, kN, D>(s, DOs, dv);
       float dp[kN / 8][4] = {};
       scores_tc<D, kN>(Vs, r0, DOs, dp);  // dP^T
 #pragma unroll
@@ -713,7 +650,7 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
           dp[j][e] = s[j][e] * (dp[j][e] - delta[c]) * p.scale;  // dS^T
         }
       }
-      pv_tc<D, kN, C::kDC>(dp, Qs + c0, dk);
+      pv_tc<D, kN, D>(dp, Qs, dk);
     }
     __syncthreads();  // stage st is free for tile qt + 2
   }
@@ -725,8 +662,8 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
     const int row = k0 + r0 + g + 8 * e;
     if (row < p.Sk) {
 #pragma unroll
-      for (int i = 0; i < C::kDC / 8; ++i) {
-        const long long at = base + row * o_ss + c0 + 8 * i + 2 * t;
+      for (int i = 0; i < D / 8; ++i) {
+        const long long at = base + row * o_ss + 8 * i + 2 * t;
         *reinterpret_cast<float2*>(p.out0 + at) =
             make_float2(dk[i][2 * e], dk[i][2 * e + 1]);
         *reinterpret_cast<float2*>(p.out1 + at) =
@@ -734,24 +671,6 @@ __global__ void __launch_bounds__(32 * kW * kC, 1)
       }
     }
   }
-}
-
-// dims: B, Sq, Sk, H, D, q_offset, then the (b, s, h) element strides of
-// q, k, v, o and dout (15 values; unused ones may be 0).
-Params make_params(const long long* dims, float scale) {
-  Params p = {};
-  p.B = (int)dims[0];
-  p.Sq = (int)dims[1];
-  p.Sk = (int)dims[2];
-  p.H = (int)dims[3];
-  p.q_offset = (int)dims[5];
-  p.q_sb = dims[6];  p.q_ss = dims[7];  p.q_sh = dims[8];
-  p.k_sb = dims[9];  p.k_ss = dims[10]; p.k_sh = dims[11];
-  p.v_sb = dims[12]; p.v_ss = dims[13]; p.v_sh = dims[14];
-  p.o_sb = dims[15]; p.o_ss = dims[16]; p.o_sh = dims[17];
-  p.do_sb = dims[18]; p.do_ss = dims[19]; p.do_sh = dims[20];
-  p.scale = scale;
-  return p;
 }
 
 // A kernel instantiation with its launch shape: threads, rows of the
@@ -765,7 +684,7 @@ struct Kernel {
 };
 
 // Each kernel's tile plan at head dim D: the D <= 128 plan (one warp a
-// row group), or the D = 256 one.
+// row group), or K1's D = 256 one.
 template <int D>
 Kernel fwd_kernel() {
   constexpr int kW = D > 128 ? kFwdF32W256 : kFwdF32W;
@@ -777,21 +696,15 @@ Kernel fwd_kernel() {
 }
 template <int D>
 Kernel dq_kernel() {
-  constexpr int kW = D > 128 ? kDqF32W256 : kDqF32W;
-  constexpr int kN = D > 128 ? kDqF32N256 : kDqF32N;
-  constexpr int kC = D > 128 ? kDqF32C256 : 1;
-  using C = TcCfg<D, kW, kN, kC>;
-  return {(const void*)flash_bwd_dq_f32_kernel<D, kW, kN, kC>, C::kThreads,
-          C::kM, C::kSmemDq};
+  using C = TcCfg<D, kDqF32W, kDqF32N, 1>;
+  return {(const void*)flash_bwd_dq_f32_kernel<D, kDqF32W, kDqF32N>,
+          C::kThreads, C::kM, C::kSmemDq};
 }
 template <int D>
 Kernel dkv_kernel() {
-  constexpr int kW = D > 128 ? kDkvF32W256 : kDkvF32W;
-  constexpr int kN = D > 128 ? kDkvF32N256 : kDkvF32N;
-  constexpr int kC = D > 128 ? kDkvF32C256 : 1;
-  using C = TcCfg<D, kW, kN, kC>;
-  return {(const void*)flash_bwd_dkv_f32_kernel<D, kW, kN, kC>, C::kThreads,
-          C::kM, C::kSmemDkv};
+  using C = TcCfg<D, kDkvF32W, kDkvF32N, 1>;
+  return {(const void*)flash_bwd_dkv_f32_kernel<D, kDkvF32W, kDkvF32N>,
+          C::kThreads, C::kM, C::kSmemDkv};
 }
 
 // which: 0 = K1, 1 = K2, 2 = K3.
@@ -805,17 +718,20 @@ Kernel pick(int which) {
   return {nullptr, 0, 0, 0};
 }
 
-// The codes rf_error_string (flash_attention.cu) names.
-constexpr int kBadHeadDim = -1;
-constexpr int kBadKernel = -2;
-
 int find_kernel(int which, long long head_dim, Kernel* out) {
   switch (head_dim) {
     case 16: *out = pick<16>(which); break;
     case 32: *out = pick<32>(which); break;
     case 64: *out = pick<64>(which); break;
     case 128: *out = pick<128>(which); break;
-    case 256: *out = pick<256>(which); break;
+    case 256:
+      if (which == 0) {
+        *out = fwd_kernel<256>();
+        break;
+      }
+      *out = {nullptr, 0, 0, 0};
+      return rf_f32_d256::kernel_info(which, &out->fn, &out->threads,
+                                      &out->rows, &out->smem);
     default: return kBadHeadDim;
   }
   return out->fn ? 0 : kBadKernel;
@@ -857,6 +773,10 @@ int rf_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
                         void* dq, void* delta, const long long* dims,
                         float scale, void* stream) {
+  if (dims[4] == 256) {
+    return rf_f32_d256::dq(q, k, v, o, dout, lse, dq, delta, dims, scale,
+                           stream);
+  }
   Params p = make_params(dims, scale);
   p.q = (const float*)q;
   p.k = (const float*)k;
@@ -873,6 +793,10 @@ int rf_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, const long long* dims,
                          float scale, void* stream) {
+  if (dims[4] == 256) {
+    return rf_f32_d256::dkv(q, k, v, dout, lse, delta, dk, dv, dims, scale,
+                            stream);
+  }
   Params p = make_params(dims, scale);
   p.q = (const float*)q;
   p.k = (const float*)k;

@@ -56,7 +56,8 @@ _SIGNATURES = {
     # kernel, head dim, int* rows out
     "rf_kernel_rows": [ctypes.c_int, ctypes.c_int, _P],
 }
-# The f32 kernels (csrc/flash_attention_f32.cu) take the same arguments.
+# The f32 kernels (csrc/flash_attention_f32.cu, K2 and K3 at D = 256 in
+# csrc/flash_attention_f32_d256.cu) take the same arguments.
 _SIGNATURES.update({name + "_f32": argtypes
                     for name, argtypes in list(_SIGNATURES.items())})
 # The D = 256 kernels' tile check (csrc/flash_attention_d256.cu): x, dims,

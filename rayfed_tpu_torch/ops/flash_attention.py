@@ -19,9 +19,9 @@ The three Pallas TPU kernels take bf16 or f32 inputs; each has two
 hand-written CUDA C++ counterparts for ``sm_90a``, one per dtype: the bf16
 ones on ``wgmma`` (``csrc/flash_attention.cu``; K1 and K3 at D=256 in
 ``csrc/flash_attention_d256.cu``), the f32 ones in exact f32
-(``csrc/flash_attention_f32.cu``): the forward on the CUDA cores, the two
-backward passes on the tensor cores, each f32 product as three TF32
-``mma.sync`` products:
+(``csrc/flash_attention_f32.cu``; K2 and K3 at D=256 in
+``csrc/flash_attention_f32_d256.cu``), each f32 product as three TF32
+``mma.sync`` products on the tensor cores:
 
 - ``_flash_fwd_cuda`` launches ``flash_fwd_kernel`` or
   ``flash_fwd_f32_kernel``, which replace ``_flash_kernel`` (the forward);
@@ -56,8 +56,9 @@ D=256: K1 128 x 80 and K3 64 keys x 64 queries, both warp-specialised on
 TMA tensor maps (``csrc/flash_attention_d256.cu``), K2 128 x 32;
 f32 up to D=128: K1 and K2 128 queries x 32 keys, K3 128 keys x 32
 queries; f32 at D=256: K1 128 queries x 16 keys, K2 64 queries x 16
-keys, K3 64 keys x 16 queries, the last two with two warps to each 16
-rows) and mask ragged edges, whatever ``block_q``/``block_k`` say; the
+keys and K3 64 keys x 16 queries, both warp-specialised on TMA tensor
+maps with two warps to each 16 rows, each computing the scores over half
+of D) and mask ragged edges, whatever ``block_q``/``block_k`` say; the
 block sizes drive the plain versions. The launch grid is (B·H, row tiles): B·H may reach
 2^31-1, the row tiles of the tiled sequence (Sq for K1 and K2, Sk for K3;
 each kernel's own tile height at its head dim, read from the kernel
@@ -255,7 +256,7 @@ def _check_qkv(name, x, b, s, h, d, device, dtype, padded=False):
             f"{name} layout not taken by the kernel ({', '.join(bad)}): "
             f"strides {x.stride()} need a unit head-dim stride, the others "
             "multiples of 8 elements (whole 16-byte copies for cp.async and "
-            "the TMA tensor maps of the bf16 D=256 kernels), and a 16-byte "
+            "the TMA tensor maps of the D=256 kernels), and a 16-byte "
             "aligned start"
         )
 

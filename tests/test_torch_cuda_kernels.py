@@ -111,7 +111,7 @@ def test_wide_head_dim_kernels_do_not_spill(cuda_device, dtype):
     res = kernel_resources(log, 256, kernels)
     for name, r in res.items():
         assert r["spill_bytes"] == 0, (name, r)
-        assert r["blocks_per_sm"] >= 1, (name, r)
+        assert r["blocks_per_sm"] == 1, (name, r)
         assert r["registers"] <= 255, (name, r)
         assert r["smem_bytes"] <= 232448, (name, r)
 
@@ -258,8 +258,10 @@ def test_f32_model_takes_the_f32_kernels(cuda_device, width):
 
 # The bf16 K1 and K3 at D=256 are warp-specialised: a producer warpgroup
 # feeding TMA copies into a ring, two consumer warpgroups on wgmma
-# (csrc/flash_attention_d256.cu).
+# (csrc/flash_attention_d256.cu). So are the f32 K2 and K3 at D=256, on
+# mma.sync (csrc/flash_attention_f32_d256.cu).
 D256_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+F32_D256_KERNELS = ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel")
 
 
 @pytest.mark.cuda
@@ -302,7 +304,8 @@ def test_d256_kernels_resources_on_card(cuda_device):
 
     with open(_native.build() + ".log") as f:
         log = f.read()
-    for name, r in kernel_resources(log, 256, D256_KERNELS).items():
+    for name, r in kernel_resources(log, 256,
+                                    D256_KERNELS + F32_D256_KERNELS).items():
         # A producer warpgroup and two consumers; one block per SM; the
         # launch's registers (168 a thread) are what setmaxnreg moves.
         assert r["threads"] == 384, (name, r)
@@ -318,32 +321,45 @@ def test_d256_kernels_resources_on_card(cuda_device):
 @pytest.mark.parametrize("q_offset", [0, 64])
 def test_d256_kernels_take_fused_qkv_views_on_card(cuda_device, q_offset):
     # q, k, v as strided views of one (B, S, 3, H, D) tensor, as a fused
-    # projection gives them: the tensor maps read the (b, s, h) strides.
+    # projection gives them: the tensor maps read the (b, s, h) strides
+    # (bf16 K1 and K3; f32 K2 and K3).
     b, s, h, d = 2, 200, 3, 256
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda_device).manual_seed(7)
     qkv = torch.randn((b, s, 3, h, d), generator=g, device=cuda_device,
-                      dtype=torch.float32).to(torch.bfloat16)
-    q, k, v = qkv.unbind(2)
-    do = torch.randn((b, s, h, d), generator=g, device=cuda_device,
-                     dtype=torch.float32).to(torch.bfloat16)
-    assert not q.is_contiguous() and q.stride(1) == 3 * h * d
+                      dtype=torch.float32)
+    do32 = torch.randn((b, s, h, d), generator=g, device=cuda_device,
+                       dtype=torch.float32)
     bq = bk = fa._pow2_block(s, 512)
-    o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, bq, bk, q_offset)
-    dq_ref, delta_ref = fa._flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do,
-                                               bq, bk, q_offset)
-    dk_ref, dv_ref = fa._flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta_ref,
-                                             bq, bk, q_offset)
-    fa.reset_launch_counts()
-    o, lse = fa._flash_fwd_cuda(q, k, v, q_offset)
-    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta_ref,
-                                    q_offset)
-    torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_fwd_d256"] == 1
-    assert fa.LAUNCHES["flash_bwd_dkv_d256"] == 1
-    assert tile_rel_err(o, o_ref) <= BF16_TILE_REL_TOL
-    assert float((lse - lse_ref).abs().max()) < 1e-3
-    assert tile_rel_err(dk, dk_ref) <= BF16_TILE_REL_TOL
-    assert tile_rel_err(dv, dv_ref) <= BF16_TILE_REL_TOL
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = qkv.to(dtype).unbind(2)
+        do = do32.to(dtype)
+        assert not q.is_contiguous() and q.stride(1) == 3 * h * d
+        o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, bq, bk, q_offset)
+        dq_ref, delta_ref = fa._flash_bwd_dq_plain(q, k, v, o_ref, lse_ref,
+                                                   do, bq, bk, q_offset)
+        dk_ref, dv_ref = fa._flash_bwd_dkv_plain(q, k, v, do, lse_ref,
+                                                 delta_ref, bq, bk, q_offset)
+        fa.reset_launch_counts()
+        o, lse = fa._flash_fwd_cuda(q, k, v, q_offset)
+        dq, delta = fa._flash_bwd_dq_cuda(q, k, v, o_ref, lse_ref, do,
+                                          q_offset)
+        dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta_ref,
+                                        q_offset)
+        torch.cuda.synchronize()
+        sfx = "_d256" if dtype == torch.bfloat16 else "_f32_d256"
+        assert {n: c for n, c in fa.LAUNCHES.items() if c} == {
+            n + sfx: 1 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        assert float((lse - lse_ref).abs().max()) < 1e-3
+        assert float((delta - delta_ref).abs().max()) < 1e-3
+        if dtype == torch.bfloat16:
+            for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref),
+                              (dv, dv_ref)):
+                assert tile_rel_err(got, want) <= BF16_TILE_REL_TOL
+        else:
+            assert _max_abs(o, o_ref) <= 2e-5
+            for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+                assert _max_abs(got, want) <= 3e-4
 
 
 @pytest.mark.cuda
@@ -351,32 +367,43 @@ def test_d256_kernels_take_fused_qkv_views_on_card(cuda_device, q_offset):
                                                 (1, 136, 328, 3, 150)])
 def test_d256_kernels_are_deterministic_on_card(cuda_device, b, sq, sk, h,
                                                 q_offset):
-    # No atomics: two launches on the same inputs give the same bits.
+    # No atomics: two launches on the same inputs give the same bits, in
+    # both dtypes (the f32 K2 and K3 sum each pair's partial scores in a
+    # fixed order).
     from chip_smoke import _inputs
 
-    q, k, v, do = _inputs(cuda_device, b, sq, sk, h, 256, 3)
-    o1, lse1 = fa._flash_fwd_cuda(q, k, v, q_offset)
-    o2, lse2 = fa._flash_fwd_cuda(q, k, v, q_offset)
-    _, delta = fa._flash_bwd_dq_cuda(q, k, v, o1, lse1, do, q_offset)
-    dk1, dv1 = fa._flash_bwd_dkv_cuda(q, k, v, do, lse1, delta, q_offset)
-    dk2, dv2 = fa._flash_bwd_dkv_cuda(q, k, v, do, lse1, delta, q_offset)
-    torch.cuda.synchronize()
-    for one, two in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
-        assert torch.equal(one, two)
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do = _inputs(cuda_device, b, sq, sk, h, 256, 3, dtype)
+        o1, lse1 = fa._flash_fwd_cuda(q, k, v, q_offset)
+        o2, lse2 = fa._flash_fwd_cuda(q, k, v, q_offset)
+        dq1, delta1 = fa._flash_bwd_dq_cuda(q, k, v, o1, lse1, do, q_offset)
+        dq2, delta2 = fa._flash_bwd_dq_cuda(q, k, v, o1, lse1, do, q_offset)
+        dk1, dv1 = fa._flash_bwd_dkv_cuda(q, k, v, do, lse1, delta1,
+                                          q_offset)
+        dk2, dv2 = fa._flash_bwd_dkv_cuda(q, k, v, do, lse1, delta1,
+                                          q_offset)
+        torch.cuda.synchronize()
+        for one, two in ((o1, o2), (lse1, lse2), (dq1, dq2),
+                         (delta1, delta2), (dk1, dk2), (dv1, dv2)):
+            assert torch.equal(one, two), dtype
 
 
 @pytest.mark.cuda
 def test_d256_kernels_raise_on_strides_tma_cannot_take(cuda_device):
-    # A TMA tensor map needs (b, s, h) strides of whole 16 bytes: a head
-    # stride of 260 elements (520 bytes) is refused in the wrapper, which
-    # names it, and never goes to another path.
-    x = torch.zeros((1, 64, 2, 260), device=cuda_device,
-                    dtype=torch.bfloat16)[..., :256]
-    y = torch.zeros((1, 64, 2, 256), device=cuda_device, dtype=torch.bfloat16)
+    # A TMA tensor map needs (b, s, h) strides of whole 16 bytes, and the
+    # wrapper asks whole 8 elements of both dtypes: a head stride of 260
+    # elements (520 bytes in bf16) is refused there, the stride named, and
+    # never goes to another path.
     lse = torch.zeros((1, 64, 2), device=cuda_device)
     fa.reset_launch_counts()
-    with pytest.raises(ValueError, match="stride 260 of dim 2"):
-        fa._flash_fwd_cuda(x, y, y, 0)
-    with pytest.raises(ValueError, match="stride 260 of dim 2"):
-        fa._flash_bwd_dkv_cuda(y, y, x, y, lse, lse, 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros((1, 64, 2, 260), device=cuda_device,
+                        dtype=dtype)[..., :256]
+        y = torch.zeros((1, 64, 2, 256), device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError, match="stride 260 of dim 2"):
+            fa._flash_fwd_cuda(x, y, y, 0)
+        with pytest.raises(ValueError, match="stride 260 of dim 2"):
+            fa._flash_bwd_dq_cuda(y, x, y, y, lse, y, 0)
+        with pytest.raises(ValueError, match="stride 260 of dim 2"):
+            fa._flash_bwd_dkv_cuda(y, y, x, y, lse, lse, 0)
     assert not any(fa.LAUNCHES.values())

@@ -39,15 +39,23 @@ def _kinds(name):
 
 
 def test_every_kernel_source_has_its_faults():
-    # One skipped tile per kernel: K1-K3 in bf16 and in f32, and the bf16
-    # K1 and K3 at D = 256 in their own source; one split fault, in the
-    # f32 source, whose K1-K3 split their products.
+    # One skipped tile per kernel: K1-K3 in bf16 and in f32, the bf16 K1
+    # and K3 and the f32 K2 and K3 at D = 256 in their own sources; one
+    # split fault, in the f32 kernels' shared split (tf32.cuh), with which
+    # all of their products are split.
     assert sorted(fc.FAULTS) == ["flash_attention.cu",
                                  "flash_attention_d256.cu",
-                                 "flash_attention_f32.cu"]
+                                 "flash_attention_f32.cu",
+                                 "flash_attention_f32_d256.cu", "tf32.cuh"]
     assert _kinds("flash_attention.cu") == ["skip"] * 3
     assert _kinds("flash_attention_d256.cu") == ["skip"] * 2
-    assert _kinds("flash_attention_f32.cu") == ["skip"] * 3 + ["split"]
+    assert _kinds("flash_attention_f32.cu") == ["skip"] * 3
+    assert _kinds("flash_attention_f32_d256.cu") == ["skip"] * 2
+    assert _kinds("tf32.cuh") == ["split"] * 2
+    # Both f32 kernel sources take the split from that header.
+    for name in ("flash_attention_f32.cu", "flash_attention_f32_d256.cu"):
+        assert '#include "tf32.cuh"' in _source(name)
+        assert "lo = __float_as_uint" not in _source(name)
     assert all(f[3] in fc.FAULT_KINDS
                for faults in fc.FAULTS.values() for f in faults)
 
@@ -71,6 +79,17 @@ def test_planted_source_inserts_every_fault_after_its_anchor(name):
     # The faults name the tiles the module documents: K1 and K2 a key
     # tile (by step index or first key), K3 a query tile.
     lines = [line for _, line, _, _ in skips]
+    if not lines:
+        # tf32.cuh: only the split fault, planted on request.
+        assert planted == text
+        return
+    if name == "flash_attention_f32_d256.cu":
+        # K2 and K3 f32 at D = 256, warp-specialised: the skipped tile's P
+        # (K2) or P^T (K3) is zeroed, and dS with it.
+        k2, k3 = lines
+        assert f"k0 / 64 == {fc.SKIP_KT}) pr = 0.f;" in k2
+        assert f"q0 / 64 == {fc.SKIP_QT}) pr = 0.f;" in k3
+        return
     if name == "flash_attention_d256.cu":
         # K1 and K3 at D = 256, warp-specialised: no block-wide barrier to
         # keep; the skipped tile's scores are masked, its P^T zeroed.
@@ -90,15 +109,19 @@ def test_planted_source_inserts_every_fault_after_its_anchor(name):
 
 
 def test_split_fault_makes_one_tf32_product_of_each_f32_product():
-    name = "flash_attention_f32.cu"
+    name = "tf32.cuh"
     text = _source(name)
     planted = fc.planted_source(name, text, "split")
-    (anchor, line, count, _), = [f for f in fc.FAULTS[name]
-                                 if f[3] == "split"]
-    # lo is zeroed right after the split computes it, and nothing else
+    splits = [f for f in fc.FAULTS[name] if f[3] == "split"]
+    assert len(splits) == 2  # the nearest split, and hi = x with tf32_lo
+    # lo is zeroed right after each split computes it, and nothing else
     # changes: no tile is skipped.
-    assert planted == text.replace(anchor, anchor + line)
-    assert "lo = 0u;" in line and "hi =" in text.split(anchor)[0][-200:]
+    want = text
+    for anchor, line, count, _ in splits:
+        assert count == 1 and "lo = 0u;" in line
+        want = want.replace(anchor, anchor + line)
+    assert planted == want
+    assert "hi =" in text.split(splits[0][0])[0][-200:]
     assert fc.planted_source("flash_attention.cu",
                              _source("flash_attention.cu"), "split") \
         == _source("flash_attention.cu")
@@ -118,3 +141,18 @@ def test_planted_source_refuses_a_source_without_an_anchor(name):
     anchor = fc.FAULTS[name][0][0]
     with pytest.raises(ValueError, match="fault anchor found 0 times"):
         fc.planted_source(name, _source(name).replace(anchor, ""))
+
+
+def test_copy_port_passes_sources_and_headers_through_the_edit(tmp_path):
+    # The split fault lives in a header (tf32.cuh): copy_port must hand
+    # headers to the edit as well as sources.
+    seen = []
+
+    def edit(name, text):
+        seen.append(name)
+        return text
+
+    fc.copy_port(str(tmp_path / "copy"), edit)
+    assert "tf32.cuh" in seen and "flash_attention_f32_d256.cu" in seen
+    assert sorted(seen) == sorted(n for n in os.listdir(CSRC)
+                                  if n.endswith((".cu", ".cuh")))

@@ -285,14 +285,17 @@ def test_chip_smoke_kernel_line_lists_both_plans_of_both_dtypes():
     assert set(names) == set(
         chip_smoke.BF16_KERNELS + chip_smoke.WIDE_KERNELS
         + chip_smoke.F32_KERNELS + chip_smoke.F32_WIDE_KERNELS)
-    # The bf16 K1 and K3 at D=256 are warp-specialised kernels of their
-    # own source; the rest are their dtype's source's.
+    # The bf16 K1 and K3 and the f32 K2 and K3 at D=256 are
+    # warp-specialised kernels of their own source each dtype; the rest
+    # are their dtype's source's.
     for k in chip_smoke.KERNELS:
         f32 = "_f32" in k["name"]
-        own = k["name"] in ("flash_fwd_d256", "flash_bwd_dkv_d256")
+        own = k["name"] in ("flash_fwd_d256", "flash_bwd_dkv_d256",
+                            "flash_bwd_dq_f32_d256", "flash_bwd_dkv_f32_d256")
         assert k["source"].endswith(
-            "flash_attention_f32.cu" if f32
-            else "flash_attention_d256.cu" if own else "flash_attention.cu")
+            ("flash_attention_f32_d256.cu" if own else "flash_attention_f32.cu")
+            if f32 else "flash_attention_d256.cu" if own
+            else "flash_attention.cu")
     # Each plan's row names the TPU kernel its D <= 128 row names.
     line = {k["name"]: k["replaces"] for k in chip_smoke.KERNELS}
     for n in chip_smoke.BF16_KERNELS:

@@ -17,6 +17,7 @@ each tile constant is defined there once and is rewritten as asked. CPU
 only (the card run builds and times the copies)."""
 
 import os
+import re
 
 import pytest
 
@@ -77,3 +78,15 @@ def test_f32_forward_geometry_is_swept_in_the_f32_source():
 def test_tiled_source_refuses_a_constant_it_cannot_find():
     with pytest.raises(ValueError, match="defined 0 times"):
         sweep.tiled_source("int x;", {"kFwdN": 64})
+
+
+def test_mma_rate_times_the_product_the_f32_kernels_issue():
+    # The `mma` argument's kernel issues the very instruction of
+    # tf32.cuh's mma_tf32, and its rate counts 2 x 16 x 8 x 8 operations
+    # a product.
+    (instr,) = re.findall(r'"(mma\.sync[^ ]*) "', _source("tf32.cuh"))
+    assert f'"{instr} "' in sweep.MMA_SOURCE
+    assert sweep.mma_tflops(1, 1, 1, 1, 2048e-12) == 1.0
+    assert max(sweep.MMA_CHAINS) == 8  # the template's largest
+    with pytest.raises(ValueError, match="not a tile setting"):
+        sweep.parse_setting("mma")  # main takes it before parse_setting
